@@ -1,0 +1,86 @@
+"""Greedy autoregressive decoding with a KV cache.
+
+The port of ``ecg_byte_tpu/infer/decode.py``: prefill, then one
+``decode_step`` per new token in a Python loop (where JAX compiles a
+``lax.while_loop``).  The rules are the same: the prompt is sliced off the
+output, rows after their eos are filled with pad, and generation stops once
+every row has emitted eos.  Step ``step`` writes cache slot
+``s_prompt + step - 1`` and marks it valid before attending.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ecg_byte_tpu_torch.models import transformer as T
+from ecg_byte_tpu_torch.models.config import TransformerConfig
+
+
+@torch.inference_mode()
+def greedy_generate(
+    params,
+    config: TransformerConfig,
+    input_ids: torch.Tensor,
+    attn_mask: Optional[torch.Tensor] = None,
+    *,
+    max_new_tokens: int = 128,
+    eos_token_id: int = -1,
+    pad_token_id: int = 0,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """Greedy-decode continuations of left-padded prompts.
+
+    Args:
+      input_ids: (B, S) prompt token ids.
+      attn_mask: (B, S) validity mask (1 = valid), default all valid.
+      stats: if given, filled with ``prompt_len``, ``prefill_s``,
+        ``decode_s`` and ``decode_steps`` (host clock; the device is
+        synchronised after prefill and after the last step).
+
+    Returns:
+      (B, max_new_tokens) int32: only the new tokens, padded with
+      ``pad_token_id`` after each row's eos.
+    """
+    device = input_ids.device
+    if attn_mask is None:
+        attn_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=device)
+    b, s_prompt = attn_mask.shape
+    t0 = time.perf_counter()
+    cache = T.init_kv_cache(config, b, s_prompt + max_new_tokens, device)
+    logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache)
+    cur = torch.argmax(logits, -1).to(torch.int32)
+    done = cur == eos_token_id
+    out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32, device=device)
+    out[:, 0] = cur
+    cache_mask = torch.cat(
+        [attn_mask.to(torch.int32),
+         torch.zeros((b, max_new_tokens), dtype=torch.int32, device=device)],
+        dim=1,
+    ).contiguous()
+    positions = next_pos.to(torch.int32)
+    # the done check reads a device value, which synchronises each step
+    stop = bool(done.all())
+    t1 = time.perf_counter()
+    step = 1
+    while step < max_new_tokens and not stop:
+        write_idx = s_prompt + step - 1
+        cache_mask[:, write_idx] = 1
+        logits, cache = T.decode_step(
+            params, config, cur, positions, write_idx, cache, cache_mask
+        )
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        nxt = torch.where(done, pad_token_id, nxt)
+        out[:, step] = nxt
+        done = done | (nxt == eos_token_id)
+        cur, positions = nxt, positions + 1
+        step += 1
+        stop = bool(done.all())
+    if stats is not None:
+        stats.update(
+            prompt_len=s_prompt, prefill_s=t1 - t0,
+            decode_s=time.perf_counter() - t1, decode_steps=step - 1,
+        )
+    return out

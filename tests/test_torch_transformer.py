@@ -1,0 +1,135 @@
+"""Parity of the PyTorch port's transformer with the JAX package.
+
+Both packages run the same weights (JAX init, perturbed norms and biases,
+carried across by ``params_from_jax``) on the same numpy inputs, in f32 on
+the CPU, for the tiny llama, gpt2 and gemma configs.  The port's wrappers
+take their plain PyTorch versions on CPU tensors.
+
+Tolerances: logits within 1e-4 absolute (f32 with sums in another order;
+the logits are O(0.1) at these sizes); greedy token streams identical.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ecg_byte_tpu.infer import greedy_generate as jax_greedy_generate
+from ecg_byte_tpu.models import config as jax_config
+from ecg_byte_tpu.models import transformer as JT
+from ecg_byte_tpu_torch.infer import greedy_generate
+from ecg_byte_tpu_torch.models import tiny_test_config
+from ecg_byte_tpu_torch.models import transformer as T
+from ecg_byte_tpu_torch.models.convert import params_from_jax
+
+ARCHS = ["llama", "gpt2", "gemma"]
+ATOL = 1e-4
+CPU = torch.device("cpu")
+
+
+def _models(arch, seed=0):
+    jc = jax_config.tiny_test_config(arch)
+    tree = jax.tree.map(np.asarray, JT.init_params(jc, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, x):  # unit norms and zero biases would hide layout bugs
+        name = jax.tree_util.keystr(path)
+        if "norm" in name or "bias" in name:
+            return (x + 0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
+        return x
+
+    tree = jax.tree_util.tree_map_with_path(perturb, tree)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    pc = tiny_test_config(arch)
+    return jparams, jc, params_from_jax(tree, pc, CPU), pc
+
+
+def _prompt(b=2, s=16, vocab=512, left_pad=3, seed=1):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.int32)
+    mask[1, :left_pad] = 0
+    ids[1, :left_pad] = 0
+    return ids, mask
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_jax(arch):
+    jparams, jc, params, pc = _models(arch)
+    ids, mask = _prompt()
+    want = np.asarray(JT.forward(jparams, jc, jnp.asarray(ids), jnp.asarray(mask)))
+    got = T.forward(params, pc, _t(ids).long(), _t(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_steps_match_jax(arch):
+    jparams, jc, params, pc = _models(arch, seed=2)
+    ids, mask = _prompt(seed=3)
+    b, s = ids.shape
+    steps = 8
+    jcache = JT.init_kv_cache(jc, b, s + steps)
+    jlogits, jcache, jpos = JT.prefill(
+        jparams, jc, jnp.asarray(ids), jnp.asarray(mask), jcache
+    )
+    cache = T.init_kv_cache(pc, b, s + steps, CPU)
+    logits, cache, pos = T.prefill(params, pc, _t(ids).long(), _t(mask), cache)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+
+    rng = np.random.default_rng(4)
+    cache_mask = np.concatenate([mask, np.zeros((b, steps), np.int32)], 1)
+    jpos, pos = np.asarray(jpos), pos.to(torch.int32)
+    for step in range(1, steps + 1):
+        tok = rng.integers(0, 512, (b,)).astype(np.int32)  # teacher-forced
+        write_idx = s + step - 1
+        cache_mask[:, write_idx] = 1
+        jlogits, jcache = JT.decode_step(
+            jparams, jc, jnp.asarray(tok), jnp.asarray(jpos), jnp.int32(write_idx),
+            jcache, jnp.asarray(cache_mask),
+        )
+        logits, cache = T.decode_step(
+            params, pc, _t(tok).long(), pos, write_idx, cache,
+            _t(cache_mask.copy()),
+        )
+        np.testing.assert_allclose(
+            logits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0,
+            err_msg=f"decode step {step}",
+        )
+        jpos, pos = jpos + 1, pos + 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_generate_token_streams_identical(arch):
+    jparams, jc, params, pc = _models(arch, seed=5)
+    ids, mask = _prompt(seed=6, left_pad=5)
+    pad_id, n_new = 7, 12
+    free = np.asarray(jax_greedy_generate(
+        jparams, jc, jnp.asarray(ids), jnp.asarray(mask),
+        max_new_tokens=n_new, eos_token_id=-1, pad_token_id=pad_id,
+    ))
+    # an eos that row 0 emits mid-stream exercises the eos/pad rules
+    eos_id = int(free[0, 4])
+    want = np.asarray(jax_greedy_generate(
+        jparams, jc, jnp.asarray(ids), jnp.asarray(mask),
+        max_new_tokens=n_new, eos_token_id=eos_id, pad_token_id=pad_id,
+    ))
+    got = greedy_generate(
+        params, pc, _t(ids).long(), _t(mask), max_new_tokens=n_new,
+        eos_token_id=eos_id, pad_token_id=pad_id,
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 5:] == pad_id).all() or eos_id in got[0, :4]
+
+
+def test_resize_embeddings_matches_jax():
+    jparams, jc, params, pc = _models("llama", seed=7)
+    jp, jcfg = JT.resize_embeddings(jparams, jc, 600)
+    p, cfg = T.resize_embeddings(params, pc, 600)
+    assert cfg.vocab_size == jcfg.vocab_size == 600
+    np.testing.assert_allclose(p["embed"].numpy(), np.asarray(jp["embed"]), atol=1e-7, rtol=0)
