@@ -1,4 +1,4 @@
-"""Shared CLI plumbing: model construction, seeding, run directories."""
+"""Shared CLI plumbing: model construction, seeding, logging, run directories."""
 
 from __future__ import annotations
 
@@ -58,6 +58,21 @@ def build_model(model_name: str, vocab, device: torch.device):
     generator = torch.Generator(device=device).manual_seed(0)
     params = T.init_params(config, generator, device)
     return params, config, tokenizer
+
+
+def make_log_fn(args):
+    """wandb logger gated on ``--log`` (project 'bpe-trans'); None when off
+    or when wandb is missing or cannot start offline."""
+    if not getattr(args, "log", False):
+        return None
+    try:
+        import wandb
+
+        wandb.init(project="bpe-trans", config=vars(args))
+        return wandb.log
+    except Exception as e:  # wandb missing or no network
+        print(f"--log disabled ({e})")
+        return None
 
 
 def make_run_dir(args) -> str:

@@ -24,91 +24,27 @@
 // Thread (tr, tc) owns rows 4tr..4tr+3; in the score step it takes keys
 // 8j+tc, in the P.V step output columns tc*D/8 .. (tc+1)*D/8 - 1.  The 8
 // threads sharing a row group are neighbouring lanes, so row max and row
-// sum reduce with three shuffles.
+// sum reduce with three shuffles.  The score and softmax steps are in
+// attention_tiles.cuh, shared with the backward, which recomputes the
+// probabilities bit for bit.
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per block
-constexpr int kKeys = 64;      // keys per tile
-constexpr int kThreads = 128;  // 16 row groups x 8 lanes
-constexpr int kPStride = 66;   // f32 row stride of the probability tile
+using ecg::kKeys;
+using ecg::kPStride;
+using ecg::kRows;
+using ecg::kThreads;
 
 template <int D>
 struct PrefillSmem {
-  static constexpr int kQK = D + 2;  // padded bf16 row stride of Q and K
-  static constexpr size_t kV = size_t(kKeys) * D * 2;
+  static constexpr size_t kV = size_t(kKeys) * D * 2;  // unpadded: read as uint4
   static constexpr size_t kP = size_t(kRows) * kPStride * 4;
-  static constexpr size_t kQ = size_t(kRows) * kQK * 2;
-  static constexpr size_t kK = size_t(kKeys) * kQK * 2;
+  static constexpr size_t kQ = ecg::Tile<D>::kBytes;
+  static constexpr size_t kK = ecg::Tile<D>::kBytes;
   static constexpr size_t bytes = kV + kP + kQ + kK + kKeys * 4;
 };
-
-// Stage key tile t0 of (b, kvh) in shared memory: K rows (padded), V rows
-// when Vs is given, and each key's pad-mask bit.  Keys past S read as zeros
-// and are marked invalid.  Synchronises before (the previous tile's readers
-// are done) and after.
-template <int D>
-__device__ __forceinline__ void load_keys(const __nv_bfloat16* __restrict__ k,
-                                          const __nv_bfloat16* __restrict__ v,
-                                          const int* __restrict__ pad_mask,
-                                          __nv_bfloat16* Ks, __nv_bfloat16* Vs, int* key_ok,
-                                          int b, int S, int KH, int kvh, int t0, int tid) {
-  constexpr int kChunks = D / 8;
-  __syncthreads();
-  for (int idx = tid; idx < kKeys * kChunks; idx += kThreads) {
-    const int j = idx / kChunks, c = idx % kChunks;
-    const int t = t0 + j;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    const size_t off = ((size_t(b) * S + t) * KH + kvh) * D + c * 8;
-    if (t < S) kv = *reinterpret_cast<const uint4*>(k + off);
-    ecg::store_words(Ks + j * (D + 2) + c * 8, kv);
-    if (Vs != nullptr) {
-      if (t < S) vv = *reinterpret_cast<const uint4*>(v + off);
-      *reinterpret_cast<uint4*>(Vs + j * D + c * 8) = vv;
-    }
-  }
-  if (tid < kKeys) {
-    const int t = t0 + tid;
-    key_ok[tid] = (t < S) ? pad_mask[size_t(b) * S + t] : 0;
-  }
-  __syncthreads();
-}
-
-// Masked, scaled scores of rows 4tr+i against keys t0 + 8j + tc.
-template <int D>
-__device__ __forceinline__ void scores(const __nv_bfloat162* Qs2, const __nv_bfloat162* Ks2,
-                                       const int* key_ok, float (&sc)[4][8], const int (&qpos)[4],
-                                       int t0, int tr, int tc, float scale) {
-  constexpr int kQK2 = (D + 2) / 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-  for (int dp = 0; dp < D / 2; ++dp) {
-    float2 qf[4], kf[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qf[i] = __bfloat1622float2(Qs2[(tr * 4 + i) * kQK2 + dp]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) kf[j] = __bfloat1622float2(Ks2[(j * 8 + tc) * kQK2 + dp]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sc[i][j] = fmaf(qf[i].x, kf[j].x, sc[i][j]);
-        sc[i][j] = fmaf(qf[i].y, kf[j].y, sc[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool ok = key_ok[j * 8 + tc] != 0 && t0 + j * 8 + tc <= qpos[i];
-      sc[i][j] = ok ? sc[i][j] * scale : ecg::kNegInf;
-    }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -119,7 +55,6 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ qg,
                          __nv_bfloat16* __restrict__ out,
                          int S, int KH, int G, float scale) {
   using Smem = PrefillSmem<D>;
-  constexpr int kQK = Smem::kQK;
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   constexpr int kDT = D / 8;      // output columns per thread
 
@@ -129,8 +64,6 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ qg,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Smem::kV + Smem::kP);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Smem::kV + Smem::kP + Smem::kQ);
   int* key_ok = reinterpret_cast<int*>(smem + Smem::kV + Smem::kP + Smem::kQ + Smem::kK);
-  const __nv_bfloat162* Qs2 = reinterpret_cast<const __nv_bfloat162*>(Qs);
-  const __nv_bfloat162* Ks2 = reinterpret_cast<const __nv_bfloat162*>(Ks);
 
   const int tid = threadIdx.x;
   const int tr = tid >> 3;
@@ -142,23 +75,11 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ qg,
   const size_t q_pos_stride = size_t(KH) * G * D;
   const size_t q_base = (size_t(b) * S * KH + kvh) * G * D;
 
-  // Q tile -> shared memory (rows past the sequence end read as zeros)
-  for (int idx = tid; idx < kRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int s = s0 + r / G;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (s < S) {
-      val = *reinterpret_cast<const uint4*>(qg + q_base + s * q_pos_stride + (r % G) * D + c * 8);
-    }
-    ecg::store_words(Qs + r * kQK + c * 8, val);
-  }
-
-  float m[4], l[4], acc[4][kDT];
+  ecg::load_query_tile<D>(qg, Qs, b, S, KH, G, kvh, s0, tid);
   int qpos[4];
+  float acc[4][kDT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = ecg::kNegInf;
-    l[i] = 0.f;
     qpos[i] = s0 + (tr * 4 + i) / G;
 #pragma unroll
     for (int c = 0; c < kDT; ++c) acc[i][c] = 0.f;
@@ -167,43 +88,36 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ qg,
   // keys past the tile's last query position are causally masked for all rows
   const int t_end = min(S, s0 + bq);
 
-  // Pass 1: row max m and row sum l of exp(s - m) over every key tile, the
-  // sum rescaled whenever the max grows.
-  for (int t0 = 0; t0 < t_end; t0 += kKeys) {
-    load_keys<D>(k, v, pad_mask, Ks, nullptr, key_ok, b, S, KH, kvh, t0, tid);
-    float sc[4][8];
-    scores<D>(Qs2, Ks2, key_ok, sc, qpos, t0, tr, tc, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = sc[i][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, sc[i][j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) rs += expf(sc[i][j] - m_new);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = l[i] * expf(m[i] - m_new) + rs;
-      m[i] = m_new;
-    }
-  }
+  // Pass 1: each row's max m and sum l of exp(s - m).
+  float m[4], l[4];
+  ecg::softmax_stats<D>(k, pad_mask, Qs, Ks, key_ok, b, S, KH, kvh, t_end, qpos, tr, tc, tid,
+                        scale, m, l);
 
   // Pass 2: the probabilities of an exact softmax, exp(s - m) / l, rounded
   // to bf16 as the plain version and the TPU kernel round them, then P.V.
   for (int t0 = 0; t0 < t_end; t0 += kKeys) {
-    load_keys<D>(k, v, pad_mask, Ks, Vs, key_ok, b, S, KH, kvh, t0, tid);
+    __syncthreads();
+    ecg::load_key_tile<D>(k, Ks, b, S, KH, kvh, t0, tid);
+    ecg::load_key_ok(pad_mask, key_ok, b, S, t0, tid);
+    for (int idx = tid; idx < kKeys * kChunks; idx += kThreads) {
+      const int j = idx / kChunks, c = idx % kChunks;
+      const int t = t0 + j;
+      uint4 vv = make_uint4(0, 0, 0, 0);
+      if (t < S) vv = *reinterpret_cast<const uint4*>(v + ((size_t(b) * S + t) * KH + kvh) * D + c * 8);
+      *reinterpret_cast<uint4*>(Vs + j * D + c * 8) = vv;
+    }
+    __syncthreads();
     float sc[4][8];
-    scores<D>(Qs2, Ks2, key_ok, sc, qpos, t0, tr, tc, scale);
+    ecg::dot_4x8<D>(Qs, Ks, tr, tc, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float* prow = Ps + (tr * 4 + i) * kPStride;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) prow[j * 8 + tc] = ecg::round_bf16(expf(sc[i][j] - m[i]) / l[i]);
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + j * 8 + tc;
+        const float s = ecg::masked_score(sc[i][j], key_ok[j * 8 + tc] != 0 && t <= qpos[i], scale);
+        prow[j * 8 + tc] = ecg::round_bf16(ecg::probability(s, m[i], l[i]));
+      }
     }
     __syncthreads();
 

@@ -5,7 +5,7 @@ token (left-padded signal region, ``-100`` label masking up to the answer,
 cumsum position ids with pads pinned to 0, the ``pad_to_max + 4`` training
 length), as numpy items.  A record is quantized with the port's
 ``normalize_quantize`` and BPE-encoded on the host by the C++ trie of
-``ecg_byte_tpu.tokenizer``.
+the port's ``tokenizer`` package.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ecg_byte_tpu.tokenizer import encode_text
 from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
+from ecg_byte_tpu_torch.tokenizer import encode_text
 
 _ECG_QA_DATASETS = (
     "ecg_qa_ptb_500",

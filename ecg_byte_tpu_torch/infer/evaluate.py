@@ -9,14 +9,14 @@ zero-filled as before.
 
 Scoring never downloads: METEOR uses NLTK's wordnet only where it is
 already installed and otherwise the exact-match METEOR of
-``ecg_byte_tpu.utils.metrics``, labelled ``exact``.
+``utils.metrics``, labelled ``exact``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from ecg_byte_tpu.utils import metrics
+from ecg_byte_tpu_torch.utils import metrics
 
 ZERO_RESULT = {
     "BLEU": 0,
@@ -26,19 +26,9 @@ ZERO_RESULT = {
 }
 
 
-def _meteor(reference: str, hypothesis: str):
-    import nltk
-
-    try:
-        nltk.data.find("corpora/wordnet")
-    except LookupError:
-        return metrics._meteor_exact(reference.split(), hypothesis.split()), "exact"
-    return metrics.meteor_with_mode([reference], [hypothesis])
-
-
 def evaluate_strings(reference: str, hypothesis: str) -> Dict:
     """The metric dict of ``metrics.evaluate_strings`` for one sample."""
-    meteor, meteor_mode = _meteor(reference, hypothesis)
+    meteor, meteor_mode = metrics.meteor_with_mode([reference], [hypothesis])
     bert, bert_mode = metrics.bertscore_with_mode([reference], [hypothesis])
     return {
         "BLEU": metrics.calculate_bleu([reference], [hypothesis]),

@@ -4,7 +4,8 @@
 ``ecg_byte_tpu`` model (numpy only; no JAX needed here) and returns the
 port's parameter dict: the leading layer axis is unstacked into a list of
 per-layer dicts, and every projection kernel stored ``(in, out)`` becomes a
-PyTorch ``(out, in)`` weight.  Values are copied exactly, bf16 included.
+PyTorch ``(out, in)`` weight.  ``lora_from_jax`` does the same for a LoRA
+tree.  Values are copied exactly, bf16 included.
 """
 
 from __future__ import annotations
@@ -55,3 +56,17 @@ def params_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> 
     if "lm_head" in tree:  # JAX (D, V) -> (V, D)
         params["lm_head"] = _tensor(np.asarray(tree["lm_head"]).T, device).contiguous()
     return params
+
+
+def lora_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> Dict[str, Any]:
+    """JAX LoRA tree (numpy leaves, ``{"layers": {name: {"a": (L, in, r),
+    "b": (L, r, out)}}}``) -> the port's ``{"layers": [per layer {name:
+    {"a": (in, r), "b": (r, out)}}]}`` on ``device``.  Both packages keep A
+    as (in, r) and B as (r, out), so only the layer axis is unstacked."""
+    layers = []
+    for i in range(config.num_layers):
+        layers.append({
+            name: {k: _tensor(np.asarray(v)[i], device).contiguous() for k, v in ab.items()}
+            for name, ab in tree["layers"].items()
+        })
+    return {"layers": layers}

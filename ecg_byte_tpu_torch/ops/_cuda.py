@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes``.  The build runs at first use
-and again whenever a source is newer than the library, and goes into
+Every ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``.  The build runs at first use and again
+whenever a source is newer than the library, and goes into
 ``ecg_byte_tpu_torch/build/``.  Including no PyTorch header keeps the build
-to seconds.
+to seconds.  (``csrc/host/`` holds host C++ that ``nvcc`` never sees.)
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -26,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libecg_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +36,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # qg, k, v, pad_mask, out, B, S, KH, G, D, stream
     "ecg_prefill_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qg, k, v, pad_mask, out, dout, dq, dk, dv, stats, B, S, KH, G, D, stream
+    "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, valid_mask, out, B, S, KH, G, D, stream
     "ecg_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -72,19 +75,33 @@ def _stale() -> bool:
 def _build() -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     units = [s for s in _sources() if s.endswith(".cu")]
-    # compile to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(u)[:-3] + f".{tag}.o") for u in units]
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *units],
-        capture_output=True, text=True,
-    )
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{r.stdout}\n{r.stderr}")
-    os.replace(tmp, _LIB_PATH)
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, u],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for u, o in zip(units, objs)
+    ]
+    reports = [p.communicate()[0] for p in procs]
+    try:
+        for u, p, rep in zip(units, procs, reports):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(u)}:\n{rep}")
+        # link to a private name, then rename: a concurrent process never
+        # loads a half-written library
+        tmp = f"{_LIB_PATH}.{tag}"
+        r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{r.stdout}\n{r.stderr}")
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = r.stderr + r.stdout
+    build_info["ptxas"] = "".join(reports)
 
 
 def library() -> ctypes.CDLL:

@@ -21,19 +21,21 @@ def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
     """Plain causal grouped-query attention (``_grouped_attention``).
 
     qg (B, S, KH, G, D), k/v (B, S, KH, D), pad_mask (B, S) 1 = valid key.
-    Logits and softmax in f32; the probabilities are rounded to the input
-    dtype before P.V, which accumulates in f32.  Returns (B, S, KH, G, D).
+    Logits and softmax in f32 (f64 for f64 inputs); the probabilities are
+    rounded to the input dtype before P.V, which accumulates in f32.
+    Returns (B, S, KH, G, D).
     """
+    ct = torch.promote_types(qg.dtype, torch.float32)
     d = qg.shape[-1]
     s = qg.shape[1]
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * d**-0.5
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
     causal = torch.ones((s, s), dtype=torch.bool, device=qg.device).tril()
     bias = torch.where(causal, 0.0, NEG_INF)
     if pad_mask is not None:
         key_ok = pad_mask[:, None, None, None, :].bool()
         bias = bias + torch.where(key_ok, 0.0, NEG_INF)
-    probs = torch.softmax(logits + bias, dim=-1).to(qg.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    probs = torch.softmax(logits + bias.to(ct), dim=-1).to(qg.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(ct), v.to(ct))
     return out.to(qg.dtype)
 
 
@@ -41,15 +43,15 @@ def causal_attention(q, k, v, pad_mask: torch.Tensor) -> torch.Tensor:
     """Causal attention with left-pad key masking.
 
     q (B, S, H, D); k, v (B, S, KH, D); pad_mask (B, S) int32.  Goes
-    through the prefill kernel's wrapper, which takes the plain
-    :func:`grouped_attention` for CPU tensors.  Returns (B, S, H, D).
+    through ``attention_resident.ResidentAttention`` (differentiable), whose
+    wrappers take the plain versions for CPU tensors.  Returns (B, S, H, D).
     """
     from ecg_byte_tpu_torch.ops import attention_resident
 
     b, s, h, d = q.shape
     kh = k.shape[2]
-    qg = q.reshape(b, s, kh, h // kh, d)
-    out = attention_resident.resident_attention(qg, k, v, pad_mask)
+    qg = q.reshape(b, s, kh, h // kh, d).contiguous()
+    out = attention_resident.ResidentAttention.apply(qg, k.contiguous(), v.contiguous(), pad_mask)
     return out.reshape(b, s, h, d)
 
 

@@ -1,1 +1,2 @@
-"""Training.  Only the checkpoint role that serving reads is ported so far."""
+"""Training: LoRA or full fine-tuning steps, the Noam/Adam optimizer, the
+epoch runners and checkpoints with the reference's roles."""

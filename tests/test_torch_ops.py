@@ -8,6 +8,7 @@ on the card, where ``chip_smoke.py`` holds them against these plain
 versions.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,9 +169,129 @@ def test_wrappers_reject_other_devices():
     qg = torch.empty(1, 32, 2, 4, 64, device="meta", dtype=torch.bfloat16)
     kv = torch.empty(1, 32, 2, 64, device="meta", dtype=torch.bfloat16)
     mask = torch.ones(1, 32, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        rmsnorm.rmsnorm_bwd(x, torch.ones(256, device="meta"), x, 1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         attention_resident.resident_attention(qg, kv, kv, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_resident.resident_attention_bwd(qg, kv, kv, mask, qg, qg)
     with pytest.raises(ValueError, match="CUDA"):
         attention_decode.decode_attention_fused(
             torch.empty(1, 1, 8, 64, device="meta", dtype=torch.bfloat16), kv, kv, mask
         )
+
+
+# ------------------------------------------------------------- backwards
+
+
+@pytest.mark.parametrize("left_pad", [0, 37])
+@pytest.mark.parametrize(
+    "b,s,kh,g,d,block_m",
+    [
+        (2, 256, 2, 4, 64, 512),  # the cases of tests/test_attention_resident.py
+        (1, 256, 2, 1, 64, 256),
+        (2, 128, 1, 2, 64, 128),
+    ],
+)
+def test_attention_bwd_plain_matches_pallas_vjp(b, s, kh, g, d, block_m, left_pad):
+    """bf16: dq, dk, dv of the plain backward within 4e-2 * max|ref| of the
+    VJP of the Pallas kernel in interpret mode (the tolerance of
+    tests/test_attention_resident.py); the output gradient is zero on
+    left-pad rows, as on the training path."""
+    q, k, v, mask = _attn_inputs(b, s, kh, g, d, left_pad, seed=3)
+    rng = np.random.default_rng(4)
+    gout = _bf16_np(rng.normal(size=q.shape)) * mask[:, :, None, None, None]
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_resident.resident_attention(q_, k_, v_, jnp.asarray(mask),
+                                                           block_m, True), jq, jk, jv)
+    want = vjp(jnp.asarray(gout, jnp.bfloat16))
+    tq, tk, tv, tmask = _torch_bf16(q), _torch_bf16(k), _torch_bf16(v), torch.from_numpy(mask)
+    out = attention_resident.resident_attention(tq, tk, tv, tmask)
+    got = attention_resident.resident_attention_bwd(tq, tk, tv, tmask, out, _torch_bf16(gout))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float().numpy(), np.asarray(w, np.float32)
+        assert np.isfinite(a).all()
+        scale = max(np.abs(w).max(), 1e-6)
+        np.testing.assert_allclose(a / scale, w / scale, atol=4e-2, err_msg=name)
+    assert attention_resident.resident_attention_bwd.launches == 0
+
+
+@pytest.mark.parametrize("left_pad", [0, 5])
+def test_attention_bwd_plain_matches_autograd_f32(left_pad):
+    """f32: the plain backward equals autograd through the plain forward
+    within 1e-5 absolute, left-pad rows included (their output gradient is
+    random here)."""
+    rng = np.random.default_rng(left_pad)
+    b, s, kh, g, d = 2, 48, 2, 3, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).requires_grad_(True)
+               for sh in ((b, s, kh, g, d), (b, s, kh, d), (b, s, kh, d)))
+    mask = torch.ones(b, s, dtype=torch.int32)
+    mask[:, :left_pad] = 0
+    gout = torch.from_numpy(rng.standard_normal((b, s, kh, g, d)).astype(np.float32))
+    out = attention.grouped_attention(q, k, v, mask)
+    want = torch.autograd.grad(out, (q, k, v), gout)
+    got = attention_resident.resident_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                                          mask, out.detach(), gout)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("rows,block_rows", [(32, 32), (64, 16)], ids=["one-block", "multi-block"])
+def test_rmsnorm_bwd_plain_matches_pallas_vjp(rows, block_rows):
+    """f32: dx and dw of the plain backward within 1e-5 of the VJP of the
+    Pallas kernel in interpret mode, dw summed over one or several row
+    blocks there."""
+    x, w = _norm_inputs(seed=5, rows=rows, d=256)
+    gout = np.random.default_rng(6).standard_normal(x.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, w_: jax_rmsnorm.rmsnorm(x_, w_, 1e-5, block_rows, True),
+                     jnp.asarray(x), jnp.asarray(w))
+    wdx, wdw = vjp(jnp.asarray(gout))
+    dx, dw = rmsnorm.rmsnorm_bwd(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(gout), 1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(wdx), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(wdw), atol=1e-5, rtol=1e-6)
+    dx2, dw2 = rmsnorm.rmsnorm_bwd(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(gout), 1e-5, need_dw=False)
+    assert dw2 is None and torch.equal(dx2, dx)
+    assert rmsnorm.rmsnorm_bwd.launches == 0
+
+
+def test_autograd_functions_gradcheck():
+    """Both autograd functions pass gradcheck in f64 on the CPU (no pad:
+    a fully masked row's logits lose q to the -1e30 fill, so its numeric
+    derivative is zero while the analytic one is not)."""
+    rng = np.random.default_rng(8)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).requires_grad_(True)
+
+    x, w = t(3, 5, 16), t(16)
+    assert torch.autograd.gradcheck(lambda x_, w_: rmsnorm.RMSNorm.apply(x_, w_, 1e-5), (x, w))
+    q, k, v = t(1, 32, 2, 2, 8), t(1, 32, 2, 8), t(1, 32, 2, 8)
+    mask = torch.ones(1, 32, dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: attention_resident.ResidentAttention.apply(q_, k_, v_, mask), (q, k, v))
+    assert rmsnorm.rmsnorm.launches == rmsnorm.rmsnorm_bwd.launches == 0
+    assert attention_resident.resident_attention.launches == 0
+    assert attention_resident.resident_attention_bwd.launches == 0
+
+
+def test_rmsnorm_weight_grad_only_where_it_trains():
+    """The autograd function forms dw only when the weight requires grad
+    (a frozen norm under LoRA training skips it)."""
+    x = torch.randn(4, 8, 32, requires_grad=True)
+    calls = []
+    real = rmsnorm.rmsnorm_bwd
+
+    def spy(x_, w_, g_, eps, need_dw):
+        calls.append(need_dw)
+        return real(x_, w_, g_, eps, need_dw)
+
+    rmsnorm.rmsnorm_bwd = spy
+    try:
+        for w in (torch.ones(32), torch.ones(32, requires_grad=True)):
+            rmsnorm.RMSNorm.apply(x, w, 1e-5).sum().backward()
+    finally:
+        rmsnorm.rmsnorm_bwd = real
+    assert calls == [False, True]
