@@ -6,17 +6,24 @@ Phases, each printing its own lines, in the order they run:
 1. Device: the card, its power limit, TF32 off.
 2. Build: the CUDA kernels compile from ``ecg_byte_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and the host BPE library from
-   ``ecg_byte_tpu_torch/csrc/host``.
+   ``ecg_byte_tpu_torch/csrc/host``.  Then, on the host, two synthetic
+   datasets and their tokenizers through ``cli.make_synthetic`` and
+   ``cli.train_tokenizer``: ``ptb_500`` (12 x 500, 400 merges) for the
+   main paths and ``ptb_2500`` (256 records of 12 x 2,500, 3,500 merges).
 3. Kernels vs plain: each kernel against its plain PyTorch version at the
    main paths' widths, with the tolerance stated, timed in turns with the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), beside the card's bound.
+   The two BPE kernels must equal their plain versions exactly, and the
+   device encoder's streams the host C++ trie's, at (64, 6,000) and
+   (256, 30,000) symbols; the trie is their yardstick.
 6. Train: ``ecg_byte_tpu_torch.cli.main`` trains a random Llama-3.2-1B at
-   full width with LoRA (``--peft --online_encode --dev``, batch 4 x 1024)
-   on a synthetic dataset; exact launch counts of the four training
-   kernels; then the train step timed alone.
+   full width with LoRA (``--peft --dev``, batch 4 x 1024) on ``ptb_500``,
+   its records encoded once into the device token cache; exact launch
+   counts of the six training kernels, every cached stream held to the
+   host trie's; then the train step timed alone.
 4. Serve: ``cli.main --inference --peft`` serves the checkpoint phase 6
-   wrote, LoRA merged; every serving kernel's launch count.
+   wrote, LoRA merged; every serving kernel's launch count (none of BPE).
 5. Serving kernel path vs plain path: one prompt plus 32 teacher-forced
    tokens through prefill and decode_step; the logits must agree.
 7. Train-step kernel path vs plain path: loss and LoRA gradients at
@@ -46,9 +53,14 @@ MODEL = "llama-3.2-1b"
 NUM_MERGES = 400  # with 500-sample leads: 0.9-1.0k signal tokens, buckets of 1024/1152
 SEG_LEN = 500
 N_TRAIN = 24  # --dev --batch_size 4: 2 epochs of 6 steps
+N_VAL = 2
 N_TEST = 10  # --dev decodes 10 records per seed
 TEACHER_FORCED = 32
-TRAIN_ARGS = ["--peft", "--online_encode", "--dev", "--batch_size", "4", "--pad_to_max", "1020"]
+TRAIN_ARGS = ["--peft", "--dev", "--batch_size", "4", "--pad_to_max", "1020"]
+# the device BPE encoder's second shape: 256 records of 12 x 2,500, the JAX
+# package's preprocessing benchmark (bench.py), with a 3,500-merge tokenizer
+BIG = dict(name="ptb_2500", n_train=256, n_val=0, n_test=0, seg_len=2500, num_merges=3500)
+CACHE_BATCH = 64  # records per batch of the dataset's token cache
 PEAK_FLOPS = 989e12  # dense bf16, H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 
@@ -62,6 +74,10 @@ SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
     "rmsnorm": ("triton", "ecg_byte_tpu_torch/ops/rmsnorm.py", "ecg_byte_tpu/ops/rmsnorm.py:59"),
     "rmsnorm_bwd": ("triton", "ecg_byte_tpu_torch/ops/rmsnorm.py",
                     "ecg_byte_tpu/ops/rmsnorm.py:66"),
+    "bpe_match": ("cuda", "ecg_byte_tpu_torch/csrc/bpe_match.cu",
+                  "ecg_byte_tpu/ops/bpe_match.py:369"),
+    "bpe_chain": ("cuda", "ecg_byte_tpu_torch/csrc/bpe_chain.cu",
+                  "ecg_byte_tpu/ops/bpe_match.py:576"),
 }
 SERVE_KERNELS = ("prefill_attention", "decode_attention", "rmsnorm")
 
@@ -83,17 +99,21 @@ def bf16_ulp(y):
 
 def time_in_turns(fns, iters):
     """Mean ms per call of each function with CUDA events, after a warm-up,
-    in the palindrome order f0, f1, .., fn, fn, .., f1, f0."""
+    in the palindrome order f0, f1, .., fn, fn, .., f1, f0; ``iters`` calls
+    each time, or ``iters[i]`` calls of ``fns[i]``."""
     import torch
 
-    def run(fn):
+    if isinstance(iters, int):
+        iters = [iters] * len(fns)
+
+    def run(fn, n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
+        for _ in range(n):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
+        return start.elapsed_time(end) / n
 
     for fn in fns:
         fn()
@@ -101,7 +121,7 @@ def time_in_turns(fns, iters):
     order = list(range(len(fns))) + list(reversed(range(len(fns))))
     times = [0.0] * len(fns)
     for i in order:
-        times[i] += run(fns[i]) / 2
+        times[i] += run(fns[i], iters[i]) / 2
     return times
 
 
@@ -166,9 +186,46 @@ def check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, eps, shape):
     return diff.max().item()
 
 
+def host_streams(signals, p1, p99, merges):
+    """Each record's BPE stream by the host path of ``--online_encode``:
+    the quantizer on the CPU, then the C++ trie."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
+    from ecg_byte_tpu_torch.tokenizer import encode_text
+
+    return [encode_text(quantized_to_string(normalize_quantize(torch.from_numpy(s), p1, p99)[1]),
+                        merges) for s in signals]
+
+
+def check_streams(ids, counts, want, what):
+    """Hold the device encoder's ``(ids, counts)`` to the host trie's streams
+    ``want``, record by record: the same count, the same tokens, and
+    PAD_TOKEN after them.  Token ids are integers: the tolerance is zero."""
+    from ecg_byte_tpu_torch.ops.bpe_encode import PAD_TOKEN
+
+    ids, counts = ids.cpu(), counts.cpu()
+    assert ids.shape[0] == counts.shape[0] == len(want), f"{what}: {len(want)} records"
+    for r, w in enumerate(want):
+        c = int(counts[r])
+        assert c == len(w), f"{what}: record {r} has {c} tokens, the host trie {len(w)}"
+        got = ids[r, :c].tolist()
+        bad = next((k for k, (a, b) in enumerate(zip(got, w)) if a != b), None)
+        assert bad is None, f"{what}: record {r} token {bad} is {got[bad]}, the host trie's {w[bad]}"
+        assert (ids[r, c:] == PAD_TOKEN).all(), f"{what}: record {r} is not padded after {c}"
+
+
+def _chain_plain(match_len, match_tok, max_len):
+    """``bpe_match.greedy_chain``'s plain path: the chain, then the sort."""
+    from ecg_byte_tpu_torch.ops import bpe_encode, bpe_match
+
+    visited = bpe_match.greedy_chain_plain(match_len, max_len)
+    return (visited, *bpe_encode._compact(match_tok, visited))
+
+
 @functools.lru_cache(maxsize=1)
 def _counters():
-    from ecg_byte_tpu_torch.ops import attention_decode, attention_resident, rmsnorm
+    from ecg_byte_tpu_torch.ops import attention_decode, attention_resident, bpe_match, rmsnorm
 
     # the wrappers themselves, taken before any plain_path() swap
     return {
@@ -177,6 +234,8 @@ def _counters():
         "decode_attention": attention_decode.decode_attention_fused,
         "rmsnorm": rmsnorm.rmsnorm,
         "rmsnorm_bwd": rmsnorm.rmsnorm_bwd,
+        "bpe_match": bpe_match.longest_match,
+        "bpe_chain": bpe_match.greedy_chain,
     }
 
 
@@ -193,7 +252,13 @@ def zero_launches():
 def plain_path(kernels=tuple(SOURCES)):
     """Swap the plain PyTorch versions in for the named kernel wrappers
     (the autograd functions look their wrappers up when called)."""
-    from ecg_byte_tpu_torch.ops import attention, attention_decode, attention_resident, rmsnorm
+    from ecg_byte_tpu_torch.ops import (
+        attention,
+        attention_decode,
+        attention_resident,
+        bpe_match,
+        rmsnorm,
+    )
 
     _counters()
     swaps = {
@@ -203,6 +268,8 @@ def plain_path(kernels=tuple(SOURCES)):
         "decode_attention": (attention_decode, "decode_attention_fused", attention.decode_attention),
         "rmsnorm": (rmsnorm, "rmsnorm", rmsnorm.rmsnorm_plain),
         "rmsnorm_bwd": (rmsnorm, "rmsnorm_bwd", rmsnorm.rmsnorm_bwd_plain),
+        "bpe_match": (bpe_match, "longest_match", bpe_match.longest_match_plain),
+        "bpe_chain": (bpe_match, "greedy_chain", _chain_plain),
     }
     with contextlib.ExitStack() as stack:
         for name in kernels:
@@ -218,33 +285,40 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def make_data(root, *, n_train=N_TRAIN, n_val=2, n_test=N_TEST, seg_len=SEG_LEN,
-              num_merges=NUM_MERGES):
-    """Synthetic ptb_500 tree and BPE tokenizer under ``root/data`` (host
-    only, no card needed); returns (vocab, merges)."""
-    import numpy as np
-    import torch
-
-    from ecg_byte_tpu_torch.cli import make_synthetic
-    from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
-    from ecg_byte_tpu_torch.tokenizer import BpeTokenizer
+def make_data(root, *, name="ptb_500", n_train=N_TRAIN, n_val=N_VAL, n_test=N_TEST,
+              seg_len=SEG_LEN, num_merges=NUM_MERGES):
+    """A synthetic dataset tree under ``root/data`` (``cli.make_synthetic``)
+    and its BPE tokenizer, ``data/tokenizer_<num_merges>.pkl``, trained on
+    its train split by ``cli.train_tokenizer`` (host only, no card needed);
+    returns (vocab, merges)."""
+    from ecg_byte_tpu_torch.cli import make_synthetic, train_tokenizer
+    from ecg_byte_tpu_torch.tokenizer import load_vocab_and_merges
 
     data = os.path.join(root, "data")
     with contextlib.redirect_stdout(sys.stderr):
-        make_synthetic.main(["--data_root", data, "--n_train", str(n_train), "--n_val",
-                             str(n_val), "--n_test", str(n_test), "--seg_len", str(seg_len),
-                             "--seed", "0"])
-    stats = np.load(os.path.join(data, "ptb_500_dataset_stats.npy"), allow_pickle=True).item()
-    with open(os.path.join(data, f"sampled_ecg_files_{n_train}.txt")) as f:
-        train = [np.load(p) for p in f.read().split()]
-    corpus = "".join(
-        quantized_to_string(normalize_quantize(
-            torch.from_numpy(s), stats["percentile_1"], stats["percentile_99"])[1])
-        for s in train
-    )
-    bpe = BpeTokenizer.train(corpus, num_merges)
-    bpe.save(os.path.join(data, f"tokenizer_{num_merges}.pkl"))
-    return bpe.vocab, bpe.merges
+        make_synthetic.main(["--name", name, "--data_root", data, "--n_train", str(n_train),
+                             "--n_val", str(n_val), "--n_test", str(n_test), "--seg_len",
+                             str(seg_len), "--seed", "0"])
+        path = train_tokenizer.main([
+            "--train", "--num_merges", str(num_merges), "--out_dir", data,
+            "--sampled_files", os.path.join(data, f"sampled_ecg_files_{n_train}.txt"),
+            "--percentiles", os.path.join(data, f"{name}_dataset_stats.npy"),
+        ])
+    return load_vocab_and_merges(path)
+
+
+def load_split(root, name, split="train"):
+    """The records of a split of ``root/data/<name>`` stacked (B, 12, L)
+    float32, and the dataset's (p1, p99)."""
+    import numpy as np
+
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    data = os.path.join(root, "data")
+    sigs, _ = align_signal_text_files(f"{data}/{name}/ecg/{split}", f"{data}/{name}/text/{split}")
+    stats = np.load(os.path.join(data, f"{name}_dataset_stats.npy"), allow_pickle=True).item()
+    return (np.stack([np.load(p) for p in sigs]).astype(np.float32),
+            stats["percentile_1"], stats["percentile_99"])
 
 
 def _cli_args(num_merges=NUM_MERGES):
@@ -307,7 +381,7 @@ def build_phase():
     print(f"host BPE library built and loaded in {time.perf_counter() - t0:.1f} s")
 
 
-def kernels_phase():
+def kernels_phase(root, merges, big_merges):
     import torch
     import torch.nn.functional as F
 
@@ -322,13 +396,14 @@ def kernels_phase():
 
     report = {name: {"max_abs_err": 0.0, "rows": []} for name in SOURCES}
 
-    def record(name, shape, err, times, flops, nbytes, main):
+    def record(name, shape, err, times, flops, nbytes, main, **extra):
         ms, plain_ms, library_ms = times
         b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, **extra}
+        library = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{name} {shape}: max|d| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} "
+              f"library {library}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB)")
         entry = report[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -471,7 +546,78 @@ def kernels_phase():
         del yl
         record("rmsnorm_bwd", list(shape), err, times, 8 * x.numel(),
                6 * x.numel() + 4 * w.numel(), main=shape[0] == 4096)
+
+    # the BPE kernels: one batch of the token cache at ptb_500's 12 x 500
+    # with phase 6's tokenizer (the main path's), and 256 records of
+    # 12 x 2,500 with a 3,500-merge tokenizer
+    import numpy as np
+
+    from ecg_byte_tpu_torch.cli.make_synthetic import make_signal
+
+    _, p1, p99 = load_split(root, "ptb_500")
+    rng = np.random.default_rng(1)
+    batch = np.stack([make_signal(rng, i % 2 == 0, SEG_LEN) for i in range(CACHE_BATCH)])
+    batch[0] = p1 - 1.0  # below the range: an all-'a' record, one symbol repeated
+    big, big_p1, big_p99 = load_split(root, BIG["name"])
+    bpe_checks(record, dev, "ptb_500 cache batch", batch, p1, p99, merges, main=True,
+               iters=(200, 3, 2))
+    bpe_checks(record, dev, f"{BIG['name']}, {BIG['num_merges']} merges", big, big_p1, big_p99,
+               big_merges, main=False, iters=(10, 1, 1))
     return report
+
+
+def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
+    """Both BPE kernels against their plain versions (exactly), the device
+    encoder against the host trie (every record), and the times of kernel,
+    plain and the host trie, in turns; ``iters`` calls of the kernels, of
+    the plain versions and of the trie per turn."""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.ops import bpe_encode, bpe_match
+    from ecg_byte_tpu_torch.ops.quantize import normalize_quantize
+    from ecg_byte_tpu_torch.tokenizer import native
+
+    table = bpe_encode.build_automaton(merges, dev)
+    signal = torch.from_numpy(signals).to(dev)
+    q = normalize_quantize(signal, p1, p99)[1].reshape(signals.shape[0], -1).contiguous()
+    b, n = q.shape
+    states = table.trans.shape[0]
+    table_bytes = states * 28 * 4  # trans (S, 27) and token (S,), int32
+    print(f"BPE {label}: ({b}, {n}) symbols; {len(merges)} merges, longest token "
+          f"{table.max_len} symbols, largest id {max(t for _, t in merges)}, {states} states "
+          f"({table_bytes / 1e3:.1f} KB table)")
+
+    tok, ln = bpe_match.longest_match(q, table)
+    ptok, pln = bpe_match.longest_match_plain(q, table)
+    vis, ids, counts = bpe_match.greedy_chain(ln, tok, table.max_len)
+    pvis, pids, pcounts = _chain_plain(ln, tok, table.max_len)
+    torch.cuda.synchronize()
+    assert torch.equal(tok, ptok) and torch.equal(ln, pln), f"bpe_match {label}: differs from plain"
+    assert torch.equal(vis, pvis) and torch.equal(ids, pids) and torch.equal(counts, pcounts), \
+        f"bpe_chain {label}: differs from plain"
+    eids, ecounts = bpe_encode.quantize_and_encode(signal, p1, p99, table)
+    want = host_streams(signals, p1, p99, merges)
+    check_streams(eids, ecounts, want, f"quantize_and_encode {label}")
+    print(f"  exact: both kernels equal their plain versions; quantize_and_encode equals the "
+          f"host trie on all {b} records ({int(ecounts.sum())} tokens, "
+          f"{n * b / int(ecounts.sum()):.2f} symbols per token)")
+
+    enc = native.NativeEncoder(merges)
+    texts = [bytes(np.asarray(r, np.uint8) + ord("a")) for r in q.cpu().numpy()]
+    trie = lambda: [enc.encode(t) for t in texts]  # noqa: E731
+    match_times = time_in_turns([lambda: bpe_match.longest_match(q, table),
+                                 lambda: bpe_match.longest_match_plain(q, table), trie], iters)
+    chain_times = time_in_turns([lambda: bpe_match.greedy_chain(ln, tok, table.max_len),
+                                 lambda: _chain_plain(ln, tok, table.max_len)], iters[:2])
+    trie_ms = match_times[2]
+    print(f"  host trie (C++, the --online_encode path) {trie_ms:.3f} ms for the batch; the "
+          f"plain versions over {iters[1]} call(s) a turn")
+    # bytes: each input once, each output once (no floating-point work)
+    record("bpe_match", [b, n], 0.0, (match_times[0], match_times[1], None), 0,
+           b * n + table_bytes + 8 * b * n, main, host_trie_ms=trie_ms)
+    record("bpe_chain", [b, n], 0.0, (chain_times[0], chain_times[1], None), 0,
+           8 * b * n + b * n + 4 * b * n + 4 * b, main, host_trie_ms=trie_ms)
 
 
 def train_phase(root, vocab, merges):
@@ -481,15 +627,25 @@ def train_phase(root, vocab, merges):
     from ecg_byte_tpu_torch.cli import main as cli_main
     from ecg_byte_tpu_torch.cli.common import build_model
     from ecg_byte_tpu_torch.models.lora import leaves
+    from ecg_byte_tpu_torch.ops import bpe_encode
     from ecg_byte_tpu_torch.train.scheduler import make_optimizer
     from ecg_byte_tpu_torch.train.step import create_train_state, make_train_step
 
-    phase("6. train: cli.main --peft --online_encode --dev, random Llama-3.2-1B at full width")
+    phase("6. train: cli.main --peft --dev from the device token cache, random Llama-3.2-1B "
+          "at full width")
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
+    encoded = []  # each batch of the token cache: its records and what the card made of them
+    encode = bpe_encode.quantize_and_encode
+
+    def spy(signal, p1, p99, table):
+        ids, counts = encode(signal, p1, p99, table)
+        encoded.append((signal.cpu().numpy(), p1, p99, ids, counts))
+        return ids, counts
+
     zero_launches()
     t0 = time.perf_counter()
-    with contextlib.chdir(root):
+    with contextlib.chdir(root), mock.patch.object(bpe_encode, "quantize_and_encode", spy):
         result = cli_main.main(_cli_args() + TRAIN_ARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -502,15 +658,22 @@ def train_phase(root, vocab, merges):
     # per train step every layer's attention forward and backward, 2L + 1
     # norms forward; 2L norm backwards, as layer 0's input norm reads the
     # frozen embedding and nothing asks for its gradient; per eval step the
-    # forwards alone
+    # forwards alone; each BPE kernel once per batch of the token cache, one
+    # batch for the train split and one for the val split
     expected = {"prefill_attention": layers * (steps + evals),
                 "prefill_attention_bwd": layers * steps,
                 "decode_attention": 0,
                 "rmsnorm": (2 * layers + 1) * (steps + evals),
-                "rmsnorm_bwd": 2 * layers * steps}
+                "rmsnorm_bwd": 2 * layers * steps,
+                "bpe_match": 2, "bpe_chain": 2}
     assert steps == 12, f"{steps} train steps"
     for name, n in counts.items():
         assert n == expected[name], f"{name}: {n} launches, expected {expected[name]}"
+    assert [len(e[0]) for e in encoded] == [N_TRAIN, N_VAL], [len(e[0]) for e in encoded]
+    for k, (signals, p1, p99, ids, n_tok) in enumerate(encoded):
+        check_streams(ids, n_tok, host_streams(signals, p1, p99, merges), f"token cache batch {k}")
+    print(f"token cache: {sum(len(e[0]) for e in encoded)} records in {len(encoded)} batches, "
+          "every stream equal to the host trie's")
     losses = summary["train_loss"] + summary["val_loss"]
     assert all(np.isfinite(losses)), losses
     print(f"train loss per epoch {summary['train_loss']}, val loss {summary['val_loss']}")
@@ -528,6 +691,7 @@ def train_phase(root, vocab, merges):
     print(f"best_model.pt: {len(bs)} LoRA B tensors non-zero (max |B| "
           f"{max(b.abs().max().item() for b in bs):.3e}); base bitwise unchanged")
     del best, lora, bs
+    data_layer(root, vocab, merges, tokenizer, dev)
 
     # the train step alone at B4 x 1024, for each remat mode: 2 warm-up
     # steps, then 5 timed with CUDA events
@@ -560,6 +724,34 @@ def train_phase(root, vocab, merges):
     ms, peak = timed["none"]
     return counts, {"ms_per_step": ms, "tokens_per_s": b * s / ms * 1e3, "peak_gib": peak,
                     "checkpoint": os.path.basename(summary["directory"])}
+
+
+def data_layer(root, vocab, merges, tokenizer, dev):
+    """The training items' cost on the host clock, for the ptb_500 train
+    split: the token cache's build (all records on the card) and ms per item
+    read from it, against ms per item with the host encode of
+    ``--online_encode``."""
+    import numpy as np
+
+    from ecg_byte_tpu_torch.data import DataConfig, ECGTokenDataset
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    data = os.path.join(root, "data")
+    sigs, texts = align_signal_text_files(f"{data}/ptb_500/ecg/train", f"{data}/ptb_500/text/train")
+    cfg = DataConfig(percentiles=f"{data}/ptb_500_dataset_stats.npy", pad_to_max=1020)
+    items = {}
+    for name, cache in (("host encode", False), ("token cache", True)):
+        t0 = time.perf_counter()
+        ds = ECGTokenDataset(sigs, texts, vocab, merges, tokenizer=tokenizer, args=cfg,
+                             cache_tokens=cache, device=dev)
+        built = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        items[name] = [ds[i] for i in range(len(ds))]
+        per_item = (time.perf_counter() - t0) / len(ds) * 1e3
+        print(f"data, {name}: {per_item:.3f} ms per item over {len(ds)} items (host clock); "
+              f"dataset built in {built * 1e3:.1f} ms")
+    for a, b in zip(*items.values()):
+        assert all(np.array_equal(a[k], b[k]) for k in a), "cached and host-encoded items differ"
 
 
 def profile_steps(step, state, batch, gen, n=2):
@@ -628,7 +820,7 @@ def serve_phase(root, checkpoint):
     print(f"launches {counts}; {prefills} prefills, {steps} decode steps")
     expected = {"prefill_attention": layers * prefills, "prefill_attention_bwd": 0,
                 "decode_attention": layers * steps, "rmsnorm": (2 * layers + 1) * forwards,
-                "rmsnorm_bwd": 0}
+                "rmsnorm_bwd": 0, "bpe_match": 0, "bpe_chain": 0}  # serving encodes on the host
     assert prefills == 5 * N_TEST, f"{prefills} records decoded"
     for name, n in counts.items():
         assert n == expected[name], f"{name}: {n} launches, expected {expected[name]}"
@@ -792,9 +984,13 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, smi = device_phase()
     build_phase()
-    report = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
         vocab, merges = make_data(root)
+        _, big_merges = make_data(root, **BIG)
+        print(f"datasets and tokenizers ({NUM_MERGES} and {BIG['num_merges']} merges) made on "
+              f"the host in {time.perf_counter() - t0:.1f} s")
+        report = kernels_phase(root, merges, big_merges)
         train_counts, train = train_phase(root, vocab, merges)
         serve_counts = serve_phase(root, train["checkpoint"])
         paths_phase(root, vocab, merges)
@@ -811,6 +1007,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
+            **({"host_trie_ms": r["host_trie_ms"]} if "host_trie_ms" in r else {}),
             "rows": [{k: v for k, v in row.items() if k != "max_abs_err"} for row in r["rows"]],
         })
     print(f"train step {train['ms_per_step']:.2f} ms, {train['tokens_per_s']:.0f} tokens/s, "

@@ -1,5 +1,6 @@
 """ECG-Byte on PyTorch and CUDA: the serving and LoRA training paths of
-``ecg_byte_tpu`` ported to an NVIDIA H100.
+``ecg_byte_tpu``, with the device BPE encoder of the training token cache
+and the tokenizer CLI, ported to an NVIDIA H100.
 
 Module paths and function names mirror the JAX package, so every function
 here has a counterpart of the same name under ``ecg_byte_tpu``.  The JAX
@@ -16,11 +17,13 @@ The kernels the TPU ran in Pallas are written by hand for Hopper:
   ``ops/attention_resident.py``);
 - decode attention over a bf16 KV cache, CUDA C++
   (``csrc/attention_decode.cu``, ``ops/attention_decode.py``);
-- RMSNorm, forward and backward, Triton (``ops/rmsnorm.py``).
+- RMSNorm, forward and backward, Triton (``ops/rmsnorm.py``);
+- the BPE encoder's longest match and greedy chain, CUDA C++
+  (``csrc/bpe_match.cu``, ``csrc/bpe_chain.cu``, ``ops/bpe_match.py``).
 
 Each keeps a plain PyTorch version beside it.  A wrapper takes the plain
 version only for a tensor that lies on the CPU; for a CUDA tensor it
 launches its kernel or raises.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -15,13 +15,16 @@ loss record, the per-seed result JSONs).
   checkpoint are merged into the base first.  ``main()`` returns the
   serving summary.
 
-Options the port does not have yet exit with the ``ROADMAP.md`` item that
-brings them.
+Training encodes every record once, before the first step, into a token
+cache on the run's device (the BPE kernels on the card); ``--online_encode``
+encodes each item on the host instead, with the same token streams.
+Serving encodes on the host, as the JAX CLI does.  Options the port does
+not have yet exit with the ``ROADMAP.md`` item that brings them.
 
 Examples:
   python -m ecg_byte_tpu_torch.cli.main --model llama-3.2-1b --dataset ptb_500 \
       --tokenizer_check tokenizer_3500 --percentiles ./data/ptb_500_dataset_stats.npy \
-      --peft --online_encode --batch_size 4 --pad_to_max 1020
+      --peft --batch_size 4 --pad_to_max 1020
   python -m ecg_byte_tpu_torch.cli.main --inference --peft --model llama-3.2-1b \
       --dataset ptb_500 --tokenizer_check tokenizer_3500 \
       --percentiles ./data/ptb_500_dataset_stats.npy --checkpoint <cfg-dir-name>
@@ -118,17 +121,15 @@ def get_args(argv=None):
     parser.add_argument('--no_merge_lora', action='store_true')
     parser.add_argument('--remat', type=str, default='slim',
                         choices=['slim', 'dots', 'full', 'none'])
-    parser.add_argument('--online_encode', action='store_true')
+    parser.add_argument('--online_encode', action='store_true',
+                        help='encode each training item on the host (C++ '
+                             'trie) instead of the token cache built on the '
+                             'device before training; the token streams are '
+                             'the same')
     return parser.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if not args.inference and not args.online_encode:
-        raise SystemExit(
-            "training without --online_encode needs the device token cache, whose BPE "
-            "kernels (longest_match, greedy_chain) are not ported yet: ROADMAP.md queue 1, "
-            "item 9; pass --online_encode to encode each record on the host"
-        )
     for flag, where in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not ported yet: {where}")
@@ -300,14 +301,15 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
         train_signals, train_texts = sample_N_percent_from_lists(train_signals, train_texts, 0.25)
         val_signals, val_texts = sample_N_percent_from_lists(val_signals, val_texts, 0.25)
     print(len(train_signals), len(val_signals))
+    cache = not args.online_encode
     training_loader = DataLoader(
         ECGTokenDataset(train_signals, train_texts, vocab, merges, tokenizer=tokenizer,
-                        args=data_cfg),
+                        args=data_cfg, cache_tokens=cache, device=device),
         batch_size=args.batch_size, shuffle=True, seed=args.seed, pad_id=pad_id,
     )
     validation_loader = DataLoader(
         ECGTokenDataset(val_signals, val_texts, vocab, merges, tokenizer=tokenizer,
-                        args=data_cfg),
+                        args=data_cfg, cache_tokens=cache, device=device),
         batch_size=args.batch_size, shuffle=False, pad_id=pad_id,
     )
     step_fn = make_train_step(config, optimizer, remat=args.remat)

@@ -4,8 +4,11 @@ The port of ``ecg_byte_tpu/data/datasets.py``: the same packing, token for
 token (left-padded signal region, ``-100`` label masking up to the answer,
 cumsum position ids with pads pinned to 0, the ``pad_to_max + 4`` training
 length), as numpy items.  A record is quantized with the port's
-``normalize_quantize`` and BPE-encoded on the host by the C++ trie of
-the port's ``tokenizer`` package.
+``normalize_quantize`` and BPE-encoded either on the host, item by item, by
+the C++ trie of the port's ``tokenizer`` package, or once for the whole
+dataset by the device encoder (``cache_tokens=True``,
+``ops/bpe_encode.quantize_and_encode``): the two give the same token
+streams.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ecg_byte_tpu_torch.device import resolve_device
+from ecg_byte_tpu_torch.ops import bpe_encode
 from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
 from ecg_byte_tpu_torch.tokenizer import encode_text
 
@@ -88,7 +93,11 @@ class ECGTokenDataset:
         tokenizer=None,
         args: Optional[DataConfig] = None,
         cache_tokens: bool = False,
+        device=None,
     ):
+        """``cache_tokens`` encodes every record once, in batches, on
+        ``device`` (default the CUDA card, which must exist; the CPU only
+        when named)."""
         self.signal_path_list = np.array(signal_path_list)
         self.text_path_list = np.array(text_path_list)
         self.args = args
@@ -101,13 +110,9 @@ class ECGTokenDataset:
         self.sig_start_id = tokenizer.convert_tokens_to_ids(["<sig_start>"])
         self.sig_end_id = tokenizer.convert_tokens_to_ids(["<sig_end>"])
         self.percentiles = load_percentiles(args.percentiles)
+        self._token_cache: Optional[List[List[int]]] = None
         if cache_tokens:
-            raise NotImplementedError(
-                "cache_tokens=True needs the device BPE encoder (the Pallas "
-                "kernels longest_match and greedy_chain), which is not ported "
-                "yet: ROADMAP.md queue 1, item 9.  Items are encoded on the "
-                "host instead."
-            )
+            self._token_cache = self._build_token_cache(resolve_device(device))
 
     def __len__(self) -> int:
         return len(self.signal_path_list)
@@ -120,6 +125,22 @@ class ECGTokenDataset:
             self.percentiles["percentile_1"], self.percentiles["percentile_99"],
         )
         return encode_text(quantized_to_string(q), self.merges)
+
+    def _build_token_cache(self, device: torch.device, batch: int = 64) -> List[List[int]]:
+        """Encode every record once on ``device``, ``batch`` records at a
+        time: the matcher table is built there once, the stacked records
+        are moved there and go through ``quantize_and_encode``."""
+        table = bpe_encode.build_best_matcher(self.merges, device)
+        p1 = self.percentiles["percentile_1"]
+        p99 = self.percentiles["percentile_99"]
+        cache: List[List[int]] = []
+        for start in range(0, len(self.signal_path_list), batch):
+            sigs = np.stack([np.load(p) for p in self.signal_path_list[start : start + batch]])
+            signal = torch.from_numpy(sigs.astype(np.float32, copy=False)).to(device)
+            ids, counts = bpe_encode.quantize_and_encode(signal, p1, p99, table)
+            for row, cnt in zip(ids.cpu().numpy(), counts.cpu().numpy()):
+                cache.append(row[: int(cnt)].tolist())
+        return cache
 
     # -- item assembly ------------------------------------------------------
 
@@ -137,7 +158,10 @@ class ECGTokenDataset:
 
         try:
             question, answer = parse_question_answer(text_label, self.args.dataset)
-            bpe_ids = self._encode_signal_host(signal)
+            if self._token_cache is not None:
+                bpe_ids = self._token_cache[index]
+            else:
+                bpe_ids = self._encode_signal_host(signal)
             tokenized_question = self.tokenizer(
                 [question], return_tensors="np", add_special_tokens=False
             ).input_ids[0].tolist()

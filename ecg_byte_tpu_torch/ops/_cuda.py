@@ -40,6 +40,10 @@ _SIGNATURES = {
     "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, valid_mask, out, B, S, KH, G, D, stream
     "ecg_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, trans, token, match_tok, match_len, B, N, max_len, stream
+    "ecg_bpe_match": [_P] * 5 + [_I, _I, _I, _P],
+    # match_len, match_tok, visited, ids, counts, B, N, stream
+    "ecg_bpe_chain": [_P] * 5 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,167 @@
+"""The device BPE encoder's two kernels and their wrappers: longest match
+(``csrc/bpe_match.cu``) and the greedy chain with compaction
+(``csrc/bpe_chain.cu``), each beside its plain PyTorch version.
+
+``longest_match`` replaces the Pallas match kernels of
+``ecg_byte_tpu/ops/bpe_match.py`` (``_match_kernel_inker``,
+``_match_kernel_bits`` and ``_match_kernel``, reached through
+``longest_match``).  Those fed the TPU's matrix unit: matching was an int8
+product of symbol windows against a table of token columns, and a packed
+(length, id) max.  That caps tokens at 16 symbols and ids below 8192.  Here
+one thread per position walks the dictionary's trie automaton
+(``bpe_encode.build_automaton``) from the root, one dependent table load
+per symbol, and remembers the last terminal state: no length or id limit.
+What bounds it on the H100: the chain of dependent loads, not bytes (the
+walk touches the table ~10 times per position).  The table is read through
+the read-only path: its hot states stay in L1, the rest in L2.  A copy in
+each block's shared memory, for tables that fit there, measured no faster
+(``PERF.md``), so there is one placement for every table size.
+
+``greedy_chain`` replaces ``_chain_kernel`` (reached through
+``greedy_chain``), which carried a 16-row window of the banded recurrence
+across a sequential grid.  The chain is serial within a record and
+independent across records, so one block per record stages the match
+lengths and tokens in shared memory chunk by chunk and one thread walks
+``i -> i + match_len[i]``, writing the visited mask, the compacted ids and
+the count in the same walk (``bpe_encode._compact``'s sort is not needed
+on the card).  What bounds it: the walk's serial shared-memory loads.
+
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
+or raises.  Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ecg_byte_tpu_torch.ops import _cuda
+from ecg_byte_tpu_torch.ops.bpe_encode import PAD_SYMBOL, Automaton, _compact
+from ecg_byte_tpu_torch.ops.quantize import _BYTE_A
+
+
+def longest_match_plain(q: torch.Tensor, table: Automaton):
+    """(B, N) symbols -> ``(match_tok, match_len)``, int32 (B, N): the
+    longest token starting at each position and ending inside its record,
+    else the position's own symbol byte and length 1.  The gather walk of
+    ``bpe_encode._longest_match``, over the batch."""
+    b, n = q.shape
+    dev = q.device
+    width = table.trans.shape[1]
+    trans = table.trans.reshape(-1).long()
+    token = table.token.long()
+    qp = torch.cat([q.long(), torch.full((b, table.max_len), PAD_SYMBOL, dtype=torch.long,
+                                         device=dev)], dim=1)
+    states = torch.ones((b, n), dtype=torch.long, device=dev)  # the root
+    match_tok = q.long() + _BYTE_A
+    match_len = torch.ones((b, n), dtype=torch.long, device=dev)
+    for j in range(table.max_len):
+        states = trans[states * width + qp[:, j:j + n]]
+        tok = token[states]
+        hit = tok >= 0
+        match_tok = torch.where(hit, tok, match_tok)
+        match_len = torch.where(hit, j + 1, match_len)
+    return match_tok.to(torch.int32), match_len.to(torch.int32)
+
+
+def greedy_chain_plain(match_len: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B, N) match lengths in [1, max_len] -> (B, N) bool, the positions
+    0, f(0), f(f(0)), ... of each record.  The banded recurrence of
+    ``bpe_encode._greedy_chain_scan``: ``visited[i] = OR_d visited[i-d] &
+    (match_len[i-d] == d)`` over the last ``max_len`` positions, one step
+    per position."""
+    b, n = match_len.shape
+    w = max(int(max_len), 1)
+    dev = match_len.device
+    # slot w + i holds position i; the w slots before position 0 stay empty
+    visited = torch.zeros((b, n + w), dtype=torch.bool, device=dev)
+    lens = torch.zeros((b, n + w), dtype=match_len.dtype, device=dev)
+    lens[:, w:] = match_len
+    dist = torch.arange(w, 0, -1, device=dev, dtype=match_len.dtype)
+    if n:
+        visited[:, w] = True
+    for i in range(1, n):
+        visited[:, w + i] = (visited[:, i:i + w] & (lens[:, i:i + w] == dist)).any(dim=1)
+    return visited[:, w:]
+
+
+def _check_match(q, table):
+    if q.dim() != 2 or q.dtype != torch.uint8:
+        raise ValueError(f"q must be a uint8 (B, N) tensor, got {q.dtype} {tuple(q.shape)}")
+    trans, token = table.trans, table.token
+    if trans.dim() != 2 or trans.shape[1] != PAD_SYMBOL + 1 or token.shape != trans.shape[:1]:
+        raise ValueError("the table must be an Automaton: trans (S, 27), token (S,)")
+    for name, t in (("q", q), ("trans", trans), ("token", token)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if trans.dtype != torch.int32 or token.dtype != torch.int32:
+        raise ValueError("the table's trans and token must be int32")
+
+
+def longest_match(q: torch.Tensor, table: Automaton):
+    """``longest_match_plain``'s contract; a CUDA tensor launches
+    ``csrc/bpe_match.cu``."""
+    if q.device.type == "cpu":
+        return longest_match_plain(q, table)
+    _check_match(q, table)
+    b, n = q.shape
+    match_tok = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    match_len = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    if q.numel() == 0:
+        return match_tok, match_len
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ecg_bpe_match(
+            q.data_ptr(), table.trans.data_ptr(), table.token.data_ptr(), match_tok.data_ptr(),
+            match_len.data_ptr(), b, n, table.max_len, stream,
+        )
+    _cuda.check(err, "BPE longest match")
+    longest_match.launches += 1
+    return match_tok, match_len
+
+
+longest_match.launches = 0
+
+
+def _check_chain(match_len, match_tok):
+    if match_len.dim() != 2 or match_tok.shape != match_len.shape:
+        raise ValueError("match_len and match_tok must be (B, N) of one shape")
+    for name, t in (("match_len", match_len), ("match_tok", match_tok)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_cuda or t.device != match_len.device:
+            raise ValueError(f"{name} must lie on match_len's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def greedy_chain(match_len: torch.Tensor, match_tok: torch.Tensor, max_len: int):
+    """The greedy chain and its compaction: ``(visited, ids, counts)``,
+    visited bool (B, N), ids int32 (B, N) left-aligned and padded with
+    ``PAD_TOKEN``, counts int32 (B,).  A CPU tensor takes
+    ``greedy_chain_plain`` and ``bpe_encode._compact``; a CUDA tensor
+    launches ``csrc/bpe_chain.cu``, which needs no ``max_len``."""
+    if match_len.device.type == "cpu":
+        visited = greedy_chain_plain(match_len, max_len)
+        return (visited, *_compact(match_tok, visited))
+    _check_chain(match_len, match_tok)
+    b, n = match_len.shape
+    dev = match_len.device
+    visited = torch.empty((b, n), dtype=torch.bool, device=dev)
+    ids = torch.empty((b, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return visited, ids, counts
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ecg_bpe_chain(match_len.data_ptr(), match_tok.data_ptr(), visited.data_ptr(),
+                                ids.data_ptr(), counts.data_ptr(), b, n, stream)
+    _cuda.check(err, "BPE greedy chain")
+    greedy_chain.launches += 1
+    return visited, ids, counts
+
+
+greedy_chain.launches = 0

@@ -1,15 +1,20 @@
-"""``chip_smoke.py``'s checks of the two backward kernels, on the CPU: they
-pass the plain versions' own output and refuse outputs with the faults the
-bounds are there for.  The plain versions stand in for the kernels here
-(the kernels themselves run only on the card)."""
+"""``chip_smoke.py``'s checks of the two backward kernels and of the device
+BPE encoder's token streams, on the CPU: they pass the plain versions' own
+output and refuse outputs with the faults the bounds are there for.  The
+plain versions stand in for the kernels here (the kernels themselves run
+only on the card)."""
 
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 import torch
 
-from ecg_byte_tpu_torch.ops import attention_resident, rmsnorm
+from ecg_byte_tpu_torch.cli.make_synthetic import make_signal
+from ecg_byte_tpu_torch.ops import attention_resident, bpe_encode, rmsnorm
+from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
+from ecg_byte_tpu_torch.tokenizer import BpeTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -90,3 +95,37 @@ def test_rmsnorm_bwd_dx_check_refuses_errors(ulps):
         bad[0, 0] += ulps * chip_smoke.bf16_ulp(dx[0, 0])
     with pytest.raises(AssertionError, match="K3 bwd"):
         chip_smoke.check_rmsnorm_bwd_dx(bad, dx, x, w, g, 1e-5, "mutated")
+
+
+def _encoded_batch():
+    """Three 12 x 100 records encoded by ``quantize_and_encode`` on the CPU
+    with a 60-merge tokenizer of their own, and the host trie's streams."""
+    rng = np.random.default_rng(2)
+    sigs = np.stack([make_signal(rng, i % 2 == 0, 100) for i in range(3)])
+    p1, p99 = float(np.percentile(sigs, 1)), float(np.percentile(sigs, 99))
+    corpus = quantized_to_string(normalize_quantize(torch.from_numpy(sigs), p1, p99)[1])
+    merges = BpeTokenizer.train(corpus, 60).merges
+    table = bpe_encode.build_automaton(merges, torch.device("cpu"))
+    ids, counts = bpe_encode.quantize_and_encode(torch.from_numpy(sigs), p1, p99, table)
+    return ids, counts, chip_smoke.host_streams(sigs, p1, p99, merges)
+
+
+def test_token_stream_check_passes_the_host_trie():
+    ids, counts, want = _encoded_batch()
+    chip_smoke.check_streams(ids, counts, want, "plain")
+
+
+@pytest.mark.parametrize("fault", ["changed-token", "count-plus-one", "count-minus-one"])
+def test_token_stream_check_refuses_faults(fault):
+    """One token changed, or one record's count off by one (a token too many
+    is a PAD_TOKEN, one too few drops the last): each is refused."""
+    ids, counts, want = _encoded_batch()
+    ids, counts = ids.clone(), counts.clone()
+    if fault == "changed-token":
+        ids[1, 7] += 1
+        match = "record 1 token 7"
+    else:
+        counts[2] += 1 if fault == "count-plus-one" else -1
+        match = "record 2 has"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_streams(ids, counts, want, fault)

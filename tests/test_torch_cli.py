@@ -1,8 +1,9 @@
 """The port's CLI end to end on the CPU, in subprocesses: a tiny synthetic
 dataset and BPE tokenizer made by the port's own ``make_synthetic`` and
 tokenizer, then ``ecg_byte_tpu_torch.cli.main`` serving a random tiny-llama
-checkpoint, training with LoRA, serving what it trained, resuming, and
-refusing what is not ported."""
+checkpoint, training with LoRA (from the token cache and with
+``--online_encode``), serving what it trained, resuming, and refusing what is
+not ported."""
 
 import json
 import os
@@ -92,12 +93,18 @@ def test_cli_refuses(workdir, extra, message):
     assert message in r.stderr
 
 
-def test_training_branch_refused(workdir):
-    """Training without --online_encode needs the device token cache (the
-    BPE kernels, item 9): refused, with the item named."""
-    args = [a for a in TRAIN if a != "--online_encode"]
-    r = _run(args, workdir)
-    assert r.returncode != 0 and "ROADMAP.md queue 1, item 9" in r.stderr
+def test_training_branch_refused(workdir, trained, tmp_path):
+    """Training without --online_encode, the default, builds the device
+    token cache (on --device cpu, the BPE kernels' plain versions) and
+    trains to the same train and val losses as --online_encode; without
+    --device and without a card it is refused, as every run is."""
+    os.symlink(workdir / "data", tmp_path / "data")  # its own runs/ beside the same data
+    r = _run([a for a in TRAIN if a != "--online_encode"], tmp_path)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    cached = _summary(r.stdout, "Training on cpu")
+    assert cached["steps"] == trained["steps"] and cached["tokens"] == trained["tokens"]
+    assert cached["train_loss"] == trained["train_loss"]
+    assert cached["val_loss"] == trained["val_loss"]
     r = _run([a for a in TRAIN if a not in ("--device", "cpu")], workdir)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
 

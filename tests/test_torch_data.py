@@ -117,12 +117,28 @@ def test_loader_batches_identical(records):
         _assert_items_equal(jb, b)
 
 
-def test_token_cache_not_ported(records):
+def test_token_cache_not_ported(records, monkeypatch):
+    """The token cache (``cache_tokens=True``) is ported: it encodes every
+    record once on the device the caller names (here the CPU, so the
+    kernels' plain versions), and its items equal the port's host-encoded
+    items and the JAX package's cached items, in batches of 64 or of 2.
+    With no device named it needs the CUDA card: no fall back to the CPU."""
     sigs, texts, vocab, merges, stats = records
-    tok = ByteTextTokenizer()
-    register_ecg_tokens(tok, vocab)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ECGTokenDataset(sigs, texts, vocab, merges, tokenizer=tok,
+    for cfg in (dict(pad_to_max=600), dict(inference=True)):
+        jds, online = _datasets(records, **cfg)
+        jcached = JaxDataset(sigs, texts, vocab, merges, tokenizer=jds.tokenizer,
+                             args=JaxDataConfig(percentiles=stats, **cfg), cache_tokens=True)
+        cached = ECGTokenDataset(sigs, texts, vocab, merges, tokenizer=online.tokenizer,
+                                 args=DataConfig(percentiles=stats, **cfg), cache_tokens=True,
+                                 device="cpu")
+        assert cached._build_token_cache(torch.device("cpu"), batch=2) == cached._token_cache
+        assert len(cached._token_cache) == len(sigs)
+        for i in range(len(sigs)):
+            _assert_items_equal(cached[i], online[i])
+            _assert_items_equal(cached[i], jcached[i])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ECGTokenDataset(sigs, texts, vocab, merges, tokenizer=online.tokenizer,
                         args=DataConfig(percentiles=stats), cache_tokens=True)
 
 
