@@ -14,6 +14,9 @@ Phases, each printing its own lines, in the order they run:
    main paths' widths, with the tolerance stated, timed in turns with the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), beside the card's bound.
+   The int8 kernels: decode attention over the int8 cache (SDPA on the
+   bf16 cache as yardstick), the int8 weight product (cuBLAS on the bf16
+   weight) and the KV quantizer (equal to its plain version exactly).
    The two BPE kernels must equal their plain versions exactly, and the
    device encoder's streams the host C++ trie's, at (64, 6,000) and
    (256, 30,000) symbols; the trie is their yardstick.
@@ -24,8 +27,13 @@ Phases, each printing its own lines, in the order they run:
    host trie's; then the train step timed alone.
 4. Serve: ``cli.main --inference --peft`` serves the checkpoint phase 6
    wrote, LoRA merged; every serving kernel's launch count (none of BPE).
+8. Serve int8: ``cli.main --inference --int8_decode --peft --toy`` serves
+   the same checkpoint, merged then quantized, with the int8 KV cache;
+   every kernel's launch count.
 5. Serving kernel path vs plain path: one prompt plus 32 teacher-forced
    tokens through prefill and decode_step; the logits must agree.
+9. The same for the int8 model and cache, and the device time of a decode
+   step with bf16 and with int8 weights and cache (``torch.profiler``).
 7. Train-step kernel path vs plain path: loss and LoRA gradients at
    B1 x 1024 with the kernels, with the plain versions and in f32.
 
@@ -78,8 +86,23 @@ SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
                   "ecg_byte_tpu/ops/bpe_match.py:369"),
     "bpe_chain": ("cuda", "ecg_byte_tpu_torch/csrc/bpe_chain.cu",
                   "ecg_byte_tpu/ops/bpe_match.py:576"),
+    # the int8 cache's branch of the decode kernel (_kernel, int8_scales)
+    "decode_attention_int8": ("cuda", "ecg_byte_tpu_torch/csrc/attention_decode.cu",
+                              "ecg_byte_tpu/ops/attention_decode.py:117"),
+    # no Pallas kernel: XLA fuses the dequantization into the dot there
+    "int8_linear": ("cuda", "ecg_byte_tpu_torch/csrc/int8_linear.cu",
+                    "ecg_byte_tpu/models/transformer.py:323"),
+    # no Pallas kernel: XLA runs _quant_kv_rows and _append_kv there
+    "kv_quant": ("cuda", "ecg_byte_tpu_torch/csrc/kv_quant.cu",
+                 "ecg_byte_tpu/models/transformer.py:1013"),
 }
 SERVE_KERNELS = ("prefill_attention", "decode_attention", "rmsnorm")
+INT8_SERVE_KERNELS = ("prefill_attention", "decode_attention_int8", "rmsnorm", "int8_linear",
+                      "kv_quant")
+LAYERS = 16  # Llama-3.2-1B
+# launches of each kernel per forward (prefill or decode step) of the int8
+# model: 7 projections a layer and the head; one KV append a layer
+INT8_LINEAR_PER_FORWARD = 7 * LAYERS + 1
 
 
 def phase(name):
@@ -123,6 +146,27 @@ def time_in_turns(fns, iters):
     for i in order:
         times[i] += run(fns[i], iters[i]) / 2
     return times
+
+
+def time_graphed(fns, calls=20, replays=5):
+    """Device ms per call of each function: ``calls`` calls captured in one
+    CUDA graph, its replays timed with CUDA events in turns (as
+    :func:`time_in_turns`), so the host's launch cost drops out."""
+    import torch
+
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm: allocations and lazy builds outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        graphs.append(g)
+    return [t / calls for t in time_in_turns([g.replay for g in graphs], replays)]
 
 
 def bound_ms(flops, nbytes):
@@ -186,6 +230,31 @@ def check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, eps, shape):
     return diff.max().item()
 
 
+def check_int8_linear(got, want, x, q, scale, bias, shape):
+    """Hold the int8 product's output against the plain version's and return
+    max|d|.  Both round the same dot to bf16, times the scale, plus the
+    bias; the dots are f32 sums in other orders, which differ by at most
+    tau = 2 K 2^-24 sum_k |x q| (the deterministic bound of f32 summation).
+    So every element must be within 2 bf16 ulps of its magnitude before the
+    bias, plus tau times the scale: 2 ulps alone fail only where the dot
+    cancels to near 0, and the printed count says how often."""
+    import torch
+    import torch.nn.functional as F
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    mag = want.abs() if bias is None else torch.maximum(want.abs(), (want - bias.float()).abs())
+    terms = F.linear(x.float().abs(), q.float().abs())  # sum_k |x q|, (M, N)
+    tau = 2 * x.shape[-1] * 2.0**-24 * terms * scale.float()
+    beyond = int((diff > 2 * bf16_ulp(mag)).sum())
+    print(f"int8_linear {shape}: {beyond} of {diff.numel()} elements beyond 2 bf16 ulps "
+          f"(the dot cancels there); max tau*scale {tau.max().item():.3e}")
+    assert torch.isfinite(got).all(), f"int8_linear {shape}: non-finite output"
+    assert (diff <= 2 * bf16_ulp(mag) + tau).all(), \
+        f"int8_linear {shape}: beyond 2 bf16 ulps + the f32 summation bound"
+    return diff.max().item()
+
+
 def host_streams(signals, p1, p99, merges):
     """Each record's BPE stream by the host path of ``--online_encode``:
     the quantizer on the CPU, then the C++ trie."""
@@ -225,55 +294,74 @@ def _chain_plain(match_len, match_tok, max_len):
 
 @functools.lru_cache(maxsize=1)
 def _counters():
-    from ecg_byte_tpu_torch.ops import attention_decode, attention_resident, bpe_match, rmsnorm
+    from ecg_byte_tpu_torch.ops import (
+        attention_decode,
+        attention_resident,
+        bpe_match,
+        int8_linear,
+        kv_quant,
+        rmsnorm,
+    )
 
-    # the wrappers themselves, taken before any plain_path() swap
+    # kernel -> (its wrapper, the wrapper's count), the wrappers themselves,
+    # taken before any plain_path() swap; one wrapper launches both
+    # instantiations of the decode kernel and counts each
     return {
-        "prefill_attention": attention_resident.resident_attention,
-        "prefill_attention_bwd": attention_resident.resident_attention_bwd,
-        "decode_attention": attention_decode.decode_attention_fused,
-        "rmsnorm": rmsnorm.rmsnorm,
-        "rmsnorm_bwd": rmsnorm.rmsnorm_bwd,
-        "bpe_match": bpe_match.longest_match,
-        "bpe_chain": bpe_match.greedy_chain,
+        "prefill_attention": (attention_resident.resident_attention, "launches"),
+        "prefill_attention_bwd": (attention_resident.resident_attention_bwd, "launches"),
+        "decode_attention": (attention_decode.decode_attention_fused, "launches"),
+        "rmsnorm": (rmsnorm.rmsnorm, "launches"),
+        "rmsnorm_bwd": (rmsnorm.rmsnorm_bwd, "launches"),
+        "bpe_match": (bpe_match.longest_match, "launches"),
+        "bpe_chain": (bpe_match.greedy_chain, "launches"),
+        "decode_attention_int8": (attention_decode.decode_attention_fused, "int8_launches"),
+        "int8_linear": (int8_linear.int8_linear, "launches"),
+        "kv_quant": (kv_quant.append_kv, "launches"),
     }
 
 
 def launches():
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def zero_launches():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 @contextlib.contextmanager
 def plain_path(kernels=tuple(SOURCES)):
-    """Swap the plain PyTorch versions in for the named kernel wrappers
-    (the autograd functions look their wrappers up when called)."""
+    """Swap the plain PyTorch versions in for the named kernels' wrappers
+    (the autograd functions look their wrappers up when called).  Both
+    decode kernels have one wrapper: naming either swaps it."""
     from ecg_byte_tpu_torch.ops import (
         attention,
         attention_decode,
         attention_resident,
         bpe_match,
+        int8_linear,
+        kv_quant,
         rmsnorm,
     )
 
     _counters()
+    decode = (attention_decode, "decode_attention_fused", attention.decode_attention)
     swaps = {
         "prefill_attention": (attention_resident, "resident_attention", attention.grouped_attention),
         "prefill_attention_bwd": (attention_resident, "resident_attention_bwd",
                                   attention_resident.resident_attention_bwd_plain),
-        "decode_attention": (attention_decode, "decode_attention_fused", attention.decode_attention),
+        "decode_attention": decode,
         "rmsnorm": (rmsnorm, "rmsnorm", rmsnorm.rmsnorm_plain),
         "rmsnorm_bwd": (rmsnorm, "rmsnorm_bwd", rmsnorm.rmsnorm_bwd_plain),
         "bpe_match": (bpe_match, "longest_match", bpe_match.longest_match_plain),
         "bpe_chain": (bpe_match, "greedy_chain", _chain_plain),
+        "decode_attention_int8": decode,
+        "int8_linear": (int8_linear, "int8_linear", int8_linear.int8_linear_plain),
+        "kv_quant": (kv_quant, "append_kv", kv_quant.append_kv_plain),
     }
     with contextlib.ExitStack() as stack:
-        for name in kernels:
-            stack.enter_context(mock.patch.object(*swaps[name]))
+        for swap in {swaps[name][:2]: swaps[name] for name in kernels}.values():
+            stack.enter_context(mock.patch.object(*swap))
         yield
 
 
@@ -404,7 +492,7 @@ def kernels_phase(root, merges, big_merges):
         library = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{name} {shape}: max|d| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} "
-              f"GFLOP, {nbytes / 1e6:.1f} MB)")
+              f"GFLOP, {nbytes / 1e6:.1f} MB)" + "".join(f"; {k} {v}" for k, v in extra.items()))
         entry = report[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["rows"].append(row)
@@ -547,6 +635,8 @@ def kernels_phase(root, merges, big_merges):
         record("rmsnorm_bwd", list(shape), err, times, 8 * x.numel(),
                6 * x.numel() + 4 * w.numel(), main=shape[0] == 4096)
 
+    int8_checks(record, dev, gen, randn)
+
     # the BPE kernels: one batch of the token cache at ptb_500's 12 x 500
     # with phase 6's tokenizer (the main path's), and 256 records of
     # 12 x 2,500 with a 3,500-merge tokenizer
@@ -564,6 +654,123 @@ def kernels_phase(root, merges, big_merges):
     bpe_checks(record, dev, f"{BIG['name']}, {BIG['num_merges']} merges", big, big_p1, big_p99,
                big_merges, main=False, iters=(10, 1, 1))
     return report
+
+
+def int8_checks(record, dev, gen, randn):
+    """The int8 serving kernels against their plain versions, timed beside
+    their bounds and the bf16 path they replace."""
+    import torch
+    import torch.nn.functional as F
+
+    from ecg_byte_tpu_torch.models.quantized import quantize_weight
+    from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant
+
+    # decode attention over the int8 cache: random bf16 rows quantized by
+    # the plain quantizer; the yardstick is SDPA on the bf16 rows
+    for b, s, h, kh, d in [(1, 1152, 32, 8, 64), (4, 1152, 32, 8, 64), (1, 1152, 25, 25, 64),
+                           (1, 1152, 8, 1, 256)]:
+        with torch.inference_mode():
+            q, kb, vb = randn(b, 1, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
+            (kc, ks), (vc, vs) = kv_quant.quant_kv_rows(kb), kv_quant.quant_kv_rows(vb)
+            mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+            mask[:, -s // 4:] = 0
+            mask[0, :3] = 0
+            got = attention_decode.decode_attention_fused(q, kc, vc, mask, ks, vs)
+            want = attention.decode_attention(q, kc, vc, mask, ks, vs)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            # the tolerance of the bf16 cache's row
+            assert torch.isfinite(got.float()).all() and err <= 2e-2, f"K2 int8 max|d| {err}"
+            q4, k4, v4 = q.transpose(1, 2), kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
+            bmask = mask.bool()[:, None, None, :]
+            times = time_in_turns([
+                lambda: attention_decode.decode_attention_fused(q, kc, vc, mask, ks, vs),
+                lambda: attention.decode_attention(q, kc, vc, mask, ks, vs),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
+                                                       enable_gqa=True),
+            ], 100)
+            n_valid = mask.sum().item()  # the cache rows this call must read
+            nbytes = (2 * n_valid * kh * d + 2 * 2 * n_valid * kh + 2 * 2 * q.numel()
+                      + 4 * mask.numel())
+            record("decode_attention_int8", [b, s, h, kh, d], err, times, 4 * d * h * n_valid,
+                   nbytes, main=(b, h) == (1, 32))
+
+    # the int8 weight product: Llama's gate projection at decode (M = 1)
+    # and prefill (M = 1152), its head (f32 logits), and gpt2's c_fc with a
+    # bias (K = 1600); the yardstick is cuBLAS on the bf16 weight.  Kernel,
+    # plain and library are timed on the device (CUDA graphs): at M = 1 the
+    # host's launch cost would otherwise hide the kernel; the host-clock
+    # times of kernel and library calls in turns are kept as host_ms.
+    for m, n, k, with_bias in [(1, 8192, 2048, False), (1152, 8192, 2048, False),
+                               (1, 128256, 2048, False), (1, 6400, 1600, True)]:
+        with torch.inference_mode():
+            x, w = randn(m, k), randn(n, k) * 0.02
+            qw, scale = quantize_weight(w)
+            bias = randn(n) * 0.1 if with_bias else None
+            out_dtype = torch.float32 if n == 128256 else None
+            got = int8_linear.int8_linear(x, qw, scale, bias, out_dtype)
+            want = int8_linear.int8_linear_plain(x, qw, scale, bias, out_dtype)
+            torch.cuda.synchronize()
+            err = check_int8_linear(got, want, x, qw, scale, bias, [m, n, k])
+            fns = [lambda: int8_linear.int8_linear(x, qw, scale, bias, out_dtype),
+                   lambda: int8_linear.int8_linear_plain(x, qw, scale, bias, out_dtype),
+                   lambda: F.linear(x, w, bias)]
+            times = time_graphed(fns, calls=5 if m > 1 else 20)
+            host = time_in_turns([fns[0], fns[2]], 10 if m > 1 else 50)
+            out_bytes = m * n * (4 if out_dtype else 2)
+            nbytes = n * k + 2 * m * k + 2 * n * (2 if with_bias else 1) + out_bytes
+            record("int8_linear", [m, n, k], err, times, 2 * m * n * k, nbytes,
+                   main=(m, n) == (1, 8192), bias=with_bias, host_ms=host[0],
+                   library_host_ms=host[1])
+            del x, w, qw, scale, got, want, fns
+
+    # the host's cost of one call, from a tiny product: the wrapper against
+    # F.linear (eager decode makes 113 such calls per token)
+    x, qw, scale = randn(1, 64), torch.ones(64, 64, dtype=torch.int8, device=dev), randn(64)
+    wb = qw.to(torch.bfloat16)
+    for label, fn in (("int8_linear", lambda: int8_linear.int8_linear(x, qw, scale)),
+                      ("F.linear", lambda: F.linear(x, wb))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        torch.cuda.synchronize()
+        print(f"host cost of one {label} call at (1, 64) x (64, 64): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} us (host clock over 1,000 calls)")
+
+    # the KV quantizer: a decode step's rows (B1, B4) and a prefill's, into a
+    # 1,152-slot cache, and gemma's D 256; it must equal the plain version
+    for b, rows, kh, d, idx in [(1, 1, 8, 64, 1100), (4, 1, 8, 64, 1100), (1, 1152, 8, 64, 0),
+                                (1, 1, 1, 256, 5)]:
+        with torch.inference_mode():
+            k, v = randn(b, rows, kh, d), randn(b, rows, kh, d)
+            k[0, 0, 0] = 0.0  # a zero row: scale 1
+
+            def cache():
+                return (torch.zeros(b, 1152, kh, d, dtype=torch.int8, device=dev),
+                        torch.zeros(b, 1152, kh, d, dtype=torch.int8, device=dev),
+                        torch.ones(b, 1152, kh, dtype=torch.bfloat16, device=dev),
+                        torch.ones(b, 1152, kh, dtype=torch.bfloat16, device=dev))
+
+            got, want = cache(), cache()
+            kv_quant.append_kv(k, v, *got, idx)
+            kv_quant.append_kv_plain(k, v, *want, idx)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, w) for a, w in zip(got, want)), \
+                f"kv_quant {[b, rows, kh, d]}: differs from the plain version"
+            # device time (CUDA graphs), and the host clock of calls in turns:
+            # at a decode step's size the launch is the cost
+            fns = [lambda: kv_quant.append_kv(k, v, *got, idx),
+                   lambda: kv_quant.append_kv_plain(k, v, *want, idx)]
+            times = time_graphed(fns)
+            host = time_in_turns(fns, 100)
+            # bytes: K and V read once, their int8 rows and scales written
+            # once; ~5 operations per element (abs, max, divide, round, clamp)
+            nbytes = 2 * (2 * k.numel() + k.numel() + 2 * b * rows * kh)
+            record("kv_quant", [b, rows, kh, d], 0.0, (*times, None), 10 * k.numel(), nbytes,
+                   main=(b, rows) == (1, 1), host_ms=host[0], plain_host_ms=host[1])
+    print("  kv_quant: int8 rows and bf16 scales equal the plain version's (torch.equal)")
 
 
 def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
@@ -654,18 +861,18 @@ def train_phase(root, vocab, merges):
     steps, evals = summary["steps"], 2  # two epochs, one validation batch each
     print(f"launches {counts}; {steps} train steps, {evals} eval steps; "
           f"{summary['tokens']} tokens in {summary['seconds']:.1f} s; phase wall {wall:.1f} s")
-    layers = 16
+    layers = LAYERS
     # per train step every layer's attention forward and backward, 2L + 1
     # norms forward; 2L norm backwards, as layer 0's input norm reads the
     # frozen embedding and nothing asks for its gradient; per eval step the
     # forwards alone; each BPE kernel once per batch of the token cache, one
-    # batch for the train split and one for the val split
-    expected = {"prefill_attention": layers * (steps + evals),
-                "prefill_attention_bwd": layers * steps,
-                "decode_attention": 0,
-                "rmsnorm": (2 * layers + 1) * (steps + evals),
-                "rmsnorm_bwd": 2 * layers * steps,
-                "bpe_match": 2, "bpe_chain": 2}
+    # batch for the train split and one for the val split; no serving kernel
+    expected = dict.fromkeys(SOURCES, 0)
+    expected.update({"prefill_attention": layers * (steps + evals),
+                     "prefill_attention_bwd": layers * steps,
+                     "rmsnorm": (2 * layers + 1) * (steps + evals),
+                     "rmsnorm_bwd": 2 * layers * steps,
+                     "bpe_match": 2, "bpe_chain": 2})
     assert steps == 12, f"{steps} train steps"
     for name, n in counts.items():
         assert n == expected[name], f"{name}: {n} launches, expected {expected[name]}"
@@ -796,35 +1003,53 @@ def profile_steps(step, state, batch, gen, n=2):
         print(f"    {us / 1e3 / n:8.3f}  {count / n:6.1f}  {key[:110]}")
 
 
-def serve_phase(root, checkpoint):
+def serve_phase(root, checkpoint, int8=False):
+    """``cli.main --inference --peft`` on phase 6's checkpoint, LoRA merged;
+    with ``int8``, ``--int8_decode --toy`` (2 of the 10 test records a
+    seed).  Asserts every kernel's launch count; returns the counts and
+    decode ms/token."""
     import torch
 
     from ecg_byte_tpu_torch.cli import main as cli_main
     from ecg_byte_tpu_torch.models import llama_3_2_1b
 
-    phase("4. serve: cli.main --inference --peft on phase 6's checkpoint (LoRA merged)")
+    if int8:
+        phase("8. serve int8: cli.main --inference --int8_decode --peft --toy on phase 6's "
+              "checkpoint (LoRA merged, then quantized; int8 KV cache)")
+    else:
+        phase("4. serve: cli.main --inference --peft on phase 6's checkpoint (LoRA merged)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
+    extra = ["--int8_decode", "--toy"] if int8 else []
     with contextlib.chdir(root):
         result = cli_main.main(_cli_args() + [
             "--inference", "--dev", "--peft", "--checkpoint", checkpoint, "--eval_batch_size", "1",
-        ])
+        ] + extra)
     wall = time.perf_counter() - t0
     counts = launches()
     serving, records = result["serving"], result["records"]
     prefills, steps = serving["records"], serving["decode_steps"]
     forwards = prefills + steps
-    layers = 16
+    layers = LAYERS
     print(f"launches {counts}; {prefills} prefills, {steps} decode steps")
-    expected = {"prefill_attention": layers * prefills, "prefill_attention_bwd": 0,
-                "decode_attention": layers * steps, "rmsnorm": (2 * layers + 1) * forwards,
-                "rmsnorm_bwd": 0, "bpe_match": 0, "bpe_chain": 0}  # serving encodes on the host
-    assert prefills == 5 * N_TEST, f"{prefills} records decoded"
+    # per forward 2L + 1 norms; per prefill L attention kernels, per decode
+    # step L decode kernels; with int8, per forward one int8 product per
+    # projection and for the head and one KV append per layer; no BPE
+    # kernel (serving encodes on the host)
+    expected = dict.fromkeys(SOURCES, 0)
+    expected.update({"prefill_attention": layers * prefills,
+                     "decode_attention_int8" if int8 else "decode_attention": layers * steps,
+                     "rmsnorm": (2 * layers + 1) * forwards})
+    if int8:
+        expected.update({"int8_linear": INT8_LINEAR_PER_FORWARD * forwards,
+                         "kv_quant": layers * forwards})
+    assert prefills == 5 * (max(1, int(N_TEST * 0.25)) if int8 else N_TEST), \
+        f"{prefills} records decoded"
     for name, n in counts.items():
         assert n == expected[name], f"{name}: {n} launches, expected {expected[name]}"
-        assert n > 0 or name not in SERVE_KERNELS
+        assert n > 0 or name not in (INT8_SERVE_KERNELS if int8 else SERVE_KERNELS)
     vocab_size = llama_3_2_1b().vocab_size  # the ECG tokens fit inside it
     for r in records:
         toks = r["tokens"]
@@ -836,22 +1061,39 @@ def serve_phase(root, checkpoint):
           f"= {1e3 / ms_step:.1f} tok/s at batch 1 (host clock around synchronize)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"phase wall {wall:.1f} s")
-    return counts
+    return counts, ms_step
 
 
-def paths_phase(root, vocab, merges):
+def paths_phase(root, vocab, merges, int8=False):
+    """One prompt + TEACHER_FORCED tokens through prefill and decode_step
+    with the kernels, with the plain versions, and in f32 activations (the
+    plain versions on the same weights: with ``int8``, the same int8
+    weights and int8 cache); the kernel path must be no further from the
+    f32 run than 1.25x the plain path.  With ``int8``, also the device time
+    of a decode step, bf16 against int8."""
     import numpy as np
     import torch
 
     from ecg_byte_tpu_torch.cli.common import build_model
     from ecg_byte_tpu_torch.data import DataConfig, ECGTokenDataset
     from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
     from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
 
-    phase(f"5. serving kernel path vs plain path: one prompt + {TEACHER_FORCED} teacher-forced tokens")
+    if int8:
+        phase(f"9. int8 serving kernel path vs plain path: one prompt + {TEACHER_FORCED} "
+              "teacher-forced tokens, int8 weights and KV cache")
+    else:
+        phase(f"5. serving kernel path vs plain path: one prompt + {TEACHER_FORCED} "
+              "teacher-forced tokens")
     dev = torch.device("cuda")
     data = os.path.join(root, "data")
     params, config, tok = build_model(MODEL, vocab, dev)
+    bf16_params = params
+    if int8:
+        params = quantize_lm_int8(params, config)
+    kernels = INT8_SERVE_KERNELS if int8 else SERVE_KERNELS
+    cache_dtype = torch.int8 if int8 else None
     sigs, texts = align_signal_text_files(f"{data}/ptb_500/ecg/test", f"{data}/ptb_500/text/test")
     item = ECGTokenDataset(
         sigs[:1], texts[:1], vocab, merges, tokenizer=tok,
@@ -867,35 +1109,38 @@ def paths_phase(root, vocab, merges):
     forced = torch.randint(0, config.vocab_size, (TEACHER_FORCED,), generator=gen, device=dev)
 
     @torch.inference_mode()
-    def run(params, config):
-        cache = T.init_kv_cache(config, 1, s + TEACHER_FORCED, dev)
+    def run(params, config, cache_dtype=cache_dtype, steps=TEACHER_FORCED, on_step=None):
+        cache = T.init_kv_cache(config, 1, s + TEACHER_FORCED, dev, dtype=cache_dtype)
         logits, cache, pos = T.prefill(params, config, ids, mask, cache)
         out = [logits]
         cache_mask = torch.cat(
             [mask, torch.zeros(1, TEACHER_FORCED, dtype=torch.int32, device=dev)], 1)
         pos = pos.to(torch.int32)
-        for step in range(TEACHER_FORCED):
+        for step in range(steps):
+            if on_step is not None:
+                on_step(step)
             cache_mask[:, s + step] = 1
             logits, cache = T.decode_step(
                 params, config, forced[step:step + 1], pos, s + step, cache, cache_mask)
             out.append(logits)
             pos = pos + 1
-        return torch.stack(out)  # (1 + TEACHER_FORCED, 1, V)
+        return torch.stack(out)  # (1 + steps, 1, V)
 
     def rel(a, b):
         """max|a - b| / max|b| at each step."""
         return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).cpu()
 
+    # f32 activations: the bf16 leaves in f32, the int8 weights kept int8
+    # (a blanket .float() would turn them into a bf16-path weight)
+    f32 = lambda t: t.float() if t.dtype == torch.bfloat16 else t  # noqa: E731
     before = launches()
     kern = run(params, config)
     mid = launches()
     with plain_path():
         plain = run(params, config)
-        # the same weights computed in f32 by the plain versions: the
-        # reference both bf16 paths are held against
-        ref = run(_map_tree(lambda t: t.float(), params), config.replace(dtype="float32"))
+        ref = run(_map_tree(f32, params), config.replace(dtype="float32"))
     after = launches()
-    assert all(mid[k] > before[k] for k in SERVE_KERNELS), "the kernel run launched no kernel"
+    assert all(mid[k] > before[k] for k in kernels), "the kernel run launched no kernel"
     assert after == mid, "the plain runs launched a kernel"
     assert all(torch.isfinite(x).all() for x in (kern, plain, ref))
     d_kp, d_pr, d_kr = rel(kern, plain), rel(plain, ref), rel(kern, ref)
@@ -904,8 +1149,8 @@ def paths_phase(root, vocab, merges):
     print(f"  kernel path vs plain path    {d_kp.max().item():.3e} / {d_kp.mean().item():.3e}")
     print(f"  plain path vs f32 reference  {d_pr.max().item():.3e} / {d_pr.mean().item():.3e}")
     print(f"  kernel path vs f32 reference {d_kr.max().item():.3e} / {d_kr.mean().item():.3e}")
-    for name in SERVE_KERNELS:  # how far one kernel alone moves the logits
-        with plain_path([k for k in SERVE_KERNELS if k != name]):
+    for name in kernels:  # how far one kernel alone moves the logits
+        with plain_path([k for k in kernels if k != name]):
             only = run(params, config)
         print(f"  only {name} as kernel, vs plain path: worst {rel(only, plain).max().item():.3e}")
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
@@ -916,6 +1161,44 @@ def paths_phase(root, vocab, merges):
     # f32; the bound is therefore relative to that error.
     assert d_kr.max() <= 1.25 * d_pr.max(), "kernel path further from f32 than the plain path"
     assert d_kp.max() <= 2 * d_pr.max(), "kernel and plain paths differ beyond the bf16 error"
+    if int8:
+        decode_device_time(run, bf16_params, params, config)
+
+
+def decode_device_time(run, bf16_params, int8_params, config, steps=16):
+    """Device time of a decode step with bf16 weights and cache and with
+    int8 ones: ``torch.profiler`` over ``steps`` teacher-forced steps after
+    the prefill, the kernels' device time summed; beside it the wall time
+    of the same steps (host clock, the profiler's overhead included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(f"decode step device time over {steps} steps (torch.profiler), bf16 vs int8:")
+    for label, params, cache_dtype in (("bf16", bf16_params, None),
+                                       ("int8", int8_params, torch.int8)):
+        run(params, config, cache_dtype, steps=2)  # warm
+        torch.cuda.synchronize()
+        marks = {}
+
+        def on_step(step):
+            if step == 1:  # the prefill and the first step are outside the window
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+                prof.start()
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        run(params, config, cache_dtype, steps=steps + 1, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - marks["t0"]) / steps * 1e3
+        prof.stop()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        print(f"  {label}: device busy {busy:.3f} ms/step, wall {wall:.3f} ms/step, idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}; top: " + "; ".join(
+                  f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f}" for e in top))
 
 
 def train_paths_phase(root, vocab, merges):
@@ -991,9 +1274,12 @@ def main() -> int:
         print(f"datasets and tokenizers ({NUM_MERGES} and {BIG['num_merges']} merges) made on "
               f"the host in {time.perf_counter() - t0:.1f} s")
         report = kernels_phase(root, merges, big_merges)
-        train_counts, train = train_phase(root, vocab, merges)
-        serve_counts = serve_phase(root, train["checkpoint"])
+        by_path = {}
+        by_path["train"], train = train_phase(root, vocab, merges)
+        by_path["serve"], bf16_ms = serve_phase(root, train["checkpoint"])
+        by_path["serve_int8"], int8_ms = serve_phase(root, train["checkpoint"], int8=True)
         paths_phase(root, vocab, merges)
+        paths_phase(root, vocab, merges, int8=True)
         train_paths_phase(root, vocab, merges)
     for mod in ("jax", "ecg_byte_tpu"):
         assert mod not in sys.modules, f"{mod} was imported"
@@ -1002,8 +1288,8 @@ def main() -> int:
         r = report[kname]
         kernels.append({
             "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": train_counts[kname] + serve_counts[kname],
-            "launches_by_path": {"train": train_counts[kname], "serve": serve_counts[kname]},
+            "launches": sum(counts[kname] for counts in by_path.values()),
+            "launches_by_path": {path: counts[kname] for path, counts in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
@@ -1011,7 +1297,8 @@ def main() -> int:
             "rows": [{k: v for k, v in row.items() if k != "max_abs_err"} for row in r["rows"]],
         })
     print(f"train step {train['ms_per_step']:.2f} ms, {train['tokens_per_s']:.0f} tokens/s, "
-          f"peak {train['peak_gib']:.2f} GiB")
+          f"peak {train['peak_gib']:.2f} GiB; decode {bf16_ms:.3f} ms/token bf16, "
+          f"{int8_ms:.3f} ms/token int8 (host clock)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

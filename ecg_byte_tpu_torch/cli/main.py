@@ -12,8 +12,9 @@ loss record, the per-seed result JSONs).
 - ``--inference``: each test record is packed into a prompt, left-padded to
   a multiple of 128 tokens, greedily decoded for up to 128 new tokens,
   detokenized and scored, over 5 seeds; LoRA adapters of a ``--peft``
-  checkpoint are merged into the base first.  ``main()`` returns the
-  serving summary.
+  checkpoint are merged into the base first (``--no_merge_lora`` serves
+  them attached).  ``--int8_decode`` serves an int8 copy of the merged
+  weights with an int8 KV cache.  ``main()`` returns the serving summary.
 
 Training encodes every record once, before the first step, into a token
 cache on the run's device (the BPE kernels on the card); ``--online_encode``
@@ -47,6 +48,7 @@ from ecg_byte_tpu_torch.device import resolve_device
 from ecg_byte_tpu_torch.infer import greedy_generate
 from ecg_byte_tpu_torch.infer.evaluate import tester
 from ecg_byte_tpu_torch.models.lora import count_params, merge_lora
+from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
 from ecg_byte_tpu_torch.tokenizer import load_vocab_and_merges
 from ecg_byte_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -68,8 +70,6 @@ from ecg_byte_tpu_torch.utils.viz_utils import plot_train_val_loss
 
 # options the port does not have yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "int8_decode": "int8 serving, ROADMAP.md queue 1, item 10",
-    "no_merge_lora": "serving with LoRA adapters attached, ROADMAP.md queue 1, item 3",
     "dis": "multi-GPU (DDP), ROADMAP.md queue 1, item 12",
     "hf_weights": "HF checkpoint ingest, ROADMAP.md queue 1, item 6",
     "profile": "the torch profiler, ROADMAP.md queue 1, item 14",
@@ -212,10 +212,18 @@ def _serve(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     ckpt_dir = f"./runs/{args.seed}/{args.checkpoint}"
     # the checkpoint is the same for every seed, so it loads once
     params, lora = load_weights(ckpt_dir, "best_model", params, peft=bool(args.peft))
-    if lora is not None:
+    if lora is not None and not args.no_merge_lora:
         # fold the adapters into the base: decode then reads one weight set
+        # (--no_merge_lora keeps them attached, whose token streams can
+        # differ on near-ties by bf16 rounding)
         params = merge_lora(params, lora, config)
-        del lora
+        lora = None
+    if args.int8_decode:
+        if lora is not None:
+            raise SystemExit("--int8_decode requires merged adapters; drop --no_merge_lora")
+        # the int8 serving copy: half the weight bytes per token, and the
+        # KV cache in int8 (generate_fn)
+        params = quantize_lm_int8(params, config)
     eos_id = tokenizer.eos_token_id
     records = []
 
@@ -238,7 +246,7 @@ def _serve(args, params, config, tokenizer, vocab, merges, data_cfg, device):
             params, config,
             torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device),
             max_new_tokens=128, eos_token_id=eos_id, pad_token_id=pad_id,
-            stats=stats,
+            lora=lora, int8_kv=args.int8_decode, stats=stats,
         )
         stats["tokens"] = out.cpu().numpy()
         records.append(stats)

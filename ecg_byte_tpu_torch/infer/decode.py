@@ -5,7 +5,9 @@ The port of ``ecg_byte_tpu/infer/decode.py``: prefill, then one
 ``lax.while_loop``).  The rules are the same: the prompt is sliced off the
 output, rows after their eos are filled with pad, and generation stops once
 every row has emitted eos.  Step ``step`` writes cache slot
-``s_prompt + step - 1`` and marks it valid before attending.
+``s_prompt + step - 1`` and marks it valid before attending.  ``lora``
+serves with the adapters attached; ``int8_kv`` keeps the cache in int8
+(``--int8_decode``, with an int8 weight tree from ``models/quantized.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ def greedy_generate(
     max_new_tokens: int = 128,
     eos_token_id: int = -1,
     pad_token_id: int = 0,
+    lora: Optional[dict] = None,
+    int8_kv: bool = False,
     stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Greedy-decode continuations of left-padded prompts.
@@ -36,6 +40,9 @@ def greedy_generate(
     Args:
       input_ids: (B, S) prompt token ids.
       attn_mask: (B, S) validity mask (1 = valid), default all valid.
+      lora: adapters (``models/lora.py``) applied beside the base weights.
+      int8_kv: the int8 KV cache (per-row bf16 scales) instead of the
+        model dtype's.
       stats: if given, filled with ``prompt_len``, ``prefill_s``,
         ``decode_s`` and ``decode_steps`` (host clock; the device is
         synchronised after prefill and after the last step).
@@ -49,8 +56,9 @@ def greedy_generate(
         attn_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=device)
     b, s_prompt = attn_mask.shape
     t0 = time.perf_counter()
-    cache = T.init_kv_cache(config, b, s_prompt + max_new_tokens, device)
-    logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache)
+    cache = T.init_kv_cache(config, b, s_prompt + max_new_tokens, device,
+                            dtype=torch.int8 if int8_kv else None)
+    logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache, lora=lora)
     cur = torch.argmax(logits, -1).to(torch.int32)
     done = cur == eos_token_id
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32, device=device)
@@ -69,7 +77,7 @@ def greedy_generate(
         write_idx = s_prompt + step - 1
         cache_mask[:, write_idx] = 1
         logits, cache = T.decode_step(
-            params, config, cur, positions, write_idx, cache, cache_mask
+            params, config, cur, positions, write_idx, cache, cache_mask, lora=lora
         )
         nxt = torch.argmax(logits, -1).to(torch.int32)
         nxt = torch.where(done, pad_token_id, nxt)

@@ -4,8 +4,13 @@
 ``ecg_byte_tpu`` model (numpy only; no JAX needed here) and returns the
 port's parameter dict: the leading layer axis is unstacked into a list of
 per-layer dicts, and every projection kernel stored ``(in, out)`` becomes a
-PyTorch ``(out, in)`` weight.  ``lora_from_jax`` does the same for a LoRA
-tree.  Values are copied exactly, bf16 included.
+PyTorch ``(out, in)`` weight.  An int8 serving tree
+(``ecg_byte_tpu/models/quantized.py``) carries ``kernel_q`` (in, out) and
+``kernel_scale`` (1, out), which become ``weight_q`` (out, in) and
+``weight_scale`` (out,), and ``lm_head_q`` (D, V) with ``lm_head_scale``
+(1, V), which become (V, D) and (V,): the layout of
+``models/quantized.py``.  ``lora_from_jax`` does the same for a LoRA tree.
+Values are copied exactly, bf16 and int8 included.
 """
 
 from __future__ import annotations
@@ -27,10 +32,16 @@ def _tensor(x, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _transposed(x, device) -> torch.Tensor:
+    return _tensor(np.swapaxes(np.asarray(x), -1, -2), device).contiguous()
+
+
 def _proj(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    if "kernel" not in p:
-        raise NotImplementedError("int8 serving trees are not ported yet")
-    out = {"weight": _tensor(np.swapaxes(np.asarray(p["kernel"]), -1, -2), device).contiguous()}
+    if "kernel_q" in p:  # int8 serving entry
+        out = {"weight_q": _transposed(p["kernel_q"], device),
+               "weight_scale": _tensor(np.asarray(p["kernel_scale"]).reshape(-1), device)}
+    else:
+        out = {"weight": _transposed(p["kernel"], device)}
     if "bias" in p:
         out["bias"] = _tensor(p["bias"], device)
     return out
@@ -38,8 +49,6 @@ def _proj(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> Dict[str, Any]:
     """JAX parameter tree (numpy leaves) -> port parameter dict on ``device``."""
-    if "lm_head_q" in tree:
-        raise NotImplementedError("int8 serving trees are not ported yet")
     layers = []
     for i in range(config.num_layers):
         layer: Dict[str, Any] = {}
@@ -54,7 +63,10 @@ def params_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> 
         if name in tree:
             params[name] = _tensor(tree[name], device)
     if "lm_head" in tree:  # JAX (D, V) -> (V, D)
-        params["lm_head"] = _tensor(np.asarray(tree["lm_head"]).T, device).contiguous()
+        params["lm_head"] = _transposed(tree["lm_head"], device)
+    if "lm_head_q" in tree:
+        params["lm_head_q"] = _transposed(tree["lm_head_q"], device)
+        params["lm_head_scale"] = _tensor(np.asarray(tree["lm_head_scale"]).reshape(-1), device)
     return params
 
 

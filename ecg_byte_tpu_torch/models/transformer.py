@@ -24,7 +24,12 @@ their bits differ from JAX's ``fold_in(rng, hash(name))`` stream.
 
 The KV cache is updated in place: prefill writes slots ``[0, S)``, each
 decode step writes its row at ``write_idx`` before the decode kernel reads
-the cache.
+the cache.  The int8 serving cache (``init_kv_cache(dtype=torch.int8)``)
+quantizes the rows it is given as they are written (``ops/kv_quant``), with
+one bf16 scale per (position, kv head); prefill attention still reads the
+fresh K/V, only the cache copy is quantized.  An int8 serving tree
+(``models/quantized.py``: ``weight_q``/``weight_scale`` entries,
+``lm_head_q``/``lm_head_scale``) goes through ``ops/int8_linear``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.models.config import TransformerConfig
-from ecg_byte_tpu_torch.ops import attention, attention_decode, rmsnorm
+from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant, rmsnorm
 
 Params = Dict[str, Any]
 
@@ -198,6 +203,8 @@ def _act(x, kind: str):
 
 
 def _linear(x, p):
+    if "weight_q" in p:  # int8 serving entry
+        return int8_linear.int8_linear(x, p["weight_q"], p["weight_scale"], p.get("bias"))
     return F.linear(x, p["weight"], p.get("bias"))
 
 
@@ -293,6 +300,9 @@ def _embed(params, config: TransformerConfig, input_ids, positions):
 
 def _unembed(params, config: TransformerConfig, h):
     hn = _norm(h, params["final_norm"], params.get("final_norm_bias"), config)
+    if "lm_head_q" in params:  # int8 serving copy
+        return int8_linear.int8_linear(hn, params["lm_head_q"], params["lm_head_scale"],
+                                       out_dtype=torch.float32)
     head = params["embed"] if config.tie_word_embeddings else params["lm_head"]
     return F.linear(hn, head).float()
 
@@ -301,6 +311,10 @@ def _rope_for(config: TransformerConfig, positions):
     if config.learned_pos_embeddings:
         return None
     return _rope_tables(positions, config, config.head_dim)
+
+
+def _layer_loras(lora: Optional[Params], n: int):
+    return lora["layers"] if lora is not None else [None] * n
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +374,7 @@ def forward(
     seeds = [None] * n
     if lora is not None and dropout_generator is not None and c.lora_dropout > 0.0:
         seeds = torch.randint(0, 2**62, (n,), generator=dropout_generator).tolist()
-    lora_layers = lora["layers"] if lora is not None else [None] * n
-    for layer_p, lora_p, seed in zip(params["layers"], lora_layers, seeds):
+    for layer_p, lora_p, seed in zip(params["layers"], _layer_loras(lora, n), seeds):
 
         def layer(h, layer_p=layer_p, lora_p=lora_p, seed=seed):
             return _block(c, h, layer_p, rope, attn_fn, lora_p, _Dropout(c, seed, h.device))
@@ -446,16 +459,37 @@ def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch
 
 
 def init_kv_cache(
-    config: TransformerConfig, batch: int, max_len: int, device: torch.device
+    config: TransformerConfig, batch: int, max_len: int, device: torch.device,
+    dtype: Optional[torch.dtype] = None,
 ) -> Params:
-    """KV cache ``{"k", "v"}`` of (L, B, S_max, KH, D) in the model dtype;
-    layer ``i`` reads the contiguous slice ``cache["k"][i]``."""
+    """KV cache ``{"k", "v"}`` of (L, B, S_max, KH, D) in ``dtype``, by
+    default the model's; layer ``i`` reads the contiguous slice
+    ``cache["k"][i]``.  ``dtype=torch.int8`` is the int8 serving cache: it
+    adds ``k_scale`` and ``v_scale`` of (L, B, S_max, KH) bf16, set to 1
+    (not 0: unfilled slots are masked, but a 0 scale would still make
+    0 * -inf NaNs if a backend reordered the mask)."""
     shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
-    dt = _dtype(config)
-    return {
+    dt = dtype or _dtype(config)
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+    if dt == torch.int8:
+        cache["k_scale"] = torch.ones(shape[:-1], dtype=torch.bfloat16, device=device)
+        cache["v_scale"] = torch.ones(shape[:-1], dtype=torch.bfloat16, device=device)
+    return cache
+
+
+def _append_kv(cache: Params, i: int, k, v, idx: int) -> None:
+    """Write fresh (B, s, KH, D) K/V rows at slots [idx, idx + s) of layer
+    ``i``'s cache in place, quantizing them for the int8 cache."""
+    if cache["k"].dtype == torch.int8:
+        kv_quant.append_kv(k, v, cache["k"][i], cache["v"][i], cache["k_scale"][i],
+                           cache["v_scale"][i], idx)
+    else:
+        s = k.shape[1]
+        cache["k"][i, :, idx:idx + s] = k
+        cache["v"][i, :, idx:idx + s] = v
 
 
 def prefill(
@@ -465,8 +499,11 @@ def prefill(
     attn_mask: torch.Tensor,
     cache: Params,
     position_ids: Optional[torch.Tensor] = None,
+    *,
+    lora: Optional[Params] = None,
 ):
-    """Run the prompt, filling cache slots [0, S) in place.
+    """Run the prompt, filling cache slots [0, S) in place; ``lora``:
+    adapters applied beside the base weights (no dropout).
 
     Returns (last-position logits (B, V) f32, cache, next_positions (B,)).
     """
@@ -474,17 +511,17 @@ def prefill(
     attn_mask = attn_mask.to(torch.int32).contiguous()
     if position_ids is None:
         position_ids = make_position_ids(attn_mask)
-    s = input_ids.shape[1]
     h = _embed(params, c, input_ids, position_ids)
     rope = _rope_for(c, position_ids)
-    for i, layer_p in enumerate(params["layers"]):
+    layers = params["layers"]
+    for i, (layer_p, lora_p) in enumerate(zip(layers, _layer_loras(lora, len(layers)))):
 
         def attn_fn(q, k, v, i=i):
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            # attention reads the fresh K/V; only the cache copy may be int8
+            _append_kv(cache, i, k, v, 0)
             return attention.causal_attention(q, k, v, attn_mask)
 
-        h = _block(c, h, layer_p, rope, attn_fn)
+        h = _block(c, h, layer_p, rope, attn_fn, lora_p)
     logits = _unembed(params, c, h[:, -1:].contiguous())[:, 0]
     next_pos = make_position_ids(attn_mask).max(dim=-1).values + 1
     return logits, cache, next_pos
@@ -498,21 +535,25 @@ def decode_step(
     write_idx: int,  # cache slot to write
     cache: Params,
     cache_mask: torch.Tensor,  # (B, S_max) int32, valid slots incl. this one
+    *,
+    lora: Optional[Params] = None,
 ):
     """One decode step.  Appends this token's K/V rows to the cache in place;
-    returns (logits (B, V) f32, cache)."""
+    returns (logits (B, V) f32, cache).  ``lora`` as in :func:`prefill`."""
     c = config
     pos2d = positions[:, None]
     h = _embed(params, c, token[:, None], pos2d)
     rope = _rope_for(c, pos2d)
-    for i, layer_p in enumerate(params["layers"]):
+    int8 = "k_scale" in cache
+    layers = params["layers"]
+    for i, (layer_p, lora_p) in enumerate(zip(layers, _layer_loras(lora, len(layers)))):
 
         def attn_fn(q, k, v, i=i):
-            cache["k"][i, :, write_idx] = k[:, 0]
-            cache["v"][i, :, write_idx] = v[:, 0]
+            _append_kv(cache, i, k, v, write_idx)
             return attention_decode.decode_attention_fused(
-                q, cache["k"][i], cache["v"][i], cache_mask
+                q, cache["k"][i], cache["v"][i], cache_mask,
+                cache["k_scale"][i] if int8 else None, cache["v_scale"][i] if int8 else None,
             )
 
-        h = _block(c, h, layer_p, rope, attn_fn)
+        h = _block(c, h, layer_p, rope, attn_fn, lora_p)
     return _unembed(params, c, h)[:, 0], cache

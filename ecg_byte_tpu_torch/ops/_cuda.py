@@ -7,8 +7,9 @@ whenever a source is newer than the library, and goes into
 ``ecg_byte_tpu_torch/build/``.  Including no PyTorch header keeps the build
 to seconds.  (``csrc/host/`` holds host C++ that ``nvcc`` never sees.)
 
-Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+Each C entry point launches on the stream it is given (:func:`stream`, the
+current one) and returns ``cudaGetLastError()``; :func:`check` turns a
+non-zero code into an error.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -40,6 +43,12 @@ _SIGNATURES = {
     "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, valid_mask, out, B, S, KH, G, D, stream
     "ecg_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, B, S, KH, G, D, stream
+    "ecg_decode_attention_int8": [_P] * 7 + [_I, _I, _I, _I, _I, _P],
+    # x, q, scale, bias (or NULL), out, M, N, K, f32_out, stream
+    "ecg_int8_linear": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # k, v, k_cache, v_cache, k_scale, v_scale, B, s, S, KH, D, idx, stream
+    "ecg_kv_quant": [_P] * 6 + [_I, _I, _I, _I, _I, _I, _P],
     # q, trans, token, match_tok, match_len, B, N, max_len, stream
     "ecg_bpe_match": [_P] * 5 + [_I, _I, _I, _P],
     # match_len, match_tok, visited, ids, counts, B, N, stream
@@ -124,6 +133,17 @@ def library() -> ctypes.CDLL:
             lib.ecg_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device, which
+    must be the current device: the kernels launch there.  The raw query
+    costs the host a small fraction of ``torch.cuda.device`` plus
+    ``current_stream()`` (``PERF.md``), and eager decode is host-bound."""
+    index = t.device.index
+    if index != torch._C._cuda_getDevice():
+        raise ValueError(f"{t.device} is not the current CUDA device")
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

@@ -55,19 +55,27 @@ def causal_attention(q, k, v, pad_mask: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, h, d)
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain single-position attention over a KV cache (``decode_attention``).
 
     q (B, 1, H, D); k_cache, v_cache (B, S_max, KH, D); valid_mask
     (B, S_max), 1 for cache slots that may be attended.  f32 logits and
-    softmax, probabilities rounded to the cache dtype before P.V, which
-    accumulates in f32.  Returns (B, 1, H, D).
+    softmax, probabilities rounded to q's dtype before P.V, which
+    accumulates in f32.  For the int8 cache, ``k_scale`` and ``v_scale``
+    (B, S_max, KH) hold each row's scale: the K scale multiplies the f32
+    logits after the ``D^-0.5`` scaling, the V scale the f32 probabilities
+    after normalisation, before their rounding.  Returns (B, 1, H, D).
     """
     b, _, h, d = q.shape
     kh = k_cache.shape[2]
     qg = q.reshape(b, kh, h // kh, d)
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * d**-0.5
+    if k_scale is not None:
+        logits = logits * k_scale.transpose(1, 2)[:, :, None, :].float()
     logits = logits + torch.where(valid_mask[:, None, None, :].bool(), 0.0, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.transpose(1, 2)[:, :, None, :].float()
+    probs = probs.to(q.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs.float(), v_cache.float())
     return out.to(q.dtype).reshape(b, 1, h, d)

@@ -89,12 +89,11 @@ def resident_attention(qg, k, v, pad_mask):
     b, s, kh, g, d = qg.shape
     out = torch.empty_like(qg)
     lib = _cuda.library()
-    with torch.cuda.device(qg.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ecg_prefill_attention(
-            qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
-            out.data_ptr(), b, s, kh, g, d, stream,
-        )
+    stream = _cuda.stream(qg)
+    err = lib.ecg_prefill_attention(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
+        out.data_ptr(), b, s, kh, g, d, stream,
+    )
     _cuda.check(err, "prefill attention")
     resident_attention.launches += 1
     return out
@@ -147,13 +146,12 @@ def resident_attention_bwd(qg, k, v, pad_mask, out, grad):
     dq, dk, dv = torch.empty_like(qg), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(3 * b * kh * s * g, dtype=torch.float32, device=qg.device)
     lib = _cuda.library()
-    with torch.cuda.device(qg.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ecg_prefill_attention_bwd(
-            qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
-            out.data_ptr(), grad.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, s, kh, g, d, stream,
-        )
+    stream = _cuda.stream(qg)
+    err = lib.ecg_prefill_attention_bwd(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
+        out.data_ptr(), grad.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), b, s, kh, g, d, stream,
+    )
     _cuda.check(err, "prefill attention backward")
     resident_attention_bwd.launches += 1
     return dq, dk, dv

@@ -111,12 +111,11 @@ def longest_match(q: torch.Tensor, table: Automaton):
     if q.numel() == 0:
         return match_tok, match_len
     lib = _cuda.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ecg_bpe_match(
-            q.data_ptr(), table.trans.data_ptr(), table.token.data_ptr(), match_tok.data_ptr(),
-            match_len.data_ptr(), b, n, table.max_len, stream,
-        )
+    stream = _cuda.stream(q)
+    err = lib.ecg_bpe_match(
+        q.data_ptr(), table.trans.data_ptr(), table.token.data_ptr(), match_tok.data_ptr(),
+        match_len.data_ptr(), b, n, table.max_len, stream,
+    )
     _cuda.check(err, "BPE longest match")
     longest_match.launches += 1
     return match_tok, match_len
@@ -155,10 +154,9 @@ def greedy_chain(match_len: torch.Tensor, match_tok: torch.Tensor, max_len: int)
     if b == 0:
         return visited, ids, counts
     lib = _cuda.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ecg_bpe_chain(match_len.data_ptr(), match_tok.data_ptr(), visited.data_ptr(),
-                                ids.data_ptr(), counts.data_ptr(), b, n, stream)
+    stream = _cuda.stream(match_len)
+    err = lib.ecg_bpe_chain(match_len.data_ptr(), match_tok.data_ptr(), visited.data_ptr(),
+                            ids.data_ptr(), counts.data_ptr(), b, n, stream)
     _cuda.check(err, "BPE greedy chain")
     greedy_chain.launches += 1
     return visited, ids, counts

@@ -1,6 +1,7 @@
-"""``chip_smoke.py``'s checks of the two backward kernels and of the device
-BPE encoder's token streams, on the CPU: they pass the plain versions' own
-output and refuse outputs with the faults the bounds are there for.  The
+"""``chip_smoke.py``'s checks of the two backward kernels, of the int8
+weight product and of the device BPE encoder's token streams, on the CPU:
+they pass the plain versions' own output and refuse outputs with the faults
+the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
 only on the card)."""
 
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from ecg_byte_tpu_torch.cli.make_synthetic import make_signal
-from ecg_byte_tpu_torch.ops import attention_resident, bpe_encode, rmsnorm
+from ecg_byte_tpu_torch.models.quantized import quantize_weight
+from ecg_byte_tpu_torch.ops import attention_resident, bpe_encode, int8_linear, rmsnorm
 from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
 from ecg_byte_tpu_torch.tokenizer import BpeTokenizer
 
@@ -129,3 +131,37 @@ def test_token_stream_check_refuses_faults(fault):
         match = "record 2 has"
     with pytest.raises(AssertionError, match=match):
         chip_smoke.check_streams(ids, counts, want, fault)
+
+
+def _int8_product(with_bias, m=4, n=64, k=256):
+    """x (m, k) bf16, an int8 weight quantized from a random bf16 one, its
+    scales, a bias or None, and the plain product."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+    q, scale = quantize_weight((0.02 * torch.randn(n, k, generator=gen)).to(torch.bfloat16))
+    bias = (0.1 * torch.randn(n, generator=gen)).to(torch.bfloat16) if with_bias else None
+    return x, q, scale, bias, int8_linear.int8_linear_plain(x, q, scale, bias)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+def test_int8_linear_check_passes_plain(with_bias):
+    x, q, scale, bias, want = _int8_product(with_bias)
+    assert chip_smoke.check_int8_linear(want, want, x, q, scale, bias, "plain") == 0.0
+
+
+@pytest.mark.parametrize("fault", ["skipped-chunk", "neighbour-scale", "4-ulps"])
+def test_int8_linear_check_refuses_faults(fault):
+    """A kernel that skipped one 16-byte chunk of K, read the next row's
+    scale, or is 4 bf16 ulps off on one element is refused."""
+    x, q, scale, bias, want = _int8_product(False)
+    if fault == "skipped-chunk":
+        xs = x.clone()
+        xs[:, 16:32] = 0
+        got = int8_linear.int8_linear_plain(xs, q, scale)
+    elif fault == "neighbour-scale":
+        got = int8_linear.int8_linear_plain(x, q, scale.roll(1))
+    else:
+        got = want.float()
+        got[1, 5] += 4 * chip_smoke.bf16_ulp(want[1, 5])
+    with pytest.raises(AssertionError, match="int8_linear"):
+        chip_smoke.check_int8_linear(got, want, x, q, scale, None, fault)

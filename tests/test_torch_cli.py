@@ -3,7 +3,7 @@ dataset and BPE tokenizer made by the port's own ``make_synthetic`` and
 tokenizer, then ``ecg_byte_tpu_torch.cli.main`` serving a random tiny-llama
 checkpoint, training with LoRA (from the token cache and with
 ``--online_encode``), serving what it trained, resuming, and refusing what is
-not ported."""
+not ported or not allowed."""
 
 import json
 import os
@@ -33,7 +33,10 @@ TRAIN = DATA_ARGS + ["--device", "cpu", "--peft", "--online_encode", "--batch_si
 
 
 def _run(args, cwd, module="ecg_byte_tpu_torch.cli.main"):
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    # one thread: the tiny models gain nothing from more, and the test
+    # workers already share the cores
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", module, *args], cwd=cwd, env=env,
         capture_output=True, text=True, timeout=300,
@@ -57,6 +60,9 @@ def workdir(tmp_path_factory):
     state = create_train_state(config, make_optimizer(config.hidden_size, 500),
                                torch.Generator().manual_seed(0), peft=False, params=params)
     save_checkpoint(str(root / "runs/0/ckpt"), "best_model", state)
+    lora_state = create_train_state(config, make_optimizer(config.hidden_size, 500),
+                                    torch.Generator().manual_seed(0), peft=True, params=params)
+    save_checkpoint(str(root / "runs/0/ckpt_lora"), "best_model", lora_state)
     return root
 
 
@@ -82,7 +88,9 @@ def test_inference_cli_on_cpu(workdir):
     "extra,message",
     [
         ([], "no CUDA device"),  # no --device and no card: no CPU fallback
-        (["--device", "cpu", "--int8_decode"], "ROADMAP.md queue 1, item 10"),
+        # int8 serving quantizes merged weights only (the JAX CLI's rule)
+        (["--device", "cpu", "--peft", "--checkpoint", "ckpt_lora", "--int8_decode",
+          "--no_merge_lora"], "--int8_decode requires merged adapters; drop --no_merge_lora"),
         (["--device", "cpu", "--dis"], "ROADMAP.md queue 1, item 12"),
     ],
     ids=["no-device", "int8", "dis"],
