@@ -56,14 +56,6 @@ using ecg::kThreads;
 
 enum : int { kDV = 1, kDK = 2 };
 
-// sum over 8 neighbouring lanes
-__device__ __forceinline__ float lane8_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
 template <int D>
 struct DqSmem {
   static constexpr size_t kT = ecg::Tile<D>::kBytes;
@@ -136,7 +128,7 @@ dq_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict_
         }
       }
     }
-    delta[i] = lane8_sum(part);
+    delta[i] = ecg::lane8_sum(part);
     if (tc == 0 && qpos[i] < S) {
       stats[row0 + r] = m[i];
       stats[n_rows + row0 + r] = l[i];
@@ -341,18 +333,13 @@ dkv_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-}
-
 template <int D, int kWhich>
 cudaError_t launch_dkv(const dim3& grid, cudaStream_t st, const __nv_bfloat16* qg,
                        const __nv_bfloat16* k, const __nv_bfloat16* v, const int* mask,
                        const __nv_bfloat16* dout, const float* stats, __nv_bfloat16* dk,
                        __nv_bfloat16* dv, int S, int KH, int G, float scale) {
   const size_t smem = DkvSmem<D>::bytes;
-  cudaError_t err = allow_smem(dkv_kernel<D, kWhich>, smem);
+  cudaError_t err = ecg::allow_smem(dkv_kernel<D, kWhich>, smem);
   if (err != cudaSuccess) return err;
   dkv_kernel<D, kWhich><<<grid, kThreads, smem, st>>>(qg, k, v, mask, dout, stats, dk, dv, S,
                                                       KH, G, scale);
@@ -375,7 +362,7 @@ cudaError_t launch_bwd(const void* qg_, const void* k_, const void* v_, const vo
   auto* stats = static_cast<float*>(stats_);
   const float scale = float(1.0 / sqrt(double(D)));
 
-  cudaError_t err = allow_smem(dq_kernel<D>, DqSmem<D>::bytes);
+  cudaError_t err = ecg::allow_smem(dq_kernel<D>, DqSmem<D>::bytes);
   if (err != cudaSuccess) return err;
   const int bq = kRows / G;
   dq_kernel<D><<<dim3((S + bq - 1) / bq, KH, B), kThreads, DqSmem<D>::bytes, st>>>(

@@ -74,6 +74,20 @@ __device__ __forceinline__ void load_key_ok(const int* __restrict__ pad_mask, in
   }
 }
 
+// Sum over the 8 neighbouring lanes that share a row group.
+__device__ __forceinline__ float lane8_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x;
+}
+
+// Let a kernel take more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
 // acc[i][j] = sum_d A[4 tr + i][d] * B[8 j + tc][d] over two padded tiles,
 // one fmaf per element in the order of d.  A product does not depend on
 // which operand comes first, so dot_4x8(Q, K) and dot_4x8(K, Q) give the

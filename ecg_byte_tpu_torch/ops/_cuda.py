@@ -41,6 +41,10 @@ _SIGNATURES = {
     "ecg_prefill_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, dout, dq, dk, dv, stats, B, S, KH, G, D, stream
     "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # qg, k, v, pad_mask, out, lse, B, S, KH, G, D, stream
+    "ecg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
+    # qg, k, v, pad_mask, out, lse, dout, dq, dk, dv, delta, part, B, S, KH, G, D, stream
+    "ecg_flash_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, valid_mask, out, B, S, KH, G, D, stream
     "ecg_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, B, S, KH, G, D, stream

@@ -1,5 +1,6 @@
 """Attention: plain grouped causal attention and plain decode attention, and
-the dispatch of prefill attention to its kernel.
+the dispatch of prefill and training attention to the resident or the
+flash kernels.
 
 Masking follows ``ecg_byte_tpu/ops/attention.py``: masked logits get the
 finite fill ``-1e30`` (never ``-inf``), so a query row whose keys are all
@@ -39,19 +40,33 @@ def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
     return out.to(qg.dtype)
 
 
+# From this many positions on, prefill and training attention take the
+# flash kernels, as ecg_byte_tpu/ops/attention.py:142-144 does.
+FLASH_MIN_SEQ = 4096
+
+
 def causal_attention(q, k, v, pad_mask: torch.Tensor) -> torch.Tensor:
     """Causal attention with left-pad key masking.
 
-    q (B, S, H, D); k, v (B, S, KH, D); pad_mask (B, S) int32.  Goes
-    through ``attention_resident.ResidentAttention`` (differentiable), whose
-    wrappers take the plain versions for CPU tensors.  Returns (B, S, H, D).
+    q (B, S, H, D); k, v (B, S, KH, D); pad_mask (B, S) int32.  The call's
+    own S decides, before any launch: S >= ``FLASH_MIN_SEQ`` with a head
+    dim that JAX's ``flash_attention`` takes (a multiple of 8 up to 256,
+    ``ecg_byte_tpu/ops/flash_attention.py:378-384``) goes through
+    ``flash_attention.FlashAttention``, anything else through
+    ``attention_resident.ResidentAttention``; both are differentiable, and
+    their wrappers take the plain versions for CPU tensors.  Returns
+    (B, S, H, D).
     """
-    from ecg_byte_tpu_torch.ops import attention_resident
+    from ecg_byte_tpu_torch.ops import attention_resident, flash_attention
 
     b, s, h, d = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, d).contiguous()
-    out = attention_resident.ResidentAttention.apply(qg, k.contiguous(), v.contiguous(), pad_mask)
+    if s >= FLASH_MIN_SEQ and d % 8 == 0 and d <= 256:
+        fn = flash_attention.FlashAttention
+    else:
+        fn = attention_resident.ResidentAttention
+    out = fn.apply(qg, k.contiguous(), v.contiguous(), pad_mask)
     return out.reshape(b, s, h, d)
 
 

@@ -52,7 +52,11 @@ ROWS = 64  # query rows per block: G heads x (ROWS / G) positions
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
 
 
-def _check(qg, k, v, pad_mask):
+def check_inputs(qg, k, v, pad_mask):
+    """Raise unless the inputs are what the attention kernels take: bf16
+    ``qg (B, S, KH, G, D)``, ``k, v (B, S, KH, D)`` and an int32 (B, S)
+    mask, contiguous on one CUDA device, D one of :data:`HEAD_DIMS` and G
+    dividing the tile's :data:`ROWS`."""
     if qg.dim() != 5:
         raise ValueError(f"qg must be (B, S, KH, G, D), got {tuple(qg.shape)}")
     b, s, kh, g, d = qg.shape
@@ -72,6 +76,11 @@ def _check(qg, k, v, pad_mask):
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if ROWS % g:
         raise ValueError(f"{g} query heads per KV head do not divide {ROWS}")
+
+
+def _check(qg, k, v, pad_mask):
+    check_inputs(qg, k, v, pad_mask)
+    s = qg.shape[1]
     if s % 16:
         raise ValueError(f"sequence length {s} is not a multiple of 16")
 

@@ -1,5 +1,6 @@
-"""``chip_smoke.py``'s checks of the two backward kernels, of the int8
-weight product and of the device BPE encoder's token streams, on the CPU:
+"""``chip_smoke.py``'s checks of the attention backward kernels, of the
+flash forward, of the int8 weight product and of the device BPE encoder's
+token streams, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
@@ -7,6 +8,7 @@ only on the card)."""
 
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -14,13 +16,20 @@ import torch
 
 from ecg_byte_tpu_torch.cli.make_synthetic import make_signal
 from ecg_byte_tpu_torch.models.quantized import quantize_weight
-from ecg_byte_tpu_torch.ops import attention_resident, bpe_encode, int8_linear, rmsnorm
+from ecg_byte_tpu_torch.ops import (
+    attention_resident,
+    bpe_encode,
+    flash_attention,
+    int8_linear,
+    rmsnorm,
+)
 from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
 from ecg_byte_tpu_torch.tokenizer import BpeTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
 chip_smoke = importlib.util.module_from_spec(_spec)
+sys.modules["chip_smoke"] = chip_smoke  # its dataclasses look their module up
 _spec.loader.exec_module(chip_smoke)
 
 
@@ -68,6 +77,129 @@ def test_attention_bwd_norm_bound_catches_what_max_bound_misses(scale):
     assert (dq - ref).abs().max() <= 4e-2 * ref.abs().max()
     with pytest.raises(AssertionError, match=r"dq: \|d\|/\|ref\|"):
         chip_smoke.check_attention_bwd(got, want, f"later dq rows x {scale}")
+
+
+def _flash_case(s=384, pad=37):
+    """bf16 inputs (1, s, 2, 2, 64) with a left pad, the plain forward's
+    (out, lse) and backward's (dq, dk, dv) for a random output gradient
+    (pad rows included), and a forward and a backward of the plain versions
+    under another mask or lse, to stand in for faulty kernels."""
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(1, s, 2, 2, 64), randn(1, s, 2, 64), randn(1, s, 2, 64)
+    gout = randn(1, s, 2, 2, 64)
+    mask = torch.ones(1, s, dtype=torch.int32)
+    mask[:, :pad] = 0
+    fwd = flash_attention.flash_attention_fwd_plain(q, k, v, mask)
+    bwd = flash_attention.flash_attention_bwd_plain(q, k, v, mask, *fwd, gout)
+
+    def fwd_with(m):
+        return flash_attention.flash_attention_fwd_plain(q, k, v, m)
+
+    def bwd_with(m, lse):
+        return flash_attention.flash_attention_bwd_plain(q, k, v, m, fwd[0], lse, gout)
+
+    return mask, fwd, bwd, fwd_with, bwd_with
+
+
+def _skipping_block(mask, t0, t1=None):
+    """``mask`` with keys [t0, t1) dropped: what a kernel that skipped that
+    key block computes for the rows after it."""
+    m = mask.clone()
+    m[:, t0:t1] = 0
+    return m
+
+
+def _lse_one_block_short(mask, fwd_with):
+    """The plain lse, except that the rows of the last 128-query block take
+    the lse of the keys before their own block: a kernel whose max and sum
+    stopped one key block early."""
+    lse = fwd_with(mask)[1].clone()
+    lse[..., 256:] = fwd_with(_skipping_block(mask, 256))[1][..., 256:]
+    return lse
+
+
+def test_flash_fwd_check_passes_plain():
+    mask, fwd, _, _, _ = _flash_case()
+    assert chip_smoke.check_flash_fwd(fwd, fwd, mask, "plain") == 0.0
+
+
+@pytest.mark.parametrize("fault", ["skipped-key-block", "lse-one-block-short", "nan-pad-row"])
+def test_flash_fwd_check_refuses_faults(fault):
+    """A forward that skipped the key block [128, 256), whose lse stopped one
+    key block early on the last query block, or with a NaN in a left-pad
+    row of out is refused."""
+    mask, fwd, _, fwd_with, _ = _flash_case()
+    if fault == "skipped-key-block":
+        got, match = fwd_with(_skipping_block(mask, 128, 256)), "out max"
+    elif fault == "lse-one-block-short":
+        got, match = (fwd[0], _lse_one_block_short(mask, fwd_with)), "lse relative"
+    else:
+        out = fwd[0].clone()
+        out[0, 5, 1, 0, 3] = float("nan")
+        got, match = (out, fwd[1]), "non-finite out"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_flash_fwd(got, fwd, mask, fault)
+
+
+@pytest.mark.parametrize("fault", ["last-32-keys-twice", "last-block-x1.25"])
+def test_flash_fwd_norm_bounds_catch_a_late_pv_fault(fault, monkeypatch):
+    """At S 4096 a fault in P.V on the last keys alone (a 32-key V sub-tile
+    summed twice, or the last block's P.V scaled by 1.25) moves only the
+    rows of the last query block, whose |out| is ~sqrt(e / 4096): lse is
+    unchanged and max|d| stays within 2e-2.  |d|/|ref| over all rows (2e-3)
+    refuses it, and so does the row bound on its own (those rows are 6-9%
+    off)."""
+    s = 4096
+    gen = torch.Generator().manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(1, s, 2, 2, 64), randn(1, s, 2, 64), randn(1, s, 2, 64)
+    mask = torch.ones(1, s, dtype=torch.int32)
+    mask[:, :300] = 0
+    want = flash_attention.flash_attention_fwd_plain(q, k, v, mask)
+    bad_v = v.clone()
+    if fault == "last-32-keys-twice":
+        bad_v[:, s - 32:] *= 2
+    else:
+        bad_v[:, s - 128:] *= 1.25
+    got = flash_attention.flash_attention_fwd_plain(q, k, bad_v, mask)
+    assert torch.equal(got[1], want[1])
+    assert (got[0].float() - want[0].float()).abs().max() <= 2e-2
+    with pytest.raises(AssertionError, match=r"out \|d\|/\|ref\|"):
+        chip_smoke.check_flash_fwd(got, want, mask, fault)
+    monkeypatch.setattr(chip_smoke, "FLASH_OUT_NORM", float("inf"))
+    with pytest.raises(AssertionError, match=r"out row \|d\|/\|ref\|"):
+        chip_smoke.check_flash_fwd(got, want, mask, fault)
+
+
+def test_flash_bwd_check_passes_plain():
+    _, _, bwd, _, _ = _flash_case()
+    assert chip_smoke.check_attention_bwd(bwd, bwd, "plain", name="flash_attention_bwd",
+                                          tag="flash bwd") == 0.0
+
+
+@pytest.mark.parametrize("fault", ["skipped-key-block", "lse-one-block-short", "nan-pad-row"])
+def test_flash_bwd_check_refuses_faults(fault):
+    """A backward that skipped the key block [128, 256), that read an lse one
+    key block short on the last query block, or with a NaN in a left-pad
+    row of dq is refused."""
+    mask, fwd, bwd, fwd_with, bwd_with = _flash_case()
+    if fault == "skipped-key-block":
+        got = bwd_with(_skipping_block(mask, 128, 256), fwd[1])
+    elif fault == "lse-one-block-short":
+        got = bwd_with(mask, _lse_one_block_short(mask, fwd_with))
+    else:
+        got = [t.clone() for t in bwd]
+        got[0][0, 5, 1, 0, 3] = float("nan")
+    with pytest.raises(AssertionError, match="flash bwd"):
+        chip_smoke.check_attention_bwd(got, bwd, fault, name="flash_attention_bwd",
+                                       tag="flash bwd")
 
 
 def _norm_grads(rows=64, d=256):
