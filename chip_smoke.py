@@ -19,11 +19,17 @@ Phases, each printing its own lines, in the order they run:
    function (a yardstick the port never calls), beside the card's bound.
    The flash kernels (forward and backward) at S 4096 and 8192, the
    serving bucket of the long prompts, gpt2's and gemma's heads and a
-   ragged S = 4000; decode attention also over the long serving path's
-   cache.
-   The int8 kernels: decode attention over the int8 cache (SDPA on the
-   bf16 cache as yardstick), the int8 weight product (cuBLAS on the bf16
-   weight) and the KV quantizer (equal to its plain version exactly).
+   ragged S = 4000.  Decode attention (check_decode) also over the long
+   serving path's cache (B1 and B4, gemma's heads), there at forced split
+   counts too (1, 7 and one range a tile; the B4 cache has range
+   boundaries inside its left padding and whole ranges past its filled
+   slots), with device times (CUDA graphs) beside the eager ones.
+   The int8 kernels: decode attention over the int8 cache, 1,152 slots and
+   the long one (SDPA on the bf16 cache as yardstick), the int8 weight
+   product (cuBLAS on the bf16 weight) on the GEMV kernel and on the
+   tensor-core one, each forced at both sides of their threshold and at
+   M 1152, up to M 4992 and at gpt2's ragged c_attn (N 4800), and the KV
+   quantizer (equal to its plain version exactly).
    The two BPE kernels must equal their plain versions exactly, and the
    device encoder's streams the host C++ trie's, at (64, 6,000) and
    (256, 30,000) symbols; the trie is their yardstick.
@@ -36,7 +42,8 @@ Phases, each printing its own lines, in the order they run:
    wrote, LoRA merged; every serving kernel's launch count (none of BPE).
 8. Serve int8: ``cli.main --inference --int8_decode --peft --toy`` serves
    the same checkpoint, merged then quantized, with the int8 KV cache;
-   every kernel's launch count.
+   every kernel's launch count (each prefill's projections on the
+   tensor-core product, each decode step's on the GEMV one).
 5. Serving kernel path vs plain path: one prompt plus 32 teacher-forced
    tokens through prefill and decode_step; the logits must agree.
 9. The same for the int8 model and cache.  Phases 5, 9 and 12 end with
@@ -103,6 +110,12 @@ PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 # last keys moves the last rows by 6% and more
 FLASH_OUT_NORM = 3e-4
 FLASH_OUT_ROW = 5e-3
+# decode attention's out against plain (check_decode), |d|/|ref| over all
+# heads and over each (batch row, head): 5.8x and 6x the largest measured
+# on an H100 (1.7e-4, 8.4e-4), where a range of the split kernel lost or
+# counted twice moves a row by ~1/sqrt(ranges), 11% at 82 ranges
+DECODE_OUT_NORM = 1e-3
+DECODE_OUT_ROW = 5e-3
 
 SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
     "prefill_attention": ("cuda", "ecg_byte_tpu_torch/csrc/attention_prefill.cu",
@@ -126,9 +139,12 @@ SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
     # the int8 cache's branch of the decode kernel (_kernel, int8_scales)
     "decode_attention_int8": ("cuda", "ecg_byte_tpu_torch/csrc/attention_decode.cu",
                               "ecg_byte_tpu/ops/attention_decode.py:117"),
-    # no Pallas kernel: XLA fuses the dequantization into the dot there
+    # no Pallas kernel: XLA fuses the dequantization into the dot there; the
+    # GEMV kernel at M <= GEMV_MAX_M (decode), the tensor-core one above
     "int8_linear": ("cuda", "ecg_byte_tpu_torch/csrc/int8_linear.cu",
                     "ecg_byte_tpu/models/transformer.py:323"),
+    "int8_linear_tc": ("cuda", "ecg_byte_tpu_torch/csrc/int8_linear_tc.cu",
+                       "ecg_byte_tpu/models/transformer.py:323"),
     # no Pallas kernel: XLA runs _quant_kv_rows and _append_kv there
     "kv_quant": ("cuda", "ecg_byte_tpu_torch/csrc/kv_quant.cu",
                  "ecg_byte_tpu/models/transformer.py:1013"),
@@ -162,9 +178,11 @@ class ServePath:
 
 # per forward 2L + 1 norms; per prefill L attention kernels (the flash
 # forward from S 4096 on), per decode step L decode kernels; with int8, per
-# forward one int8 product per projection (7 a layer) and for the head, and
-# one KV append a layer; no BPE kernel (serving encodes on the host).
-# --toy decodes a quarter of the test records.
+# prefill the 7 projections of every layer on the tensor-core product (M =
+# the prompt's bucket) and per decode step on the GEMV one (M = 1), per
+# forward the head on the GEMV one (the last position only) and one KV
+# append a layer; no BPE kernel (serving encodes on the host).  --toy
+# decodes a quarter of the test records.
 NORMS = {"rmsnorm": 2 * LAYERS + 1}
 SERVE = ServePath(
     "serve", "4. serve: cli.main --inference --peft on phase 6's checkpoint (LoRA merged)",
@@ -176,9 +194,10 @@ SERVE_INT8 = ServePath(
     "checkpoint (LoRA merged, then quantized; int8 KV cache)",
     f"9. int8 serving kernel path vs plain path: one prompt + {TEACHER_FORCED} teacher-forced "
     "tokens, int8 weights and KV cache",
-    ("--int8_decode", "--toy"), NUM_MERGES, {"prefill_attention": LAYERS},
-    {"decode_attention_int8": LAYERS},
-    {**NORMS, "int8_linear": 7 * LAYERS + 1, "kv_quant": LAYERS},
+    ("--int8_decode", "--toy"), NUM_MERGES,
+    {"prefill_attention": LAYERS, "int8_linear_tc": 7 * LAYERS},
+    {"decode_attention_int8": LAYERS, "int8_linear": 7 * LAYERS},
+    {**NORMS, "int8_linear": 1, "kv_quant": LAYERS},
     records=max(1, int(N_TEST * 0.25)), min_prompt=1024, int8=True)
 SERVE_LONG = ServePath(
     "serve_long", "11. long serve: cli.main --inference --peft --toy on phase 10's checkpoint "
@@ -364,6 +383,32 @@ def check_flash_fwd(got, want, mask, shape):
     return err
 
 
+def check_decode(got, want, shape, tag="K2"):
+    """Hold decode attention's out (B, 1, H, D) against the plain version's
+    and return max|d|.  It must be finite and within max|d| <= 2e-2 (bf16
+    rounding of the probabilities and of out, sums in another order: the
+    bound of tests/test_attention_decode.py), and |d|/|ref| <= DECODE_OUT_NORM
+    in the 2-norm and <= DECODE_OUT_ROW for every (batch row, head).  Over a
+    5k cache |out| is ~0.02, so the max bound alone passes a result that
+    lost one of the split kernel's ranges; the row bound follows each
+    row's own size."""
+    import torch
+
+    a, w = got.float(), want.float()
+    assert torch.isfinite(a).all(), f"{tag} {shape}: non-finite out"
+    d = a - w
+    err = d.abs().max().item()
+    norm_rel = (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(w)).item()
+    rows = (torch.linalg.vector_norm(d, dim=-1) / torch.linalg.vector_norm(w, dim=-1)).max().item()
+    print(f"decode attention {shape}: max|d| {err:.3e} (bound 2e-2; median |ref| "
+          f"{w.abs().median().item():.3e}), |d|/|ref| {norm_rel:.3e} (bound "
+          f"{DECODE_OUT_NORM:.0e}), worst row |d|/|ref| {rows:.3e} (bound {DECODE_OUT_ROW:.0e})")
+    assert err <= 2e-2, f"{tag} {shape}: max|d| {err:.3e}"
+    assert norm_rel <= DECODE_OUT_NORM, f"{tag} {shape}: |d|/|ref| {norm_rel:.3e}"
+    assert rows <= DECODE_OUT_ROW, f"{tag} {shape}: row |d|/|ref| {rows:.3e}"
+    return err
+
+
 def check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, eps, shape):
     """Hold the kernel's RMSNorm dx against the plain one's and return
     max|d|.  dx = r (g w - x r^2 mean(g w x)) is a difference: where its two
@@ -477,6 +522,7 @@ def _counters():
         "bpe_chain": (bpe_match.greedy_chain, "launches"),
         "decode_attention_int8": (attention_decode.decode_attention_fused, "int8_launches"),
         "int8_linear": (int8_linear.int8_linear, "launches"),
+        "int8_linear_tc": (int8_linear.int8_linear, "tc_launches"),
         "kv_quant": (kv_quant.append_kv, "launches"),
     }
 
@@ -494,7 +540,8 @@ def zero_launches():
 def plain_path(kernels=tuple(SOURCES)):
     """Swap the plain PyTorch versions in for the named kernels' wrappers
     (the autograd functions look their wrappers up when called).  Both
-    decode kernels have one wrapper: naming either swaps it."""
+    decode kernels have one wrapper, and both int8 products: naming either
+    swaps it."""
     from ecg_byte_tpu_torch.ops import (
         attention,
         attention_decode,
@@ -508,6 +555,7 @@ def plain_path(kernels=tuple(SOURCES)):
 
     _counters()
     decode = (attention_decode, "decode_attention_fused", attention.decode_attention)
+    product = (int8_linear, "int8_linear", int8_linear.int8_linear_plain)
     swaps = {
         "prefill_attention": (attention_resident, "resident_attention", attention.grouped_attention),
         "prefill_attention_bwd": (attention_resident, "resident_attention_bwd",
@@ -522,7 +570,8 @@ def plain_path(kernels=tuple(SOURCES)):
         "bpe_match": (bpe_match, "longest_match", bpe_match.longest_match_plain),
         "bpe_chain": (bpe_match, "greedy_chain", _chain_plain),
         "decode_attention_int8": decode,
-        "int8_linear": (int8_linear, "int8_linear", int8_linear.int8_linear_plain),
+        "int8_linear": product,
+        "int8_linear_tc": product,
         "kv_quant": (kv_quant, "append_kv", kv_quant.append_kv_plain),
     }
     with contextlib.ExitStack() as stack:
@@ -664,7 +713,7 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     import torch
     import torch.nn.functional as F
 
-    from ecg_byte_tpu_torch.ops import attention, attention_decode, attention_resident, rmsnorm
+    from ecg_byte_tpu_torch.ops import attention, attention_resident, rmsnorm
 
     phase("3. kernels vs plain (and one library call as yardstick)")
     dev = torch.device("cuda")
@@ -747,36 +796,33 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
         record("prefill_attention_bwd", [b, s, h, kh, d], err, times, 10 * d * pairs, nbytes,
                main=(b, h) == (4, 32))
 
-    # K2: (B, S_max, H, KH, D), the left padding of row 0 and the slots
-    # filled; the last row is the long serving path's cache (its prompt's
-    # bucket + 128 new tokens), half-way through the answer
+    # K2: (B, S_max, H, KH, D), the left padding of row 0, the slots filled
+    # and the split counts forced beside the kernel's own choice ("max": one
+    # range a tile).  The long rows are the long serving path's cache (its
+    # prompt's bucket + 128 new tokens) half-way through the answer; the B4
+    # one pads row 0 by 1,000 slots (range boundaries inside the padding at
+    # 7 ranges and at the maximum) and leaves the last 848 unfilled (whole
+    # ranges past the filled slots).
     bucket, prompt_len = serve_prompt
-    for b, s, h, kh, d, pad, filled in [
-            (1, 1152, 32, 8, 64, 3, 864), (4, 1152, 32, 8, 64, 3, 864),
-            (1, 1152, 25, 25, 64, 3, 864), (4, 1152, 25, 25, 64, 3, 864),
-            (1, bucket + 128, 32, 8, 64, bucket - prompt_len, bucket + 64)]:
+    long_s = bucket + 128
+    for b, s, h, kh, d, pad, filled, forced in [
+            (1, 1152, 32, 8, 64, 3, 864, ()), (4, 1152, 32, 8, 64, 3, 864, ()),
+            (1, 1152, 25, 25, 64, 3, 864, ()), (4, 1152, 25, 25, 64, 3, 864, ()),
+            (1, long_s, 32, 8, 64, bucket - prompt_len, bucket + 64, (1, 7, "max")),
+            (4, long_s, 32, 8, 64, 1000, long_s - 848, (1, 7, "max")),
+            (1, long_s, 8, 1, 256, bucket - prompt_len, bucket + 64, ())]:
         with torch.inference_mode():
             q, kc, vc = randn(b, 1, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
             mask = torch.ones(b, s, dtype=torch.int32, device=dev)
             mask[:, filled:] = 0
             mask[0, :pad] = 0
-            got = attention_decode.decode_attention_fused(q, kc, vc, mask)
-            want = attention.decode_attention(q, kc, vc, mask)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            assert torch.isfinite(got.float()).all() and err <= 2e-2, f"K2 max|d| {err}"
             q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
             bmask = mask.bool()[:, None, None, :]
-            times = time_in_turns([
-                lambda: attention_decode.decode_attention_fused(q, kc, vc, mask),
-                lambda: attention.decode_attention(q, kc, vc, mask),
-                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
-                                                       enable_gqa=True),
-            ], 100)
-            n_valid = mask.sum().item()  # the cache rows this call must read
-            nbytes = 2 * (2 * n_valid * kh * d + 2 * q.numel()) + 4 * mask.numel()
-            record("decode_attention", [b, s, h, kh, d], err, times, 4 * d * h * n_valid,
-                   nbytes, main=(b, s, h) == (1, 1152, 32))
+            decode_row(record, "decode_attention", [b, s, h, kh, d], forced, q, kc, vc, mask,
+                       lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
+                                                              enable_gqa=True),
+                       main=(b, s, h) == (1, 1152, 32))
+            del q4, k4, v4, bmask
 
     # K3 forward: rows x 2048; the decode row is the serving path's commonest call
     for shape in [(4096, 2048), (1024, 2048), (1, 2048)]:
@@ -823,7 +869,7 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
         record("rmsnorm_bwd", list(shape), err, times, 8 * x.numel(),
                6 * x.numel() + 4 * w.numel(), main=shape[0] == 4096)
 
-    int8_checks(record, dev, gen, randn)
+    int8_checks(record, dev, randn, serve_prompt)
     flash_checks(record, dev, randn, serve_prompt)
 
     # the BPE kernels: one batch of the token cache at ptb_500's 12 x 500
@@ -845,72 +891,123 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     return report
 
 
-def int8_checks(record, dev, gen, randn):
+def decode_row(record, name, shape, forced, q, kc, vc, mask, library, main, k_scale=None,
+               v_scale=None):
+    """Decode attention over one cache: the kernel at each forced split
+    count and at its own (``num_splits``) held to plain by check_decode;
+    then kernel, plain and ``library`` timed in turns with CUDA events over
+    100 eager calls each (host launch costs included, as the serving loop
+    pays them), and the device times of kernel and library and of every
+    forced split count (CUDA graphs)."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops import _cuda, attention, attention_decode
+
+    b, s, h, kh, d = shape
+    scales = (k_scale, v_scale)
+    want = attention.decode_attention(q, kc, vc, mask, *scales)
+    tiles = -(-s // attention_decode.KEYS)
+    default = attention_decode.num_splits(b, kh, s, _cuda.sm_count(q.device.index))
+    counts = [tiles if n == "max" else n for n in forced]
+    for n in counts:
+        got = attention_decode.decode_attention_fused(q, kc, vc, mask, *scales, splits=n)
+        torch.cuda.synchronize()
+        check_decode(got, want, shape + [f"{n} ranges"])
+    got = attention_decode.decode_attention_fused(q, kc, vc, mask, *scales)
+    torch.cuda.synchronize()
+    err = check_decode(got, want, shape + [f"{default} ranges (its own)"])
+    kernel = lambda: attention_decode.decode_attention_fused(q, kc, vc, mask, *scales)  # noqa: E731
+    times = time_in_turns([kernel, lambda: attention.decode_attention(q, kc, vc, mask, *scales),
+                           library], 100)
+    forced_fns = [lambda n=n: attention_decode.decode_attention_fused(q, kc, vc, mask, *scales,
+                                                                      splits=n) for n in counts]
+    dev_ms = time_graphed([kernel, library] + forced_fns)
+    n_valid = mask.sum().item()  # the cache rows this call must read
+    # a K or V row: bf16, or int8 with its bf16 scale
+    row_bytes = 2 * kh * d if k_scale is None else kh * d + 2 * kh
+    nbytes = 2 * n_valid * row_bytes + 2 * 2 * q.numel() + 4 * mask.numel()
+    record(name, shape, err, times, 4 * d * h * n_valid, nbytes, main=main, ranges=default,
+           device_ms=dev_ms[0], library_device_ms=dev_ms[1],
+           forced_device_ms={n: t for n, t in zip(counts, dev_ms[2:])})
+
+
+def int8_checks(record, dev, randn, serve_prompt):
     """The int8 serving kernels against their plain versions, timed beside
     their bounds and the bf16 path they replace."""
     import torch
     import torch.nn.functional as F
 
     from ecg_byte_tpu_torch.models.quantized import quantize_weight
-    from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant
+    from ecg_byte_tpu_torch.ops import _cuda, int8_linear, kv_quant
 
     # decode attention over the int8 cache: random bf16 rows quantized by
-    # the plain quantizer; the yardstick is SDPA on the bf16 rows
-    for b, s, h, kh, d in [(1, 1152, 32, 8, 64), (4, 1152, 32, 8, 64), (1, 1152, 25, 25, 64),
-                           (1, 1152, 8, 1, 256)]:
+    # the plain quantizer; the yardstick is SDPA on the bf16 rows.  The last
+    # row is the long serving path's cache, as the bf16 one.
+    bucket, prompt_len = serve_prompt
+    for b, s, h, kh, d, pad, filled in [
+            (1, 1152, 32, 8, 64, 3, 864), (4, 1152, 32, 8, 64, 3, 864),
+            (1, 1152, 25, 25, 64, 3, 864), (1, 1152, 8, 1, 256, 3, 864),
+            (1, bucket + 128, 32, 8, 64, bucket - prompt_len, bucket + 64)]:
         with torch.inference_mode():
             q, kb, vb = randn(b, 1, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
             (kc, ks), (vc, vs) = kv_quant.quant_kv_rows(kb), kv_quant.quant_kv_rows(vb)
             mask = torch.ones(b, s, dtype=torch.int32, device=dev)
-            mask[:, -s // 4:] = 0
-            mask[0, :3] = 0
-            got = attention_decode.decode_attention_fused(q, kc, vc, mask, ks, vs)
-            want = attention.decode_attention(q, kc, vc, mask, ks, vs)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            # the tolerance of the bf16 cache's row
-            assert torch.isfinite(got.float()).all() and err <= 2e-2, f"K2 int8 max|d| {err}"
+            mask[:, filled:] = 0
+            mask[0, :pad] = 0
             q4, k4, v4 = q.transpose(1, 2), kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
             bmask = mask.bool()[:, None, None, :]
-            times = time_in_turns([
-                lambda: attention_decode.decode_attention_fused(q, kc, vc, mask, ks, vs),
-                lambda: attention.decode_attention(q, kc, vc, mask, ks, vs),
-                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
-                                                       enable_gqa=True),
-            ], 100)
-            n_valid = mask.sum().item()  # the cache rows this call must read
-            nbytes = (2 * n_valid * kh * d + 2 * 2 * n_valid * kh + 2 * 2 * q.numel()
-                      + 4 * mask.numel())
-            record("decode_attention_int8", [b, s, h, kh, d], err, times, 4 * d * h * n_valid,
-                   nbytes, main=(b, h) == (1, 32))
+            decode_row(record, "decode_attention_int8", [b, s, h, kh, d], (), q, kc, vc, mask,
+                       lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
+                                                              enable_gqa=True),
+                       main=(b, s, h) == (1, 1152, 32), k_scale=ks, v_scale=vs)
+            del q4, k4, v4, bmask
 
-    # the int8 weight product: Llama's gate projection at decode (M = 1)
-    # and prefill (M = 1152), its head (f32 logits), and gpt2's c_fc with a
-    # bias (K = 1600); the yardstick is cuBLAS on the bf16 weight.  Kernel,
-    # plain and library are timed on the device (CUDA graphs): at M = 1 the
-    # host's launch cost would otherwise hide the kernel; the host-clock
-    # times of kernel and library calls in turns are kept as host_ms.
-    for m, n, k, with_bias in [(1, 8192, 2048, False), (1152, 8192, 2048, False),
-                               (1, 128256, 2048, False), (1, 6400, 1600, True)]:
+    # the int8 weight product, each row on the kernel the wrapper picks or
+    # on the one forced: Llama's gate projection (8192 x 2048) at decode
+    # (M = 1), at both sides of the GEMV / tensor-core threshold with each
+    # kernel, at a 1k prompt (M 1000), at the serving bucket (M 1152, once
+    # with each kernel forced) and at the long one (M 4992); the head (f32
+    # logits); gpt2's c_fc at decode and c_attn at prefill (K = 1600, a bias,
+    # N = 4800 ragged to 128-wide tiles).  The yardstick is cuBLAS on the
+    # bf16 weight.  Kernel, plain and library are timed on the device (CUDA
+    # graphs): at M = 1 the host's launch cost would otherwise hide the
+    # kernel; the host-clock times of kernel and library calls in turns are
+    # kept as host_ms.
+    edge = int8_linear.GEMV_MAX_M
+    for m, n, k, with_bias, path in [
+            (1, 8192, 2048, False, None), (edge, 8192, 2048, False, None),
+            (edge, 8192, 2048, False, "tc"), (edge + 1, 8192, 2048, False, "gemv"),
+            (edge + 1, 8192, 2048, False, None), (16, 8192, 2048, False, None),
+            (1000, 8192, 2048, False, None), (1152, 8192, 2048, False, "tc"),
+            (1152, 8192, 2048, False, "gemv"), (4992, 8192, 2048, False, None),
+            (1, 128256, 2048, False, None), (1, 6400, 1600, True, None),
+            (1152, 4800, 1600, True, None)]:
+        if m == 16 and edge in (15, 16):
+            continue  # already a row
         with torch.inference_mode():
             x, w = randn(m, k), randn(n, k) * 0.02
             qw, scale = quantize_weight(w)
             bias = randn(n) * 0.1 if with_bias else None
             out_dtype = torch.float32 if n == 128256 else None
-            got = int8_linear.int8_linear(x, qw, scale, bias, out_dtype)
+            taken = path or int8_linear.choose_path(m)
+            name = "int8_linear_tc" if taken == "tc" else "int8_linear"
+            got = int8_linear.int8_linear(x, qw, scale, bias, out_dtype, path=path)
             want = int8_linear.int8_linear_plain(x, qw, scale, bias, out_dtype)
             torch.cuda.synchronize()
-            err = check_int8_linear(got, want, x, qw, scale, bias, [m, n, k])
-            fns = [lambda: int8_linear.int8_linear(x, qw, scale, bias, out_dtype),
+            err = check_int8_linear(got, want, x, qw, scale, bias, [m, n, k, taken])
+            fns = [lambda: int8_linear.int8_linear(x, qw, scale, bias, out_dtype, path=path),
                    lambda: int8_linear.int8_linear_plain(x, qw, scale, bias, out_dtype),
                    lambda: F.linear(x, w, bias)]
             times = time_graphed(fns, calls=5 if m > 1 else 20)
             host = time_in_turns([fns[0], fns[2]], 10 if m > 1 else 50)
             out_bytes = m * n * (4 if out_dtype else 2)
             nbytes = n * k + 2 * m * k + 2 * n * (2 if with_bias else 1) + out_bytes
-            record("int8_linear", [m, n, k], err, times, 2 * m * n * k, nbytes,
-                   main=(m, n) == (1, 8192), bias=with_bias, host_ms=host[0],
-                   library_host_ms=host[1])
+            main = (m, n) == (1, 8192) if name == "int8_linear" else (m, n) == (1152, 8192)
+            tile = (int8_linear.TC_TILES[int8_linear.choose_tile(
+                m, n, _cuda.sm_count(x.device.index))] if taken == "tc" else None)
+            record(name, [m, n, k], err, times, 2 * m * n * k, nbytes, main=main and path != "gemv",
+                   bias=with_bias, path=taken, forced=path is not None, tile=tile,
+                   host_ms=host[0], library_host_ms=host[1])
             del x, w, qw, scale, got, want, fns
 
     # the host's cost of one call, from a tiny product: the wrapper against
@@ -1470,10 +1567,14 @@ def paths_phase(root, vocab, merges, path):
     print(f"  kernel path vs plain path    {d_kp.max().item():.3e} / {d_kp.mean().item():.3e}")
     print(f"  plain path vs f32 reference  {d_pr.max().item():.3e} / {d_pr.mean().item():.3e}")
     print(f"  kernel path vs f32 reference {d_kr.max().item():.3e} / {d_kr.mean().item():.3e}")
-    for name in kernels:  # how far one kernel alone moves the logits
-        with plain_path([k for k in kernels if k != name]):
+    by_wrapper = {}  # the int8 products share one wrapper, and so one swap
+    for name in kernels:
+        by_wrapper.setdefault(_counters()[name][0], []).append(name)
+    for names in by_wrapper.values():  # how far one wrapper's kernels alone move the logits
+        with plain_path([k for k in kernels if k not in names]):
             only = run(params, config)
-        print(f"  only {name} as kernel, vs plain path: worst {rel(only, plain).max().item():.3e}")
+        print(f"  only {' and '.join(names)} as kernel, vs plain path: worst "
+              f"{rel(only, plain).max().item():.3e}")
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
     print(f"greedy argmax of kernel and plain paths agrees at {agree} of {d_kp.numel()} "
           "positions (near-ties under random weights may flip; not asserted)")

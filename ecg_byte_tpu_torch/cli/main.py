@@ -336,10 +336,13 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     train_loss, val_loss = [], []
     steps = tokens = 0
     # a crash save falls back on the host copy of the last epoch boundary
-    # when the live state was cut mid-step; its epoch is the last one
-    # completed (-1: none), and --resume starts after it
+    # when the live state was cut mid-step.  The epochs it records are the
+    # JAX CLI's: a live save records this run's count of epochs, the
+    # snapshot the index of the last epoch completed (start_epoch before
+    # the first), and --resume starts after the recorded number, so it
+    # skips an epoch where the reference does
     last_completed = snapshot_state(state)
-    last_completed_epoch = start_epoch - 1
+    last_completed_epoch = start_epoch
     t0 = time.perf_counter()
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -376,7 +379,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     finally:
         source = save_crash_checkpoint(
             directory_path, state, last_completed,
-            epoch=start_epoch + len(train_loss) - 1, fallback_epoch=last_completed_epoch,
+            epoch=len(train_loss), fallback_epoch=last_completed_epoch,
         )
         if source == "snapshot":
             print("The live state was cut mid-step; crash checkpoint saved from the "

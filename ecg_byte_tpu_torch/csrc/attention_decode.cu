@@ -1,4 +1,5 @@
-// Single-position decode attention over a bf16 or an int8 KV cache.
+// Single-position decode attention over a bf16 or an int8 KV cache, with
+// the cache split across blocks.
 //
 // Replaces the Pallas kernel _kernel of ecg_byte_tpu/ops/attention_decode.py
 // for both cache types.  q and out (B, 1, H, D); k_cache and v_cache
@@ -17,16 +18,36 @@
 // tiles as the bf16 cache's (int8 values are exact in bf16), with the
 // tile's scales beside them; the compute is then the bf16 branch's.
 //
-// Design (see ops/attention_decode.py for the why): one block of 128
-// threads per (kv head, batch row) streams the cache of its KV head in
-// tiles of 64 positions staged through shared memory, for all G query
-// heads at once, so no f32 row of S logits has to fit anywhere.  Two
-// passes: the first finds each head's max m and sum l of exp(logit - m);
-// the second forms the exact probabilities exp(logit - m) / l, rounds them
-// to bf16 and accumulates P.V.  K is read twice (1.5x the bytes of one
-// pass) so that the rounding happens on normalized probabilities, where
-// the plain version and the TPU kernel round; rounding unnormalized ones,
-// as an online softmax does, moved the end-to-end logits past their bound.
+// What bounds it on the H100: bytes (the whole cache of a layer for a few
+// operations per byte).  At batch 1 one block per (kv head, batch row) is 8
+// blocks on 132 SMs, so the cache's 64-position tiles are split into
+// ``splits`` contiguous ranges, one block each (ops/attention_decode.py
+// num_splits aims at a full wave), in three launches:
+//
+//   A. grid (splits, KH, B): each block stages the K tiles of its range in
+//      shared memory, writes the masked, scaled f32 logits of its G query
+//      heads to scratch and, per head, the range's max m_i and sum l_i of
+//      exp(logit - m_i);
+//   B. grid (splits, KH, B): each block combines every range's (m_i, l_i)
+//      in range order into the row's (m, l) (so all blocks of a (b, kvh)
+//      hold the same bits), forms the exact probabilities
+//      round_bf16(exp(logit - m) / l [x v_scale]) from the stored logits,
+//      and accumulates P.V over its range's V tiles into an f32 partial;
+//   C. the partials are summed in range order and rounded to bf16 (with one
+//      range, B writes the output itself and C does not run).
+//
+// The probabilities are rounded after normalisation, where the plain
+// version and the TPU kernel round them; an online softmax would round
+// unnormalized ones, which moved the end-to-end logits past their bound.
+// K is read once (B reads the logits back, 4 G bytes a position against
+// 2 D for K).  Masked positions keep the finite logit -1e30, so a range
+// whose positions are all masked reports m_i = -1e30 and the combine
+// weighs it by exp(-1e30 - m) = 0; a row with no valid position gets the
+// uniform mean of V over its S positions, as the plain version does.  No
+// float atomics: every sum has a fixed order.
+//
+// Scratch (one f32 buffer from the wrapper): logits (B, KH, G, S), stats
+// (B, KH, splits, G, 2), partials (B, KH, splits, G, D) when splits > 1.
 
 #include <type_traits>
 
@@ -38,18 +59,45 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 64;  // cache positions per tile (two per lane)
 
-struct DecodeSmem {
-  size_t v, acc, q, lg, stats, ok, k, scales, bytes;
-  __host__ __device__ DecodeSmem(int G, int D, bool int8) {
-    v = size_t(kKeys) * D * 2;  // V tile, 16-byte aligned rows
-    acc = size_t(G) * D * 4;    // f32 output accumulators
-    q = size_t(G) * D * 4;      // f32 queries
-    lg = size_t(G) * kKeys * 4;  // logits, then probabilities
-    stats = size_t(2) * G * 4;  // max and sum of each head's row
-    ok = size_t(kKeys) * 4;     // validity of the tile's positions
-    k = size_t(kKeys) * (D + 2) * 2;  // K tile, rows padded by one pair
-    scales = int8 ? size_t(2) * kKeys * 4 : 0;  // the tile's K and V scales
-    bytes = v + acc + q + lg + stats + ok + k + scales;
+struct Scratch {
+  float* logits;
+  float* stats;
+  float* part;
+  __host__ __device__ Scratch(float* work, int B, int S, int KH, int G, int D, int splits) {
+    logits = work;
+    stats = logits + size_t(B) * KH * G * S;
+    part = splits > 1 ? stats + size_t(B) * KH * splits * G * 2 : nullptr;
+  }
+};
+
+// The first tile of range ``split`` of ``splits`` over ``tiles`` tiles.
+__device__ __forceinline__ int range_start(int split, int splits, int tiles) {
+  return int((long long)split * tiles / splits);
+}
+
+struct StatsSmem {
+  size_t q, lg, stats, ok, k, scales, bytes;
+  __host__ __device__ StatsSmem(int G, int D, bool int8) {
+    q = size_t(G) * D * 4;             // f32 queries
+    lg = size_t(G) * kKeys * 4;        // the tile's logits
+    stats = size_t(2) * G * 4;         // running max and sum of each head
+    ok = size_t(kKeys) * 4;            // validity of the tile's positions
+    k = size_t(kKeys) * (D + 2) * 2;   // K tile, rows padded by one pair
+    scales = int8 ? size_t(kKeys) * 4 : 0;  // the tile's K scales
+    bytes = q + lg + stats + ok + k + scales;
+  }
+};
+
+struct PvSmem {
+  size_t v, acc, p, stats, terms, scales, bytes;
+  __host__ __device__ PvSmem(int G, int D, int splits, bool int8) {
+    v = size_t(kKeys) * D * 2;         // V tile, 16-byte aligned rows
+    acc = size_t(G) * D * 4;           // f32 P.V accumulators
+    p = size_t(G) * kKeys * 4;         // the tile's probabilities
+    stats = size_t(2) * G * 4;         // the row's m and l of each head
+    terms = size_t(G) * splits * 4;    // each range's l_i exp(m_i - m)
+    scales = int8 ? size_t(kKeys) * 4 : 0;  // the tile's V scales
+    bytes = v + acc + p + stats + terms + scales;
   }
 };
 
@@ -69,123 +117,94 @@ __device__ __forceinline__ uint4 load8(const int8_t* p, size_t off) {
   return ecg::pack8(f);
 }
 
-// Stage cache tile t0 of (b, kvh) in shared memory (K rows padded; V rows
-// when Vs is given; each position's validity; with the int8 cache the
-// rows' K and, with Vs, V scales) and write the masked, scaled logits
-// lg[g][j] of the G query heads.  Synchronises before the staging (the
-// previous tile's readers are done) and after the logits.
-template <typename T>
-__device__ __forceinline__ void tile_logits(const T* __restrict__ k_cache,
-                                            const int* __restrict__ valid_mask,
-                                            const T* __restrict__ v_cache,
-                                            const __nv_bfloat16* __restrict__ k_scale,
-                                            const __nv_bfloat16* __restrict__ v_scale,
-                                            __nv_bfloat16* Ks, __nv_bfloat16* Vs, int* key_ok,
-                                            float* ksc, float* vsc, const float* qs, float* lg,
-                                            int b, int S, int KH, int kvh, int G, int D, int t0,
-                                            float scale) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  const int tid = threadIdx.x;
-  const int chunks = D / 8;
-  const int kw = D / 2 + 1;  // K row stride in bf16 pairs
-  __syncthreads();
-  for (int idx = tid; idx < kKeys * chunks; idx += kThreads) {
-    const int j = idx / chunks, c = idx % chunks;
-    const int t = t0 + j;
-    const size_t off = ((size_t(b) * S + t) * KH + kvh) * D + c * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (t < S) kv = load8(k_cache, off);
-    ecg::store_words(Ks + j * (D + 2) + c * 8, kv);
-    if (Vs != nullptr) {
-      if (t < S) vv = load8(v_cache, off);
-      *reinterpret_cast<uint4*>(Vs + j * D + c * 8) = vv;
-    }
-  }
-  if (tid < kKeys) {
-    const int t = t0 + tid;
-    key_ok[tid] = (t < S) ? valid_mask[size_t(b) * S + t] : 0;
-    if constexpr (kInt8) {
-      const size_t srow = (size_t(b) * S + t) * KH + kvh;
-      ksc[tid] = (t < S) ? __bfloat162float(k_scale[srow]) : 1.f;
-      if (Vs != nullptr) vsc[tid] = (t < S) ? __bfloat162float(v_scale[srow]) : 1.f;
-    }
-  }
-  __syncthreads();
-  const __nv_bfloat162* Ks2 = reinterpret_cast<const __nv_bfloat162*>(Ks);
-  for (int idx = tid; idx < G * kKeys; idx += kThreads) {
-    const int g = idx / kKeys, j = idx % kKeys;
-    const __nv_bfloat162* kr = Ks2 + j * kw;
-    const float2* qr = reinterpret_cast<const float2*>(qs + g * D);
-    float dot = 0.f;
-    for (int dp = 0; dp < D / 2; ++dp) {
-      const float2 kf = __bfloat1622float2(kr[dp]);
-      const float2 qf = qr[dp];
-      dot = fmaf(qf.x, kf.x, dot);
-      dot = fmaf(qf.y, kf.y, dot);
-    }
-    if constexpr (kInt8) {
-      lg[idx] = key_ok[j] ? dot * scale * ksc[j] : ecg::kNegInf;
-    } else {
-      lg[idx] = key_ok[j] ? dot * scale : ecg::kNegInf;
-    }
-  }
-  __syncthreads();
-}
-
+// Phase A: the logits of the range's tiles and the range's (m_i, l_i).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache,
-                        const __nv_bfloat16* __restrict__ k_scale,
-                        const __nv_bfloat16* __restrict__ v_scale,
-                        const int* __restrict__ valid_mask, __nv_bfloat16* __restrict__ out,
-                        int S, int KH, int G, int D, float scale) {
+decode_stats_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const int* __restrict__ valid_mask, float* __restrict__ work, int S, int KH,
+                    int G, int D, int splits, float scale) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  const DecodeSmem L(G, D, kInt8);
+  const StatsSmem L(G, D, kInt8);
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* p = smem;
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(p);
-  p += L.v;
-  float* acc = reinterpret_cast<float*>(p);
-  p += L.acc;
-  float* qs = reinterpret_cast<float*>(p);
-  p += L.q;
-  float* lg = reinterpret_cast<float*>(p);
-  p += L.lg;
-  float* m = reinterpret_cast<float*>(p);
+  unsigned char* sp = smem;
+  float* qs = reinterpret_cast<float*>(sp);
+  sp += L.q;
+  float* lg = reinterpret_cast<float*>(sp);
+  sp += L.lg;
+  float* m = reinterpret_cast<float*>(sp);
   float* l = m + G;
-  p += L.stats;
-  int* key_ok = reinterpret_cast<int*>(p);
-  p += L.ok;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(p);
-  p += L.k;
-  float* ksc = reinterpret_cast<float*>(p);  // int8 cache only
-  float* vsc = ksc + kKeys;
+  sp += L.stats;
+  int* key_ok = reinterpret_cast<int*>(sp);
+  sp += L.ok;
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(sp);
+  sp += L.k;
+  float* ksc = reinterpret_cast<float*>(sp);  // int8 cache only
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int B = gridDim.z;
   const int GD = G * D;
-  const size_t head0 = (size_t(b) * KH + kvh) * GD;  // q/out offset of head kvh*G
+  const int tiles = (S + kKeys - 1) / kKeys;
+  const int tile_lo = range_start(split, splits, tiles);
+  const int tile_hi = range_start(split + 1, splits, tiles);
+  const Scratch W(work, B, S, KH, G, D, splits);
+  float* logits = W.logits + (size_t(b) * KH + kvh) * G * S;  // (G, S) of this (b, kvh)
 
-  for (int i = tid; i < GD; i += kThreads) {
-    qs[i] = __bfloat162float(q[head0 + i]);
-    acc[i] = 0.f;
-  }
+  const size_t head0 = (size_t(b) * KH + kvh) * GD;  // q offset of head kvh*G
+  for (int i = tid; i < GD; i += kThreads) qs[i] = __bfloat162float(q[head0 + i]);
   for (int g = tid; g < G; g += kThreads) {
     m[g] = ecg::kNegInf;
     l[g] = 0.f;
   }
 
-  // Pass 1: per head the max m and the sum l of exp(logit - m) over the
-  // cache, the sum rescaled whenever the max grows.
-  for (int t0 = 0; t0 < S; t0 += kKeys) {
-    tile_logits<T>(k_cache, valid_mask, nullptr, k_scale, v_scale, Ks, nullptr, key_ok, ksc, vsc,
-                   qs, lg, b, S, KH, kvh, G, D, t0, scale);
+  const int chunks = D / 8;
+  const int kw = D / 2 + 1;  // K row stride in bf16 pairs
+  const __nv_bfloat162* Ks2 = reinterpret_cast<const __nv_bfloat162*>(Ks);
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int t0 = tile * kKeys;
+    __syncthreads();  // the previous tile's readers are done
+    for (int idx = tid; idx < kKeys * chunks; idx += kThreads) {
+      const int j = idx / chunks, c = idx % chunks;
+      const int t = t0 + j;
+      uint4 kv = make_uint4(0, 0, 0, 0);
+      if (t < S) kv = load8(k_cache, ((size_t(b) * S + t) * KH + kvh) * D + c * 8);
+      ecg::store_words(Ks + j * (D + 2) + c * 8, kv);
+    }
+    if (tid < kKeys) {
+      const int t = t0 + tid;
+      key_ok[tid] = (t < S) ? valid_mask[size_t(b) * S + t] : 0;
+      if constexpr (kInt8) {
+        ksc[tid] = (t < S) ? __bfloat162float(k_scale[(size_t(b) * S + t) * KH + kvh]) : 1.f;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * kKeys; idx += kThreads) {
+      const int g = idx / kKeys, j = idx % kKeys;
+      const __nv_bfloat162* kr = Ks2 + j * kw;
+      const float2* qr = reinterpret_cast<const float2*>(qs + g * D);
+      float dot = 0.f;
+      for (int dp = 0; dp < D / 2; ++dp) {
+        const float2 kf = __bfloat1622float2(kr[dp]);
+        const float2 qf = qr[dp];
+        dot = fmaf(qf.x, kf.x, dot);
+        dot = fmaf(qf.y, kf.y, dot);
+      }
+      float s;
+      if constexpr (kInt8) {
+        s = key_ok[j] ? dot * scale * ksc[j] : ecg::kNegInf;
+      } else {
+        s = key_ok[j] ? dot * scale : ecg::kNegInf;
+      }
+      lg[idx] = s;
+      if (t0 + j < S) logits[size_t(g) * S + t0 + j] = s;
+    }
+    __syncthreads();
+    // per head, the max and the sum of exp(logit - max) over the range, the
+    // sum rescaled whenever the max grows; positions past S add nothing
     for (int g = warp; g < G; g += kWarps) {
-      const float a = lg[g * kKeys + lane], c = lg[g * kKeys + lane + 32];
+      const float a = (t0 + lane < S) ? lg[g * kKeys + lane] : -INFINITY;
+      const float c = (t0 + lane + 32 < S) ? lg[g * kKeys + lane + 32] : -INFINITY;
       const float m_new = fmaxf(m[g], ecg::warp_max(fmaxf(a, c)));
       const float sum = ecg::warp_sum(expf(a - m_new) + expf(c - m_new));
       if (lane == 0) {
@@ -194,25 +213,107 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
       }
     }
   }
+  __syncthreads();
+  float* st = W.stats + ((size_t(b) * KH + kvh) * splits + split) * G * 2;
+  for (int g = tid; g < G; g += kThreads) {
+    st[2 * g] = m[g];
+    st[2 * g + 1] = l[g];
+  }
+}
 
-  // Pass 2: the exact probabilities exp(logit - m) / l (times the V scale
-  // with the int8 cache), rounded to bf16 as the plain version rounds them,
-  // then acc[g][d] += p[g][j] * v[j][d].
-  for (int t0 = 0; t0 < S; t0 += kKeys) {
-    tile_logits<T>(k_cache, valid_mask, v_cache, k_scale, v_scale, Ks, Vs, key_ok, ksc, vsc, qs,
-                   lg, b, S, KH, kvh, G, D, t0, scale);
-    for (int idx = tid; idx < G * kKeys; idx += kThreads) {
-      const int g = idx / kKeys;
-      if constexpr (kInt8) {
-        lg[idx] = ecg::round_bf16((expf(lg[idx] - m[g]) / l[g]) * vsc[idx % kKeys]);
-      } else {
-        lg[idx] = ecg::round_bf16(expf(lg[idx] - m[g]) / l[g]);
+// Phase B: the exact probabilities of the range and their P.V.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_pv_kernel(const T* __restrict__ v_cache, const __nv_bfloat16* __restrict__ v_scale,
+                 float* __restrict__ work, __nv_bfloat16* __restrict__ out, int S, int KH, int G,
+                 int D, int splits) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  const PvSmem L(G, D, splits, kInt8);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sp = smem;
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(sp);
+  sp += L.v;
+  float* acc = reinterpret_cast<float*>(sp);
+  sp += L.acc;
+  float* p = reinterpret_cast<float*>(sp);
+  sp += L.p;
+  float* m = reinterpret_cast<float*>(sp);
+  float* l = m + G;
+  sp += L.stats;
+  float* terms = reinterpret_cast<float*>(sp);
+  sp += L.terms;
+  float* vsc = reinterpret_cast<float*>(sp);  // int8 cache only
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int B = gridDim.z;
+  const int GD = G * D;
+  const int tiles = (S + kKeys - 1) / kKeys;
+  const int tile_lo = range_start(split, splits, tiles);
+  const int tile_hi = range_start(split + 1, splits, tiles);
+  const Scratch W(work, B, S, KH, G, D, splits);
+  const float* logits = W.logits + (size_t(b) * KH + kvh) * G * S;
+
+  // the row's (m, l) from every range's: a warp per head takes the max
+  // and each range's term l_i exp(m_i - m), then one lane sums the terms in
+  // range order, so every block of the row holds the same bits
+  const float* st = W.stats + (size_t(b) * KH + kvh) * splits * G * 2;
+  for (int g = warp; g < G; g += kWarps) {
+    float mg = ecg::kNegInf;
+    for (int i = lane; i < splits; i += 32) mg = fmaxf(mg, st[(size_t(i) * G + g) * 2]);
+    mg = ecg::warp_max(mg);
+    for (int i = lane; i < splits; i += 32) {
+      const float* si = st + (size_t(i) * G + g) * 2;
+      terms[g * splits + i] = si[1] * expf(si[0] - mg);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float lg = 0.f;
+      for (int i = 0; i < splits; ++i) lg += terms[g * splits + i];
+      m[g] = mg;
+      l[g] = lg;
+    }
+  }
+  for (int i = tid; i < GD; i += kThreads) acc[i] = 0.f;
+
+  const int chunks = D / 8;
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int t0 = tile * kKeys;
+    __syncthreads();  // (m, l) are set; the previous tile's readers are done
+    for (int idx = tid; idx < kKeys * chunks; idx += kThreads) {
+      const int j = idx / chunks, c = idx % chunks;
+      const int t = t0 + j;
+      uint4 vv = make_uint4(0, 0, 0, 0);
+      if (t < S) vv = load8(v_cache, ((size_t(b) * S + t) * KH + kvh) * D + c * 8);
+      *reinterpret_cast<uint4*>(Vs + j * D + c * 8) = vv;
+    }
+    if constexpr (kInt8) {
+      if (tid < kKeys) {
+        const int t = t0 + tid;
+        vsc[tid] = (t < S) ? __bfloat162float(v_scale[(size_t(b) * S + t) * KH + kvh]) : 1.f;
       }
+      __syncthreads();
+    }
+    // the exact probabilities exp(logit - m) / l (times the V scale with
+    // the int8 cache), rounded to bf16 as the plain version rounds them
+    for (int idx = tid; idx < G * kKeys; idx += kThreads) {
+      const int g = idx / kKeys, j = idx % kKeys;
+      const int t = t0 + j;
+      float pr = 0.f;
+      if (t < S) {
+        const float s = logits[size_t(g) * S + t];
+        if constexpr (kInt8) {
+          pr = ecg::round_bf16((expf(s - m[g]) / l[g]) * vsc[j]);
+        } else {
+          pr = ecg::round_bf16(expf(s - m[g]) / l[g]);
+        }
+      }
+      p[idx] = pr;
     }
     __syncthreads();
     for (int idx = tid; idx < GD; idx += kThreads) {
       const int g = idx / D, d = idx % D;
-      const float* pr = lg + g * kKeys;
+      const float* pr = p + g * kKeys;
       float a = acc[idx];
 #pragma unroll 8
       for (int j = 0; j < kKeys; ++j) a = fmaf(pr[j], __bfloat162float(Vs[j * D + d]), a);
@@ -221,46 +322,83 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
   }
   __syncthreads();
 
-  for (int idx = tid; idx < GD; idx += kThreads) {
-    out[head0 + idx] = __float2bfloat16(acc[idx]);
+  if (splits == 1) {
+    const size_t head0 = (size_t(b) * KH + kvh) * GD;
+    for (int i = tid; i < GD; i += kThreads) out[head0 + i] = __float2bfloat16(acc[i]);
+  } else {
+    float* part = W.part + ((size_t(b) * KH + kvh) * splits + split) * GD;
+    for (int i = tid; i < GD; i += kThreads) part[i] = acc[i];
   }
+}
+
+// Phase C: out = bf16(sum of the ranges' partials, in range order).
+__global__ void __launch_bounds__(256)
+decode_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out, int rows,
+                  int GD, int splits) {
+  const size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= size_t(rows) * GD) return;
+  const size_t row = idx / GD, e = idx % GD;
+  const float* pr = part + row * splits * GD + e;
+  float s = 0.f;
+  for (int i = 0; i < splits; ++i) s += pr[size_t(i) * GD];
+  out[idx] = __float2bfloat16(s);
 }
 
 template <typename T>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-           const void* v_scale, const void* valid_mask, void* out, int B, int S, int KH, int G,
-           int D, void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || G <= 0 || D <= 0 || D % 8 != 0 || D > 256) {
+           const void* v_scale, const void* valid_mask, void* out, void* work, int B, int S,
+           int KH, int G, int D, int splits, void* stream) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  const int tiles = (S + kKeys - 1) / kKeys;
+  if (B <= 0 || S <= 0 || KH <= 0 || G <= 0 || D <= 0 || D % 8 != 0 || D > 256 ||
+      splits < 1 || splits > tiles || B > 65535 || KH > 65535) {
     return cudaErrorInvalidValue;
   }
-  const DecodeSmem L(G, D, std::is_same<T, int8_t>::value);
-  if (L.bytes > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(L.bytes));
+  const StatsSmem LA(G, D, kInt8);
+  const PvSmem LB(G, D, splits, kInt8);
+  if (LA.bytes > 227 * 1024 || LB.bytes > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(LA.bytes));
   if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(decode_pv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(LB.bytes));
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = float(1.0 / sqrt(double(D)));
-  decode_attention_kernel<T><<<dim3(KH, B), kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(splits, KH, B);
+  float* w = static_cast<float*>(work);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  decode_stats_kernel<T><<<grid, kThreads, LA.bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(valid_mask),
-      static_cast<__nv_bfloat16*>(out), S, KH, G, D, scale);
+      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const int*>(valid_mask), w, S, KH,
+      G, D, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_pv_kernel<T><<<grid, kThreads, LB.bytes, s>>>(
+      static_cast<const T*>(v_cache), static_cast<const __nv_bfloat16*>(v_scale), w, o, S, KH, G,
+      D, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int rows = B * KH;
+  const size_t total = size_t(rows) * G * D;
+  decode_sum_kernel<<<unsigned((total + 255) / 256), 256, 0, s>>>(
+      Scratch(w, B, S, KH, G, D, splits).part, o, rows, G * D, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int ecg_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* valid_mask, void* out, int B, int S, int KH,
-                                    int G, int D, void* stream) {
-  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, valid_mask, out, B, S, KH,
-                               G, D, stream);
+                                    const void* valid_mask, void* out, void* work, int B, int S,
+                                    int KH, int G, int D, int splits, void* stream) {
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, valid_mask, out, work, B,
+                               S, KH, G, D, splits, stream);
 }
 
 extern "C" int ecg_decode_attention_int8(const void* q, const void* k_cache, const void* v_cache,
                                          const void* k_scale, const void* v_scale,
-                                         const void* valid_mask, void* out, int B, int S, int KH,
-                                         int G, int D, void* stream) {
-  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, B, S, KH, G, D,
-                        stream);
+                                         const void* valid_mask, void* out, void* work, int B,
+                                         int S, int KH, int G, int D, int splits, void* stream) {
+  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, work, B, S, KH,
+                        G, D, splits, stream);
 }

@@ -15,14 +15,15 @@
 // holding the same bf16 values for the LM head, whose logits the model
 // returns in f32.
 //
-// What bounds it on the H100: at decode (M = batch <= 16) the bytes of the
-// weight, read once, so a warp owns an output row and its lanes stream the
-// row in 16-byte loads, converting int8 to f32 in registers; x (a few KB)
-// comes from L1.  A warp reduction and the scale/bias epilogue finish the
-// row: one launch per projection and no dequantized copy of the weight.
-// At prefill (M up to B*S) the same kernel tiles M by 8 and gives each warp
-// 4 output rows, so each x load feeds 4 rows; it runs on f32 FMAs, not the
-// tensor cores (later work).
+// What bounds it on the H100: at decode (M = batch rows, up to
+// ops/int8_linear.GEMV_MAX_M) the bytes of the weight, read once, so a warp
+// owns an output row and its lanes stream the row in 16-byte loads,
+// converting int8 to f32 in registers; x (a few KB) comes from L1.  A warp
+// reduction and the scale/bias epilogue finish the row: one launch per
+// projection and no dequantized copy of the weight.  Above GEMV_MAX_M rows
+// the wrapper takes the tensor-core kernel (csrc/int8_linear_tc.cu); forced
+// here at more rows, this kernel takes them 8 at a time (grid.y), on f32
+// FMAs.
 
 #include "common.cuh"
 
@@ -39,35 +40,28 @@ __device__ __forceinline__ void unpack_int8x16(uint4 raw, float* f) {
   for (int i = 0; i < kChunk; ++i) f[i] = static_cast<float>(b[i]);
 }
 
-// One warp owns R output rows n0..n0+R-1 and MT input rows m0..m0+MT-1.
-template <int MT, int R, bool kF32Out>
+// One warp owns output row n and input rows m0..m0+MT-1.
+template <int MT, bool kF32Out>
 __global__ void __launch_bounds__(kThreads)
 int8_linear_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                    const __nv_bfloat16* __restrict__ scale,
                    const __nv_bfloat16* __restrict__ bias, void* __restrict__ out, int M, int N,
                    int K) {
   const int lane = threadIdx.x & 31;
-  const int n0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
+  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int m0 = blockIdx.y * MT;
-  if (n0 >= N) return;  // the whole warp leaves together
+  if (n >= N) return;  // the whole warp leaves together
   const int chunks = K / kChunk;
 
-  float acc[R][MT];
+  float acc[MT];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
-  }
+  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
 
+  const uint4* row = reinterpret_cast<const uint4*>(q + size_t(n) * K);
 #pragma unroll 2
   for (int c = lane; c < chunks; c += 32) {
-    float w[R][kChunk];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int n = min(n0 + r, N - 1);  // a ragged last warp re-reads row N-1
-      const uint4* row = reinterpret_cast<const uint4*>(q + size_t(n) * K);
-      unpack_int8x16(__ldg(row + c), w[r]);
-    }
+    float w[kChunk];
+    unpack_int8x16(__ldg(row + c), w);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m0 + m < M) {
@@ -76,49 +70,42 @@ int8_linear_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
         ecg::unpack8(__ldg(xr), xf);
         ecg::unpack8(__ldg(xr + 1), xf + 8);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-#pragma unroll
-          for (int e = 0; e < kChunk; ++e) acc[r][m] = fmaf(xf[e], w[r][e], acc[r][m]);
-        }
+        for (int e = 0; e < kChunk; ++e) acc[m] = fmaf(xf[e], w[e], acc[m]);
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float dot = ecg::warp_sum(acc[r][m]);
-      const int n = n0 + r, row = m0 + m;
-      if (lane == 0 && n < N && row < M) {
-        float y = ecg::round_bf16(dot);
-        y = ecg::round_bf16(y * __bfloat162float(scale[n]));
-        if (bias != nullptr) y = ecg::round_bf16(y + __bfloat162float(bias[n]));
-        const size_t o = size_t(row) * N + n;
-        if constexpr (kF32Out) {
-          static_cast<float*>(out)[o] = y;
-        } else {
-          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(y);
-        }
+  for (int m = 0; m < MT; ++m) {
+    const float dot = ecg::warp_sum(acc[m]);
+    const int r = m0 + m;
+    if (lane == 0 && r < M) {
+      float y = ecg::round_bf16(dot);
+      y = ecg::round_bf16(y * __bfloat162float(scale[n]));
+      if (bias != nullptr) y = ecg::round_bf16(y + __bfloat162float(bias[n]));
+      const size_t o = size_t(r) * N + n;
+      if constexpr (kF32Out) {
+        static_cast<float*>(out)[o] = y;
+      } else {
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(y);
       }
     }
   }
 }
 
-template <int MT, int R>
+template <int MT>
 int launch(const void* x, const void* q, const void* scale, const void* bias, void* out, int M,
            int N, int K, int f32_out, cudaStream_t stream) {
-  const int rows_per_block = kWarps * R;
-  const dim3 grid((N + rows_per_block - 1) / rows_per_block, (M + MT - 1) / MT);
+  const dim3 grid((N + kWarps - 1) / kWarps, (M + MT - 1) / MT);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const int8_t*>(q);
   const auto* sb = static_cast<const __nv_bfloat16*>(scale);
   const auto* bb = static_cast<const __nv_bfloat16*>(bias);
   if (f32_out) {
-    int8_linear_kernel<MT, R, true><<<grid, kThreads, 0, stream>>>(xb, qb, sb, bb, out, M, N, K);
+    int8_linear_kernel<MT, true><<<grid, kThreads, 0, stream>>>(xb, qb, sb, bb, out, M, N, K);
   } else {
-    int8_linear_kernel<MT, R, false><<<grid, kThreads, 0, stream>>>(xb, qb, sb, bb, out, M, N, K);
+    int8_linear_kernel<MT, false><<<grid, kThreads, 0, stream>>>(xb, qb, sb, bb, out, M, N, K);
   }
   return cudaGetLastError();
 }
@@ -129,10 +116,8 @@ extern "C" int ecg_int8_linear(const void* x, const void* q, const void* scale, 
                                void* out, int M, int N, int K, int f32_out, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kChunk != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M > 16) return launch<8, 4>(x, q, scale, bias, out, M, N, K, f32_out, s);
-  if (M > 8) return launch<16, 1>(x, q, scale, bias, out, M, N, K, f32_out, s);
-  if (M > 4) return launch<8, 1>(x, q, scale, bias, out, M, N, K, f32_out, s);
-  if (M > 2) return launch<4, 1>(x, q, scale, bias, out, M, N, K, f32_out, s);
-  if (M > 1) return launch<2, 1>(x, q, scale, bias, out, M, N, K, f32_out, s);
-  return launch<1, 1>(x, q, scale, bias, out, M, N, K, f32_out, s);
+  if (M > 4) return launch<8>(x, q, scale, bias, out, M, N, K, f32_out, s);
+  if (M > 2) return launch<4>(x, q, scale, bias, out, M, N, K, f32_out, s);
+  if (M > 1) return launch<2>(x, q, scale, bias, out, M, N, K, f32_out, s);
+  return launch<1>(x, q, scale, bias, out, M, N, K, f32_out, s);
 }

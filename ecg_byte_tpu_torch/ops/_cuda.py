@@ -15,6 +15,7 @@ non-zero code into an error.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -45,12 +46,15 @@ _SIGNATURES = {
     "ecg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, lse, dout, dq, dk, dv, delta, part, B, S, KH, G, D, stream
     "ecg_flash_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
-    # q, k_cache, v_cache, valid_mask, out, B, S, KH, G, D, stream
-    "ecg_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, B, S, KH, G, D, stream
-    "ecg_decode_attention_int8": [_P] * 7 + [_I, _I, _I, _I, _I, _P],
+    # q, k_cache, v_cache, valid_mask, out, work, B, S, KH, G, D, splits, stream
+    "ecg_decode_attention": [_P] * 6 + [_I] * 6 + [_P],
+    # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, work, B, S, KH, G, D,
+    # splits, stream
+    "ecg_decode_attention_int8": [_P] * 8 + [_I] * 6 + [_P],
     # x, q, scale, bias (or NULL), out, M, N, K, f32_out, stream
     "ecg_int8_linear": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # x, q, scale, bias (or NULL), out, M, N, K, f32_out, tile, stream
+    "ecg_int8_linear_tc": [_P] * 5 + [_I] * 5 + [_P],
     # k, v, k_cache, v_cache, k_scale, v_scale, B, s, S, KH, D, idx, stream
     "ecg_kv_quant": [_P] * 6 + [_I, _I, _I, _I, _I, _I, _P],
     # q, trans, token, match_tok, match_len, B, N, max_len, stream
@@ -148,6 +152,13 @@ def stream(t) -> int:
     if index != torch._C._cuda_getDevice():
         raise ValueError(f"{t.device} is not the current CUDA device")
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (kernels size their grids by
+    it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

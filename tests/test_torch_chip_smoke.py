@@ -297,3 +297,63 @@ def test_int8_linear_check_refuses_faults(fault):
         got[1, 5] += 4 * chip_smoke.bf16_ulp(want[1, 5])
     with pytest.raises(AssertionError, match="int8_linear"):
         chip_smoke.check_int8_linear(got, want, x, q, scale, None, fault)
+
+
+_split_spec = importlib.util.spec_from_file_location(
+    "test_torch_decode_split", os.path.join(REPO, "tests", "test_torch_decode_split.py"))
+_decode_split = importlib.util.module_from_spec(_split_spec)
+_split_spec.loader.exec_module(_decode_split)
+
+
+def _long_decode(int8=False, s=5248, pad=32, filled=5184):
+    """One query against the long serving path's cache, as chip_smoke.py
+    phase 3 makes it: B1, S_max 5,248, 32/8 heads of 64, N(0, 1) rows (the
+    int8 cache quantized from them), 32 slots of left padding and the last
+    64 unfilled; returns the inputs and the plain version's output."""
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(1, 1, 32, 64), randn(1, s, 8, 64), randn(1, s, 8, 64)
+    scales = (None, None)
+    if int8:
+        from ecg_byte_tpu_torch.ops import kv_quant
+
+        (k, ks), (v, vs) = kv_quant.quant_kv_rows(k), kv_quant.quant_kv_rows(v)
+        scales = (ks, vs)
+    mask = torch.ones(1, s, dtype=torch.int32)
+    mask[:, filled:] = 0
+    mask[0, :pad] = 0
+    from ecg_byte_tpu_torch.ops import attention
+
+    return (q, k, v, mask, *scales), attention.decode_attention(q, k, v, mask, *scales)
+
+
+def test_decode_check_passes_plain_and_the_split_arithmetic():
+    """The plain output passes, and so does the split kernel's arithmetic
+    (tests/test_torch_decode_split.py) at 7 ranges and at one a tile."""
+    args, want = _long_decode()
+    assert chip_smoke.check_decode(want, want, "plain") == 0.0
+    for splits in (7, 82):
+        got = _decode_split.split_decode(*args[:4], splits, *args[4:])
+        chip_smoke.check_decode(got, want, f"{splits} ranges")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits,fault", [(82, "drop"), (82, "double"), (7, "drop"),
+                                          (7, "double")])
+def test_decode_check_refuses_a_lost_or_doubled_range(int8, splits, fault):
+    """A reduction that leaves one range's partial out, or counts it twice,
+    is refused.  At 82 ranges the output moves by ~1/9 of its size, but
+    |out| ~ 0.02 over a 5k cache keeps max|d| under the 2e-2 bound, so the
+    relative bounds are what refuse it."""
+    args, want = _long_decode(int8)
+    mid = splits // 2
+    got = _decode_split.split_decode(*args[:4], splits, *args[4:],
+                                     **{fault: mid})
+    err = (got.float() - want.float()).abs().max().item()
+    if splits == 82:
+        assert err <= 2e-2  # the max bound alone would pass it
+    with pytest.raises(AssertionError, match="K2"):
+        chip_smoke.check_decode(got, want, f"{fault} range {mid} of {splits}")

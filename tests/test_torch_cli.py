@@ -7,6 +7,7 @@ not ported or not allowed."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -140,11 +141,71 @@ def test_train_cli_then_serve(workdir, trained):
     assert all(layer[n]["b"].abs().max() > 0
                for layer in best["state"]["trainable"]["layers"] for n in layer)
     crash = torch.load(run_dir / "crash_model.pt", weights_only=True)
-    assert crash["mutable_only"] and crash["epoch"] == 1 and "base" not in crash["state"]
+    assert crash["mutable_only"] and crash["epoch"] == 2 and "base" not in crash["state"]
     r = _run(["--inference", "--peft", "--device", "cpu", "--checkpoint",
               os.path.basename(trained["directory"])] + DATA_ARGS, workdir)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert _summary(r.stdout, "Serving on cpu")["records"] == 15
+
+
+# runs a CLI's main() once per argv of its JSON list, printing the epochs
+# each run hands save_crash_checkpoint
+_CRASH_SPY = """
+import importlib, json, sys
+cli = importlib.import_module(sys.argv[1])
+real = cli.save_crash_checkpoint
+def spy(*args, **kw):
+    source = real(*args, **kw)
+    print("CRASH_SAVE " + json.dumps(dict(epoch=kw["epoch"], fallback_epoch=kw["fallback_epoch"],
+                                          source=source)), flush=True)
+    return source
+cli.save_crash_checkpoint = spy
+for argv in json.loads(sys.argv[2]):
+    sys.argv = [sys.argv[0]] + argv
+    cli.main()
+"""
+
+
+def _start_crash_spy(module, runs, cwd, env):
+    return subprocess.Popen([sys.executable, "-c", _CRASH_SPY, module, json.dumps(runs)],
+                            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _crash_saves(proc):
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, out[-3000:] + err[-3000:]
+    return [json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+            if ln.startswith("CRASH_SAVE ")]
+
+
+def test_crash_epoch_matches_jax(workdir, trained, tmp_path):
+    """F3: the port's crash_model records the epoch the JAX CLI records.
+    After the same 2-epoch --dev run on the same data both save this run's
+    count of epochs, 2; a --resume crash_model that finds no epoch left
+    hands save_crash_checkpoint the same live epoch (0) and snapshot
+    fallback (start_epoch, 3) in both CLIs."""
+    train = [a for a in TRAIN if a not in ("--device", "cpu")]
+    resume = ["--resume", "crash_model"]
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    for d in (jax_dir, port_dir):
+        d.mkdir()
+        os.symlink(workdir / "data", d / "data")
+    # the port: the module's trained run, resumed from a copy of its run dir
+    crash = torch.load(workdir / trained["directory"] / "crash_model.pt", weights_only=True)
+    shutil.copytree(workdir / trained["directory"], port_dir / trained["directory"])
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    port = _start_crash_spy("ecg_byte_tpu_torch.cli.main", [TRAIN + resume], port_dir, env)
+    # the JAX CLI as tests/test_cli_e2e.py runs it, the same run then the resume
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    ref = _start_crash_spy("ecg_byte_tpu.cli.main", [train, train + resume], jax_dir, env)
+    port, ref = _crash_saves(port), _crash_saves(ref)
+    assert ref[0] == {"epoch": 2, "fallback_epoch": 1, "source": "live"}
+    assert crash["epoch"] == ref[0]["epoch"]
+    assert ref[1] == {"epoch": 0, "fallback_epoch": 3, "source": "live"}
+    assert port == ref[1:]
 
 
 def test_resume_crash_model(workdir, trained):
