@@ -966,9 +966,11 @@ def int8_checks(record, dev, randn, serve_prompt):
     # on the one forced: Llama's gate projection (8192 x 2048) at decode
     # (M = 1), at both sides of the GEMV / tensor-core threshold with each
     # kernel, at a 1k prompt (M 1000), at the serving bucket (M 1152, once
-    # with each kernel forced) and at the long one (M 4992); the head (f32
-    # logits); gpt2's c_fc at decode and c_attn at prefill (K = 1600, a bias,
-    # N = 4800 ragged to 128-wide tiles).  The yardstick is cuBLAS on the
+    # with each kernel forced) and at the long one (M 4992); Llama's other
+    # prefill projections at M 1152 (q/o 2048 x 2048, k/v 512 x 2048 on the
+    # one-warpgroup tile, down 2048 x 8192); the head (f32 logits); gpt2's
+    # c_fc at decode and c_attn at prefill (K = 1600, a bias, N = 4800
+    # ragged to 128-wide tiles).  The yardstick is cuBLAS on the
     # bf16 weight.  Kernel, plain and library are timed on the device (CUDA
     # graphs): at M = 1 the host's launch cost would otherwise hide the
     # kernel; the host-clock times of kernel and library calls in turns are
@@ -980,7 +982,8 @@ def int8_checks(record, dev, randn, serve_prompt):
             (edge + 1, 8192, 2048, False, None), (16, 8192, 2048, False, None),
             (1000, 8192, 2048, False, None), (1152, 8192, 2048, False, "tc"),
             (1152, 8192, 2048, False, "gemv"), (4992, 8192, 2048, False, None),
-            (1, 128256, 2048, False, None), (1, 6400, 1600, True, None),
+            (1152, 2048, 2048, False, None), (1152, 512, 2048, False, None),
+            (1152, 2048, 8192, False, None), (1, 128256, 2048, False, None), (1, 6400, 1600, True, None),
             (1152, 4800, 1600, True, None)]:
         if m == 16 and edge in (15, 16):
             continue  # already a row

@@ -25,12 +25,11 @@
 // wgmma's A operand, which may come from registers.  A block owns BW
 // weight rows (64 per warpgroup) and BT tokens.  K advances through a ring
 // of shared-memory stages filled by cp.async 16-byte copies (128 a step,
-// in 2 stages for the two-warpgroup tiles and 3 for 64 x 64; 64 a step in
-// 3 stages for 64 x 128): the x tile as bf16 in the 128-byte swizzle that
-// wgmma reads as its B operand, in atoms of 64, and the weight tile as int8
-// (so only int8 bytes cross HBM), rows padded by 16 bytes.  A longer step
-// halves the barriers and waits per K, which measured the faster on an
-// H100 where shared memory allows it.  Each warp loads its 16 weight rows' bytes
+// in 2 stages for the two-warpgroup tiles and 3 for 64 x 64): the x tile
+// as bf16 in the 128-byte swizzle that wgmma reads as its B operand, in
+// atoms of 64, and the weight tile as int8 (so only int8 bytes cross HBM),
+// rows padded by 16 bytes.  Two atoms a step halve the barriers and waits
+// per K against one, which measured the faster on an H100.  Each warp loads its 16 weight rows' bytes
 // straight into the A-fragment layout (k 2c, 2c+1, 2c+8, 2c+9 of row g:
 // two 32-bit loads and a byte permute), converts them in registers (four
 // int8 become two bf16 pairs by the magic-number trick: the byte into the
@@ -58,9 +57,11 @@ namespace {
 
 constexpr int kBK = 64;  // K of one swizzle atom: a 128-byte row of bf16
 
-// A stage holds kA atoms of K; the ring has kS stages, and the copies run
-// kS - 1 steps ahead of the products.
-template <int BW, int BT, int kA, int kS>
+constexpr int kA = 2;   // atoms of K a stage
+
+// The ring has kS stages of kA atoms of K each, and the copies run kS - 1
+// steps ahead of the products.
+template <int BW, int BT, int kS>
 struct TcSmem {
   static constexpr int kX = BT * kBK * 2;       // an x atom, bf16, swizzled
   static constexpr int kQRow = kA * kBK + 16;   // bytes per int8 weight row (padded)
@@ -191,13 +192,13 @@ __device__ __forceinline__ void int8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint3
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-template <int BW, int BT, bool kF32Out, int kA, int kS>
+template <int BW, int BT, bool kF32Out, int kS>
 __global__ void __launch_bounds__(BW * 2, BW == 128 ? 2 : 1)
 int8_linear_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                       const __nv_bfloat16* __restrict__ scale,
                       const __nv_bfloat16* __restrict__ bias, void* __restrict__ out, int M,
                       int N, int K) {
-  using L = TcSmem<BW, BT, kA, kS>;
+  using L = TcSmem<BW, BT, kS>;
   constexpr int kThreads = BW * 2;  // a warpgroup per 64 weight rows
   constexpr int kBKS = kA * kBK;    // K per stage
   extern __shared__ unsigned char smem_raw[];
@@ -335,11 +336,11 @@ int8_linear_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restr
   }
 }
 
-template <int BW, int BT, bool kF32Out, int kA, int kS>
+template <int BW, int BT, bool kF32Out, int kS>
 int launch_f(const void* x, const void* q, const void* scale, const void* bias, void* out, int M,
              int N, int K, cudaStream_t stream) {
-  constexpr int bytes = TcSmem<BW, BT, kA, kS>::kBytes;
-  auto kernel = int8_linear_tc_kernel<BW, BT, kF32Out, kA, kS>;
+  constexpr int bytes = TcSmem<BW, BT, kS>::kBytes;
+  auto kernel = int8_linear_tc_kernel<BW, BT, kF32Out, kS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -352,27 +353,26 @@ int launch_f(const void* x, const void* q, const void* scale, const void* bias, 
   return cudaGetLastError();
 }
 
-template <int BW, int BT, int kA, int kS>
+template <int BW, int BT, int kS>
 int launch(const void* x, const void* q, const void* scale, const void* bias, void* out, int M,
            int N, int K, int f32_out, cudaStream_t stream) {
-  return f32_out ? launch_f<BW, BT, true, kA, kS>(x, q, scale, bias, out, M, N, K, stream)
-                 : launch_f<BW, BT, false, kA, kS>(x, q, scale, bias, out, M, N, K, stream);
+  return f32_out ? launch_f<BW, BT, true, kS>(x, q, scale, bias, out, M, N, K, stream)
+                 : launch_f<BW, BT, false, kS>(x, q, scale, bias, out, M, N, K, stream);
 }
 
 }  // namespace
 
-// tile: 0 = 128 x 144, 1 = 128 x 128, 2 = 64 x 128, 3 = 64 x 64 (weight rows
-// x tokens), the order of ops/int8_linear.TC_TILES.
+// tile: 0 = 128 x 144, 1 = 128 x 128, 2 = 64 x 64 (weight rows x tokens),
+// the order of ops/int8_linear.TC_TILES.
 extern "C" int ecg_int8_linear_tc(const void* x, const void* q, const void* scale,
                                   const void* bias, void* out, int M, int N, int K, int f32_out,
                                   int tile, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 0: return launch<128, 144, 2, 2>(x, q, scale, bias, out, M, N, K, f32_out, s);
-    case 1: return launch<128, 128, 2, 2>(x, q, scale, bias, out, M, N, K, f32_out, s);
-    case 2: return launch<64, 128, 1, 3>(x, q, scale, bias, out, M, N, K, f32_out, s);
-    case 3: return launch<64, 64, 2, 3>(x, q, scale, bias, out, M, N, K, f32_out, s);
+    case 0: return launch<128, 144, 2>(x, q, scale, bias, out, M, N, K, f32_out, s);
+    case 1: return launch<128, 128, 2>(x, q, scale, bias, out, M, N, K, f32_out, s);
+    case 2: return launch<64, 64, 3>(x, q, scale, bias, out, M, N, K, f32_out, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,10 +19,9 @@ each output row a warp that streams it once (the GEMV kernel); at prefill
 tensor cores (wgmma, the int8 weight converted exactly to bf16 in
 registers as the products' A operand) in tiles of weight rows x tokens.
 :func:`choose_path` picks the kernel by M and :func:`choose_tile` the tile
-by the shape; both run here on the CPU too, and a caller may force either
-(``path=``, ``tile=``).  On an H100 the GEMV kernel measured faster up to
-5 rows and the tensor-core kernel from 7 (PERF.md); GEMV_MAX_M keeps the
-GEMV kernel up to 7, above the unmeasured crossover.
+by the shape; both run here on the CPU too, and a caller may force the
+kernel (``path=``).  GEMV_MAX_M is where the two kernels cross on an H100
+(PERF.md).
 
 Rounding follows the JAX code: the dot accumulates in f32 and rounds to
 the activation dtype, the per-output-channel scale multiplies the rounded
@@ -44,10 +43,10 @@ import torch.nn.functional as F
 from ecg_byte_tpu_torch.ops import _cuda
 
 CHUNK = 16  # the kernels read K in 16-byte chunks of int8
-GEMV_MAX_M = 7  # M up to this takes the GEMV kernel, above it the tensor cores
+GEMV_MAX_M = 5  # M up to this takes the GEMV kernel, above it the tensor cores
 # the tensor-core kernel's output tiles (weight rows, tokens), the order of
 # its C entry point's ``tile`` argument: two warpgroups, then one
-TC_TILES = ((128, 144), (128, 128), (64, 128), (64, 64))
+TC_TILES = ((128, 144), (128, 128), (64, 64))
 
 
 def choose_path(m: int) -> str:
@@ -61,18 +60,15 @@ def choose_tile(m: int, n: int, sm_count: int) -> int:
     two-warpgroup tile with the least work on the busiest SM (blocks per
     SM, rounded up, times the tile's area; the smaller tile on a tie), or,
     when that leaves more than half the ``sm_count`` SMs idle, the
-    one-warpgroup tile chosen the same way."""
+    one-warpgroup 64 x 64 tile."""
 
     def blocks(i):
         bw, bt = TC_TILES[i]
         return -(-n // bw) * -(-m // bt)
 
-    def best(indices):
-        return min(indices, key=lambda i: (-(-blocks(i) // sm_count) * TC_TILES[i][0]
-                                           * TC_TILES[i][1], TC_TILES[i][1]))
-
-    i = best((0, 1))
-    return i if 2 * blocks(i) >= sm_count else best((2, 3))
+    i = min((0, 1), key=lambda i: (-(-blocks(i) // sm_count) * TC_TILES[i][0]
+                                   * TC_TILES[i][1], TC_TILES[i][1]))
+    return i if 2 * blocks(i) >= sm_count else 2
 
 
 def int8_linear_plain(x, q, scale, bias=None, out_dtype: Optional[torch.dtype] = None):
@@ -108,12 +104,11 @@ def _check(x, q, scale, bias):
 
 
 def int8_linear(x, q, scale, bias=None, out_dtype: Optional[torch.dtype] = None,
-                path: Optional[str] = None, tile: Optional[int] = None):
+                path: Optional[str] = None):
     """``x`` (..., K) times the int8 weight ``q`` (N, K) with the bf16
     per-output-channel ``scale`` (N,) and optional ``bias`` (N,); returns
     (..., N) in x's dtype, or in ``out_dtype`` (the head's float32).
-    ``path`` (``"gemv"`` or ``"tc"``) and ``tile`` (an index in TC_TILES)
-    override :func:`choose_path` and :func:`choose_tile`."""
+    ``path`` (``"gemv"`` or ``"tc"``) overrides :func:`choose_path`."""
     if x.device.type == "cpu":
         return int8_linear_plain(x, q, scale, bias, out_dtype)
     x = x.contiguous()
@@ -133,8 +128,7 @@ def int8_linear(x, q, scale, bias=None, out_dtype: Optional[torch.dtype] = None,
         _cuda.check(lib.ecg_int8_linear(*args, _cuda.stream(x)), "int8 linear")
         int8_linear.launches += 1
     elif path == "tc":
-        if tile is None:
-            tile = choose_tile(m, n, _cuda.sm_count(x.device.index))
+        tile = choose_tile(m, n, _cuda.sm_count(x.device.index))
         _cuda.check(lib.ecg_int8_linear_tc(*args, tile, _cuda.stream(x)), "int8 linear (tc)")
         int8_linear.tc_launches += 1
     else:

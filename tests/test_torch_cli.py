@@ -118,8 +118,63 @@ def test_training_branch_refused(workdir, trained, tmp_path):
     assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
+# runs a CLI's main() once per argv of its JSON list, printing the epochs
+# each run hands save_crash_checkpoint
+_CRASH_SPY = """
+import importlib, json, sys
+cli = importlib.import_module(sys.argv[1])
+real = cli.save_crash_checkpoint
+def spy(*args, **kw):
+    source = real(*args, **kw)
+    print("CRASH_SAVE " + json.dumps(dict(epoch=kw["epoch"], fallback_epoch=kw["fallback_epoch"],
+                                          source=source)), flush=True)
+    return source
+cli.save_crash_checkpoint = spy
+for argv in json.loads(sys.argv[2]):
+    sys.argv = [sys.argv[0]] + argv
+    cli.main()
+"""
+
+
+def _start_crash_spy(module, runs, cwd, env):
+    # the output goes to a file, since nothing reads it while the run goes on
+    with open(cwd / "crash_spy.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", _CRASH_SPY, module, json.dumps(runs)],
+                                cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc.log = cwd / "crash_spy.log"
+    return proc
+
+
+def _crash_saves(proc):
+    proc.wait(timeout=300)
+    out = proc.log.read_text()
+    assert proc.returncode == 0, out[-6000:]
+    return [json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+            if ln.startswith("CRASH_SAVE ")]
+
+
 @pytest.fixture(scope="module")
-def trained(workdir):
+def jax_crash_run(workdir, tmp_path_factory):
+    """The JAX CLI, as tests/test_cli_e2e.py runs it, on the port's data:
+    the same 2-epoch run as ``trained``, then a --resume crash_model that
+    finds no epoch left, in one process under the crash-save spy.  It is
+    started before the port's run and read by test_crash_epoch_matches_jax,
+    so that its imports and compiles run beside the port's training."""
+    cwd = tmp_path_factory.mktemp("jax_crash")
+    os.symlink(workdir / "data", cwd / "data")
+    train = [a for a in TRAIN if a not in ("--device", "cpu")]
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = _start_crash_spy("ecg_byte_tpu.cli.main",
+                            [train, train + ["--resume", "crash_model"]], cwd, env)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def trained(workdir, jax_crash_run):
     r = _run(TRAIN, workdir)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     return _summary(r.stdout, "Training on cpu")
@@ -148,60 +203,21 @@ def test_train_cli_then_serve(workdir, trained):
     assert _summary(r.stdout, "Serving on cpu")["records"] == 15
 
 
-# runs a CLI's main() once per argv of its JSON list, printing the epochs
-# each run hands save_crash_checkpoint
-_CRASH_SPY = """
-import importlib, json, sys
-cli = importlib.import_module(sys.argv[1])
-real = cli.save_crash_checkpoint
-def spy(*args, **kw):
-    source = real(*args, **kw)
-    print("CRASH_SAVE " + json.dumps(dict(epoch=kw["epoch"], fallback_epoch=kw["fallback_epoch"],
-                                          source=source)), flush=True)
-    return source
-cli.save_crash_checkpoint = spy
-for argv in json.loads(sys.argv[2]):
-    sys.argv = [sys.argv[0]] + argv
-    cli.main()
-"""
-
-
-def _start_crash_spy(module, runs, cwd, env):
-    return subprocess.Popen([sys.executable, "-c", _CRASH_SPY, module, json.dumps(runs)],
-                            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-
-
-def _crash_saves(proc):
-    out, err = proc.communicate(timeout=300)
-    assert proc.returncode == 0, out[-3000:] + err[-3000:]
-    return [json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
-            if ln.startswith("CRASH_SAVE ")]
-
-
-def test_crash_epoch_matches_jax(workdir, trained, tmp_path):
+def test_crash_epoch_matches_jax(workdir, trained, jax_crash_run, tmp_path):
     """F3: the port's crash_model records the epoch the JAX CLI records.
     After the same 2-epoch --dev run on the same data both save this run's
     count of epochs, 2; a --resume crash_model that finds no epoch left
     hands save_crash_checkpoint the same live epoch (0) and snapshot
     fallback (start_epoch, 3) in both CLIs."""
-    train = [a for a in TRAIN if a not in ("--device", "cpu")]
-    resume = ["--resume", "crash_model"]
-    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
-    for d in (jax_dir, port_dir):
-        d.mkdir()
-        os.symlink(workdir / "data", d / "data")
+    os.symlink(workdir / "data", tmp_path / "data")
     # the port: the module's trained run, resumed from a copy of its run dir
     crash = torch.load(workdir / trained["directory"] / "crash_model.pt", weights_only=True)
-    shutil.copytree(workdir / trained["directory"], port_dir / trained["directory"])
+    shutil.copytree(workdir / trained["directory"], tmp_path / trained["directory"])
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                MKL_NUM_THREADS="1")
-    port = _start_crash_spy("ecg_byte_tpu_torch.cli.main", [TRAIN + resume], port_dir, env)
-    # the JAX CLI as tests/test_cli_e2e.py runs it, the same run then the resume
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    ref = _start_crash_spy("ecg_byte_tpu.cli.main", [train, train + resume], jax_dir, env)
-    port, ref = _crash_saves(port), _crash_saves(ref)
+    port = _start_crash_spy("ecg_byte_tpu_torch.cli.main",
+                            [TRAIN + ["--resume", "crash_model"]], tmp_path, env)
+    port, ref = _crash_saves(port), _crash_saves(jax_crash_run)
     assert ref[0] == {"epoch": 2, "fallback_epoch": 1, "source": "live"}
     assert crash["epoch"] == ref[0]["epoch"]
     assert ref[1] == {"epoch": 0, "fallback_epoch": 3, "source": "live"}
