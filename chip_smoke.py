@@ -19,7 +19,10 @@ Phases, each printing its own lines, in the order they run:
    function (a yardstick the port never calls), beside the card's bound.
    The flash kernels (forward and backward) at S 4096 and 8192, the
    serving bucket of the long prompts, gpt2's and gemma's heads and a
-   ragged S = 4000.  Decode attention (check_decode) also over the long
+   ragged S = 4000.  Both attention backwards (the tensor-core kernels)
+   also at B4 S1024 with 300 left-pad positions, at D 128 and at S 3072,
+   each row with its rate and its time before the redesign; at the two
+   training shapes a second call must equal the first (torch.equal).  Decode attention (check_decode) also over the long
    serving path's cache (B1 and B4, gemma's heads), there at forced split
    counts too (1, 7 and one range a tile; the B4 cache has range
    boundaries inside its left padding and whole ranges past its filled
@@ -339,6 +342,40 @@ def check_attention_bwd(got, want, shape, name="prefill_attention_bwd", tag="K1 
         assert norm_rel <= 1e-3, f"{tag} {shape} {grad}: |d|/|ref| {norm_rel:.3e}"
         err = max(err, diff.max().item())
     return err
+
+
+# The attention backwards' times before their tensor-core redesign: the
+# FMA kernels they replaced, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# names the run), printed beside each row's time: (policy, B, S, H, KH, D,
+# left pad) -> ms.
+BWD_BEFORE_MS = {
+    ("resident", 4, 1024, 32, 8, 64, 37): 4.2074,
+    ("resident", 1, 1024, 25, 25, 64, 37): 1.0267,
+    ("resident", 1, 256, 8, 1, 256, 37): 2.6869,
+    ("flash", 1, 4096, 32, 8, 64, 300): 10.3803,
+    ("flash", 1, 8192, 32, 8, 64, 37): 37.8928,
+    ("flash", 1, 4096, 25, 25, 64, 128): 8.5883,
+    ("flash", 1, 4096, 8, 1, 256, 1): 16.2470,
+    ("flash", 1, 4000, 32, 8, 64, 127): 9.9925,
+}
+
+
+def bwd_extra(ms, flops, key):
+    """A backward row's extra fields: its rate from the bound's operation
+    count, and its time before the redesign where there was one."""
+    extra = {"tflops": round(flops / ms / 1e9, 1)}
+    if key in BWD_BEFORE_MS:
+        extra["before_ms"] = BWD_BEFORE_MS[key]
+    return extra
+
+
+def check_deterministic(got, again, name):
+    """Two calls of a backward on the same inputs must give the same bits:
+    its kernels use no atomics and sum in a fixed order."""
+    import torch
+
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} is not deterministic"
+    print(f"  {name}: a second call equals the first (torch.equal, dq, dk, dv)")
 
 
 def check_flash_fwd(got, want, mask, shape):
@@ -768,12 +805,17 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
             record("prefill_attention", [b, s, h, kh, d], (g_ - w_).abs().max().item(), times,
                    4 * d * pairs, nbytes, main=(b, s, h) == (4, 1024, 32))
 
-    # K1 backward at the training shape and the gpt2 / gemma shapes; the
+    # K1 backward at the training shape (also with 300 positions of left
+    # padding, more than one key tile), the gpt2 / gemma shapes, a D128 one
+    # and S 3072 (the port runs the resident kernels up to S 4095); the
     # output gradient is zero on left-pad rows, as on the training path
-    for b, s, h, kh, d in [(4, 1024, 32, 8, 64), (1, 1024, 25, 25, 64), (1, 256, 8, 1, 256)]:
+    for b, s, h, kh, d, pad in [(4, 1024, 32, 8, 64, 37), (4, 1024, 32, 8, 64, 300),
+                                (1, 1024, 25, 25, 64, 37), (1, 256, 8, 1, 256, 37),
+                                (1, 1024, 16, 4, 128, 37), (1, 3072, 32, 8, 64, 37)]:
         qg, k, v = randn(b, s, kh, h // kh, d), randn(b, s, kh, d), randn(b, s, kh, d)
         mask = torch.ones(b, s, dtype=torch.int32, device=dev)
-        mask[:, :37] = 0
+        mask[:, :pad] = 0
+        main = (b, h, pad) == (4, 32, 37)
         with torch.no_grad():
             out = attention_resident.resident_attention(qg, k, v, mask)
             gout = randn(*qg.shape) * mask[:, :, None, None, None].to(torch.bfloat16)
@@ -781,6 +823,10 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
             want = attention_resident.resident_attention_bwd_plain(qg, k, v, mask, out, gout)
             torch.cuda.synchronize()
             err = check_attention_bwd(got, want, [b, s, h, kh, d])
+            if main:
+                check_deterministic(
+                    got, attention_resident.resident_attention_bwd(qg, k, v, mask, out, gout),
+                    "prefill_attention_bwd")
         q4, k4, v4, bmask = (t.requires_grad_(t.dtype != torch.bool)
                              for t in sdpa_inputs(qg, k, v, mask))
         lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask, enable_gqa=True)
@@ -789,12 +835,13 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
             lambda: attention_resident.resident_attention_bwd(qg, k, v, mask, out, gout),
             lambda: attention_resident.resident_attention_bwd_plain(qg, k, v, mask, out, gout),
             lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True),
-        ], 4)
+        ], 4 if b * s <= 4096 else 2)
         del lib_out
         pairs = (mask * mask.cumsum(-1)).sum().item() * h
         nbytes = 2 * (4 * qg.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * mask.numel()
         record("prefill_attention_bwd", [b, s, h, kh, d], err, times, 10 * d * pairs, nbytes,
-               main=(b, h) == (4, 32))
+               main=main, left_pad=pad, **bwd_extra(times[0], 10 * d * pairs,
+                                                    ("resident", b, s, h, kh, d, pad)))
 
     # K2: (B, S_max, H, KH, D), the left padding of row 0, the slots filled
     # and the split counts forced beside the kernel's own choice ("max": one
@@ -1115,6 +1162,9 @@ def flash_checks(record, dev, randn, serve_prompt):
             torch.cuda.synchronize()
             err = check_attention_bwd(got, want, shape, name="flash_attention_bwd",
                                       tag="flash bwd")
+            if main:
+                check_deterministic(got, fa.flash_attention_bwd(qg, k, v, mask, out, lse, gout),
+                                    "flash_attention_bwd")
         q4, k4, v4, bmask = (t.requires_grad_(t.dtype != torch.bool)
                              for t in sdpa_inputs(qg, k, v, mask))
         lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask, enable_gqa=True)
@@ -1128,7 +1178,7 @@ def flash_checks(record, dev, randn, serve_prompt):
         nbytes = (2 * (4 * qg.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * mask.numel()
                   + lse_bytes)
         record("flash_attention_bwd", shape, err, times, 10 * d * pairs, nbytes, main=main,
-               left_pad=pad)
+               left_pad=pad, **bwd_extra(times[0], 10 * d * pairs, ("flash", b, s, h, kh, d, pad)))
     torch.cuda.empty_cache()
 
 
@@ -1411,13 +1461,16 @@ def profile_steps(step, state, batch, gen, n=2):
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
-    groups = {"flash attention backward (flash_dq_kernel, flash_dkv_kernel, head_sum)":
-              ("flash_dq_kernel", "flash_dkv_kernel", "head_sum_kernel"),
-              "flash attention forward (flash_fwd_kernel)": ("flash_fwd_kernel",),
-              "attention backward (dq_kernel, dkv_kernel)": ("dq_kernel", "dkv_kernel"),
-              "attention forward (prefill_attention_kernel)": ("prefill_attention_kernel",),
-              "rmsnorm (triton)": ("rmsnorm_fwd", "rmsnorm_bwd", "sum_partials"),
-              "matmuls (cuBLAS)": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")}
+    # the backwards' kernels are ecg::bwd::dq_kernel<D, flash> and
+    # dkv_kernel<D, flash, parts>: the policy names the path
+    groups = {"flash attention backward (bwd::dq_kernel, dkv_kernel <D, true>)":
+              (("bwd::dq_kernel<", "bwd::dkv_kernel<"), ("true",)),
+              "flash attention forward (flash_fwd_kernel)": (("flash_fwd_kernel",), ()),
+              "attention backward (bwd::dq_kernel, dkv_kernel <D, false>)":
+              (("bwd::dq_kernel<", "bwd::dkv_kernel<"), ("false",)),
+              "attention forward (prefill_attention_kernel)": (("prefill_attention_kernel",), ()),
+              "rmsnorm (triton)": (("rmsnorm_fwd", "rmsnorm_bwd", "sum_partials"), ()),
+              "matmuls (cuBLAS)": (("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"), ())}
     totals = dict.fromkeys(list(groups) + ["other"], 0.0)
     kernels = []
     for e in prof.key_averages():
@@ -1428,7 +1481,9 @@ def profile_steps(step, state, batch, gen, n=2):
                 or e.key.startswith(("Optimizer.", "ProfilerStep"))):
             continue
         kernels.append((us, e.count, e.key))
-        group = next((g for g, keys in groups.items() if any(k in e.key for k in keys)), "other")
+        group = next((g for g, (keys, also) in groups.items()
+                      if any(k in e.key for k in keys) and all(k in e.key for k in also)),
+                     "other")
         totals[group] += us
     busy_ms = sum(totals.values()) / 1e3
     print(f"profile of {n} train steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "

@@ -25,8 +25,9 @@
 // 8j+tc, in the P.V step output columns tc*D/8 .. (tc+1)*D/8 - 1.  The 8
 // threads sharing a row group are neighbouring lanes, so row max and row
 // sum reduce with three shuffles.  The score and softmax steps are in
-// attention_tiles.cuh, shared with the backward, which recomputes the
-// probabilities bit for bit.
+// attention_tiles.cuh, shared with the flash forward.  The backward
+// (attention_bwd_tc.cuh) recomputes the probabilities on the tensor cores,
+// the same function in another summation order.
 
 #include "attention_tiles.cuh"
 

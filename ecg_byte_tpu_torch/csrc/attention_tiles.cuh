@@ -1,11 +1,15 @@
-// Tile helpers shared by the prefill attention forward
-// (attention_prefill.cu) and backward (attention_prefill_bwd.cu) kernels.
+// Tile helpers of the FMA attention forwards: the prefill kernel
+// (attention_prefill.cu) and the flash kernel (flash_attention.cu).
 //
-// The backward recomputes the forward's probabilities and must get them
-// bit for bit.  So every step from the Q.K dot products to p = exp(s - m) / l
-// lives here, in one source, with explicit round-to-nearest intrinsics
-// (__fmul_rn, __fsub_rn, __fmaf_rn) where the compiler could otherwise fuse
-// a multiply into a later add differently in the two kernels.
+// Every step from the Q.K dot products to p = exp(s - m) / l lives here,
+// with explicit round-to-nearest intrinsics (__fmul_rn, __fsub_rn,
+// __fmaf_rn), so the compiler fuses no multiply into a later add.  The
+// backwards (attention_bwd_tc.cuh) do
+// not share them: they sum the scores on the tensor cores, so their
+// recomputed probabilities agree with each other, not with the forward's
+// bit for bit.  Nothing in the function needs the bits to agree (the TPU
+// kernel's bit-identical recompute came from running the forward's code),
+// and the backward's check against plain bounds the difference.
 //
 // Layouts are the JAX ones: q-like tensors (q, out, dout) (B, S, KH, G, D),
 // k and v (B, S, KH, D), bf16; pad_mask (B, S) int32, 1 = valid key.  A
@@ -74,14 +78,6 @@ __device__ __forceinline__ void load_key_ok(const int* __restrict__ pad_mask, in
   }
 }
 
-// Sum over the 8 neighbouring lanes that share a row group.
-__device__ __forceinline__ float lane8_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
 // Let a kernel take more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -89,9 +85,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // acc[i][j] = sum_d A[4 tr + i][d] * B[8 j + tc][d] over two padded tiles,
-// one fmaf per element in the order of d.  A product does not depend on
-// which operand comes first, so dot_4x8(Q, K) and dot_4x8(K, Q) give the
-// same score for the same (query row, key) pair, bit for bit.
+// one fmaf per element in the order of d.
 template <int D>
 __device__ __forceinline__ void dot_4x8(const __nv_bfloat16* A, const __nv_bfloat16* B, int tr,
                                         int tc, float (&acc)[4][8]) {

@@ -52,8 +52,19 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+using ecg::cp_async16;
+using ecg::cp_async_commit;
+using ecg::cp_async_wait;
+using ecg::fence_async_shared;
+using ecg::smem_desc;
+using ecg::swizzled;
+using ecg::wgmma_commit;
+using ecg::wgmma_fence;
+using ecg::wgmma_wait;
 
 constexpr int kBK = 64;  // K of one swizzle atom: a 128-byte row of bf16
 
@@ -69,115 +80,6 @@ struct TcSmem {
   static constexpr int kStage = (kA * kX + kQ + 1023) & ~1023;  // x atoms stay 1024-aligned
   static constexpr int kBytes = kS * kStage + 1024;             // + alignment slack
 };
-
-// 16 bytes global -> shared, asynchronously; zero-filled unless ``ok``.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Shared-memory writes of this thread -> visible to wgmma (the async proxy).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// The byte offset of 16-byte chunk ``j`` of row ``r`` in a tile of 128-byte
-// rows with the 128-byte swizzle (chunk index XOR row mod 8).
-__device__ __forceinline__ int swizzled(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
-
-// The wgmma descriptor of a K-major bf16 tile of 128-byte rows with the
-// 128-byte swizzle, 1024-byte aligned: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-
-// d (64 x 144 f32, 72 a thread) += A (64 x 16, bf16 fragments in
-// registers, as mma.m16n8k16's per warp) . B (144 x 16)^T (bf16 K-major in
-// shared memory, 128-byte swizzle, described by db).
-__device__ __forceinline__ void wgmma_rs_n144(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71"
-      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128 f32, 64 a thread) += A (64 x 16, bf16 fragments in
-// registers, as mma.m16n8k16's per warp) . B (128 x 16)^T (bf16 K-major in
-// shared memory, 128-byte swizzle, described by db).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64 f32, 32 a thread) += A (64 x 16, bf16 fragments in
-// registers, as mma.m16n8k16's per warp) . B (64 x 16)^T (bf16 K-major in
-// shared memory, 128-byte swizzle, described by db).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // Four int8 (one 32-bit word) -> two bf16 pairs, exactly: each byte
 // (offset by 128) becomes the low mantissa byte of 2^23, and subtracting
@@ -270,11 +172,11 @@ int8_linear_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restr
       }
       wgmma_fence();
       if constexpr (BT == 144) {
-        wgmma_rs_n144(acc, af[kk], db);
+        ecg::wgmma_rs_n144<0>(acc, af[kk], db);
       } else if constexpr (BT == 128) {
-        wgmma_rs_n128(acc, af[kk], db);
+        ecg::wgmma_rs_n128<0>(acc, af[kk], db);
       } else {
-        wgmma_rs_n64(acc, af[kk], db);
+        ecg::wgmma_rs_n64<0>(acc, af[kk], db);
       }
     }
     wgmma_commit();
@@ -282,10 +184,7 @@ int8_linear_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restr
     // the products read af asynchronously: keep it out of the register
     // allocator's hands until they are done
 #pragma unroll
-    for (int kk = 0; kk < kBKS / 16; ++kk) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[kk][i])::"memory");
-    }
+    for (int kk = 0; kk < kBKS / 16; ++kk) ecg::keep_alive(af[kk]);
   }
 
   // epilogue: acc[4i + {0,1}] at (weight row 16w + g, tokens 8i + 2c +

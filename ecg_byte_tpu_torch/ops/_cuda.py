@@ -44,8 +44,8 @@ _SIGNATURES = {
     "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, lse, B, S, KH, G, D, stream
     "ecg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
-    # qg, k, v, pad_mask, out, lse, dout, dq, dk, dv, delta, part, B, S, KH, G, D, stream
-    "ecg_flash_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    # qg, k, v, pad_mask, out, lse, dout, dq, dk, dv, delta, B, S, KH, G, D, stream
+    "ecg_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     # q, k_cache, v_cache, valid_mask, out, work, B, S, KH, G, D, splits, stream
     "ecg_decode_attention": [_P] * 6 + [_I] * 6 + [_P],
     # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, work, B, S, KH, G, D,

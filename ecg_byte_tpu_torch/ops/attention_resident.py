@@ -23,9 +23,8 @@ TPU kernel and the plain version round them, for P.V.  (An online softmax
 rounds unnormalized probabilities; through 16 layers of random weights
 that moved the logits past the end-to-end bound.)  What bounds it at
 S = 1024 is arithmetic: about 6·S²·H·D/2 operations with the recomputed
-scores against O(S·H·D) bytes; this first version does them as f32 FMAs
-from shared memory, not on the tensor cores (``mma.sync``/``wgmma`` are
-later work).
+scores against O(S·H·D) bytes; the forward still does them as f32 FMAs
+from shared memory, the backward on the tensor cores (below).
 
 Masked logits get the finite ``-1e30`` of the JAX code, and every row sees
 at least its first key tile, so a left-pad query row whose keys are all
@@ -33,12 +32,20 @@ masked ends finite: its V average is garbage that nothing valid reads, but
 never NaN, which decode's P.V would spread through the cache.
 
 The backward follows the TPU kernel's math (``resident_attention_bwd_plain``
-repeats it in plain PyTorch): the probabilities recomputed in f32 exactly as
-the forward formed them, dV = bf16(P)^T dO, dP = dO V^T, delta =
-rowsum(dO O), dS = bf16(P (dP - delta) scale), dQ = dS K, dK = dS^T Q.
-Where the TPU kernel carries dK and dV across a sequential grid axis, the
-CUDA backward splits the work FlashAttention-2 style into a dQ kernel over
-query tiles and a dK/dV kernel over key tiles (see the source).
+repeats it in plain PyTorch): the exact probabilities recomputed in f32
+from each row's max and sum over all its keys, dV = bf16(P)^T dO, dP = dO
+V^T, delta = rowsum(dO O), dS = bf16(P (dP - delta) scale), dQ = dS K, dK =
+dS^T Q, dK and dV summed over the G query heads in f32 and rounded once.
+It is bounded by operations too, and all five products run on the tensor
+cores (``wgmma``, ``csrc/attention_bwd_tc.cuh``): P and dS go from the
+score accumulators straight into the next product's register operand, and
+the next key or query tile loads while the current one computes.  Where
+the TPU kernel carries dK and dV across a sequential grid axis, the CUDA
+backward splits the work FlashAttention-2 style into a dQ kernel over
+query tiles (its first pass finds each row's max and sum) and a dK/dV
+kernel over key tiles, with no atomics, so a call is deterministic.  Its P
+is the same in both kernels, though summed in another order than the
+forward's, so not the forward's bit for bit.
 """
 
 from __future__ import annotations
@@ -121,7 +128,7 @@ def resident_attention_bwd_plain(qg, k, v, pad_mask, out, grad):
     d, s = qg.shape[-1], qg.shape[1]
     scale = d**-0.5
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * scale
-    causal = torch.ones((s, s), dtype=torch.bool, device=qg.device).tril()
+    causal = _causal(s, qg.device)
     bias = torch.where(causal, 0.0, NEG_INF)
     if pad_mask is not None:
         bias = bias + torch.where(pad_mask[:, None, None, None, :].bool(), 0.0, NEG_INF)
@@ -134,6 +141,11 @@ def resident_attention_bwd_plain(qg, k, v, pad_mask, out, grad):
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(ct))
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg.to(ct))
     return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _causal(s, device):
+    """(S, S) bool: query position q sees key t where t <= q."""
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
 
 
 def resident_attention_bwd(qg, k, v, pad_mask, out, grad):

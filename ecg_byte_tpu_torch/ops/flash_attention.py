@@ -26,6 +26,15 @@ dO V^T``, ``delta = rowsum(dO O)`` from the bf16 output, ``dS = bf16(p (dP
 - delta) scale)``, ``dQ = dS K``, ``dK = dS^T Q``; the JAX code rounds dK
 and dV per query head, then sums the G heads of each KV head (``:339-343``).
 
+What bounds both kernels on the H100 is arithmetic (172 GFLOP of causal
+products at B1 S4096 against 17 MB).  The forward does it as f32 FMAs from
+shared memory.  The backward runs every product on the tensor cores
+(``wgmma``), in the core it shares with the resident backward
+(``csrc/attention_bwd_tc.cuh``, flash policy): a dQ kernel over query
+tiles, and a dK/dV kernel over (key tile, KV head) that walks the G query
+heads in order and sums their bf16-rounded dK, dV in f32 in shared memory,
+rounding once at the end, so no per-head buffer goes through device memory.
+
 Masked logits get the finite ``-1e30``.  A row whose keys so far are all
 masked (left padding longer than a block) has ``m = -1e30`` and ``p = 1``
 on every key; the first valid key's block wipes them with ``exp(-1e30 -
@@ -141,11 +150,17 @@ def flash_attention_bwd_plain(qg, k, v, pad_mask, out, lse, grad, block_k=BLOCK_
         dq[..., r0:r1, :] = torch.einsum("bkgqt,bktd->bkgqd", ds, kk[:, :, :r1])
         dk_h[..., :r1, :] += torch.einsum("bkgqt,bkgqd->bkgtd", ds, q[..., r0:r1, :])
 
-    def kv_grad(x):  # per query head rounded, then summed over G
-        return x.to(qg.dtype).to(ct).sum(2).to(qg.dtype)[:, :, :s].transpose(1, 2).contiguous()
-
     dq = dq.to(qg.dtype)[..., :s, :].permute(0, 3, 1, 2, 4).contiguous()
-    return dq, kv_grad(dk_h), kv_grad(dv_h)
+    return dq, _head_sum(dk_h, qg.dtype, s), _head_sum(dv_h, qg.dtype, s)
+
+
+def _head_sum(x, dtype, s):
+    """Per-query-head gradients ``x`` (B, KH, G, Sp, D) in the compute type ->
+    (B, s, KH, D) in ``dtype``: each head rounded to ``dtype``, summed over
+    the G heads in the compute type and rounded again, as the JAX code does
+    (``ecg_byte_tpu/ops/flash_attention.py:338-343``)."""
+    ct = x.dtype
+    return x.to(dtype).to(ct).sum(2).to(dtype)[:, :, :s].transpose(1, 2).contiguous()
 
 
 def flash_attention_fwd(qg, k, v, pad_mask):
@@ -190,11 +205,10 @@ def flash_attention_bwd(qg, k, v, pad_mask, out, lse, grad):
         raise ValueError("lse must be a contiguous f32 (B, KH, G, S) tensor on qg's device")
     dq, dk, dv = torch.empty_like(qg), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, kh, g, s), dtype=torch.float32, device=qg.device)
-    part = torch.empty((2, b, kh * g, s, d), dtype=qg.dtype, device=qg.device)  # per-head dK, dV
     err = _cuda.library().ecg_flash_attention_bwd(
         qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(), out.data_ptr(),
         lse.data_ptr(), grad.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), part.data_ptr(), b, s, kh, g, d, _cuda.stream(qg),
+        delta.data_ptr(), b, s, kh, g, d, _cuda.stream(qg),
     )
     _cuda.check(err, "flash attention backward")
     flash_attention_bwd.launches += 1

@@ -202,6 +202,77 @@ def test_flash_bwd_check_refuses_faults(fault):
                                        tag="flash bwd")
 
 
+# The faults a tensor-core backward is likeliest to have, built from the
+# plain versions: a causal mask off by one on the diagonal tile (each row
+# also sees the next key, or loses its own), flash dK/dV summed over G - 1
+# of the G query heads, and flash dK/dV rounded once after the head sum
+# instead of per head.
+
+
+@pytest.mark.parametrize("diagonal", [1, -1], ids=["sees-next-key", "loses-own-key"])
+def test_attention_bwd_check_refuses_an_off_by_one_diagonal(diagonal, monkeypatch):
+    want = _attention_grads()
+    monkeypatch.setattr(attention_resident, "_causal",
+                        lambda s, device: torch.ones((s, s), dtype=torch.bool,
+                                                     device=device).tril(diagonal))
+    got = _attention_grads()
+    with pytest.raises(AssertionError, match="K1 bwd"):
+        chip_smoke.check_attention_bwd(got, want, f"causal diagonal {diagonal:+d}")
+
+
+@pytest.mark.parametrize("diagonal", [1, -1], ids=["sees-next-key", "loses-own-key"])
+def test_flash_bwd_check_refuses_an_off_by_one_diagonal(diagonal, monkeypatch):
+    mask, fwd, bwd, _, bwd_with = _flash_case()
+    scores = flash_attention._scores
+
+    def off_by_one(q_rows, k_keys, key_ok, r0, t1, scale):
+        # query position q sees key t where t <= q + diagonal
+        return scores(q_rows, k_keys, key_ok, r0 + diagonal, t1, scale)
+
+    monkeypatch.setattr(flash_attention, "_scores", off_by_one)
+    got = bwd_with(mask, fwd[1])
+    with pytest.raises(AssertionError, match="flash bwd"):
+        chip_smoke.check_attention_bwd(got, bwd, f"causal diagonal {diagonal:+d}",
+                                       name="flash_attention_bwd", tag="flash bwd")
+
+
+def test_flash_bwd_check_refuses_a_lost_query_head():
+    """dK and dV summed over G - 1 of the G query heads of a KV head: the
+    dK/dV of a run whose last head has a zero output gradient (so it adds
+    nothing to them), beside the right dq."""
+    mask, fwd, bwd, _, _ = _flash_case()
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(1, 384, 2, 2, 64), randn(1, 384, 2, 64), randn(1, 384, 2, 64)
+    gout = randn(1, 384, 2, 2, 64)
+    gout[:, :, :, -1] = 0
+    _, dk, dv = flash_attention.flash_attention_bwd_plain(q, k, v, mask, *fwd, gout)
+    with pytest.raises(AssertionError, match=r"flash bwd G - 1 heads dk: max"):
+        chip_smoke.check_attention_bwd((bwd[0], dk, dv), bwd, "G - 1 heads",
+                                       name="flash_attention_bwd", tag="flash bwd")
+
+
+def test_flash_bwd_check_refuses_rounding_once_after_the_head_sum(monkeypatch):
+    """dK and dV summed over the heads in f32 and rounded once, where the
+    JAX code rounds each head first: here that moves them 2.8e-3 and 2.9e-3
+    of their norm, past the check's 1e-3 (dq does not change)."""
+    mask, fwd, bwd, _, bwd_with = _flash_case()
+    monkeypatch.setattr(flash_attention, "_head_sum",
+                        lambda x, dtype, s: x.sum(2).to(dtype)[:, :, :s].transpose(1, 2)
+                        .contiguous())
+    got = bwd_with(mask, fwd[1])
+    assert torch.equal(got[0], bwd[0])
+    for a, w in zip(got[1:], bwd[1:]):
+        rel = torch.linalg.vector_norm(a.float() - w.float()) / torch.linalg.vector_norm(w.float())
+        assert 2e-3 < rel < 4e-3, rel
+    with pytest.raises(AssertionError, match=r"flash bwd rounded once dk: \|d\|/\|ref\|"):
+        chip_smoke.check_attention_bwd(got, bwd, "rounded once", name="flash_attention_bwd",
+                                       tag="flash bwd")
+
+
 def _norm_grads(rows=64, d=256):
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(rows, d, generator=gen).to(torch.bfloat16)
