@@ -344,31 +344,6 @@ def check_attention_bwd(got, want, shape, name="prefill_attention_bwd", tag="K1 
     return err
 
 
-# The attention backwards' times before their tensor-core redesign: the
-# FMA kernels they replaced, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# names the run), printed beside each row's time: (policy, B, S, H, KH, D,
-# left pad) -> ms.
-BWD_BEFORE_MS = {
-    ("resident", 4, 1024, 32, 8, 64, 37): 4.2074,
-    ("resident", 1, 1024, 25, 25, 64, 37): 1.0267,
-    ("resident", 1, 256, 8, 1, 256, 37): 2.6869,
-    ("flash", 1, 4096, 32, 8, 64, 300): 10.3803,
-    ("flash", 1, 8192, 32, 8, 64, 37): 37.8928,
-    ("flash", 1, 4096, 25, 25, 64, 128): 8.5883,
-    ("flash", 1, 4096, 8, 1, 256, 1): 16.2470,
-    ("flash", 1, 4000, 32, 8, 64, 127): 9.9925,
-}
-
-
-def bwd_extra(ms, flops, key):
-    """A backward row's extra fields: its rate from the bound's operation
-    count, and its time before the redesign where there was one."""
-    extra = {"tflops": round(flops / ms / 1e9, 1)}
-    if key in BWD_BEFORE_MS:
-        extra["before_ms"] = BWD_BEFORE_MS[key]
-    return extra
-
-
 def check_deterministic(got, again, name):
     """Two calls of a backward on the same inputs must give the same bits:
     its kernels use no atomics and sum in a fixed order."""
@@ -806,12 +781,15 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
                    4 * d * pairs, nbytes, main=(b, s, h) == (4, 1024, 32))
 
     # K1 backward at the training shape (also with 300 positions of left
-    # padding, more than one key tile), the gpt2 / gemma shapes, a D128 one
-    # and S 3072 (the port runs the resident kernels up to S 4095); the
-    # output gradient is zero on left-pad rows, as on the training path
+    # padding, more than one key tile), the gpt2 / gemma shapes, a D128 one,
+    # S 3072 (the port runs the resident kernels up to S 4095) and gpt2's
+    # heads at S 1040 (G = 1 and S not a multiple of 64: the last query and
+    # key tiles hold rows past S); the output gradient is zero on left-pad
+    # rows, as on the training path
     for b, s, h, kh, d, pad in [(4, 1024, 32, 8, 64, 37), (4, 1024, 32, 8, 64, 300),
                                 (1, 1024, 25, 25, 64, 37), (1, 256, 8, 1, 256, 37),
-                                (1, 1024, 16, 4, 128, 37), (1, 3072, 32, 8, 64, 37)]:
+                                (1, 1024, 16, 4, 128, 37), (1, 3072, 32, 8, 64, 37),
+                                (1, 1040, 25, 25, 64, 37)]:
         qg, k, v = randn(b, s, kh, h // kh, d), randn(b, s, kh, d), randn(b, s, kh, d)
         mask = torch.ones(b, s, dtype=torch.int32, device=dev)
         mask[:, :pad] = 0
@@ -835,13 +813,12 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
             lambda: attention_resident.resident_attention_bwd(qg, k, v, mask, out, gout),
             lambda: attention_resident.resident_attention_bwd_plain(qg, k, v, mask, out, gout),
             lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True),
-        ], 4 if b * s <= 4096 else 2)
+        ], 4)
         del lib_out
         pairs = (mask * mask.cumsum(-1)).sum().item() * h
         nbytes = 2 * (4 * qg.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * mask.numel()
         record("prefill_attention_bwd", [b, s, h, kh, d], err, times, 10 * d * pairs, nbytes,
-               main=main, left_pad=pad, **bwd_extra(times[0], 10 * d * pairs,
-                                                    ("resident", b, s, h, kh, d, pad)))
+               main=main, left_pad=pad, tflops=round(10 * d * pairs / times[0] / 1e9, 1))
 
     # K2: (B, S_max, H, KH, D), the left padding of row 0, the slots filled
     # and the split counts forced beside the kernel's own choice ("max": one
@@ -1178,7 +1155,7 @@ def flash_checks(record, dev, randn, serve_prompt):
         nbytes = (2 * (4 * qg.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * mask.numel()
                   + lse_bytes)
         record("flash_attention_bwd", shape, err, times, 10 * d * pairs, nbytes, main=main,
-               left_pad=pad, **bwd_extra(times[0], 10 * d * pairs, ("flash", b, s, h, kh, d, pad)))
+               left_pad=pad, tflops=round(10 * d * pairs / times[0] / 1e9, 1))
     torch.cuda.empty_cache()
 
 
