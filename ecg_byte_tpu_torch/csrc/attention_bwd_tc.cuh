@@ -29,7 +29,7 @@
 //
 // What bounds it on the H100: operations.  At B4 S1024 (32 query heads
 // over 8 KV heads of 64) the five causal products are 42.9 GFLOP against
-// 84 MB of inputs and outputs; at B1 S4096, 172 GFLOP against 17 MB.  So
+// 84 MB of inputs and outputs; at B1 S4096, 172 GFLOP against 84 MB.  So
 // every product runs on wgmma (m64nNk16, bf16 in, f32 accumulators):
 //
 //   - the scores S = Q K^T and dP = dO V^T (or, in the dK/dV kernel, their
@@ -75,11 +75,14 @@
 // work: no integer division and no f32 division per score element (the row
 // statistics arrive as m and 1 / l), and exp2 for exp.
 //
-// The scores are summed by the tensor cores, in another order than the
-// forward's f32 FMA chain, so the backward's P is not the forward's bit for
-// bit.  It agrees with itself: the dQ and dK/dV kernels sum each score over
-// the same k16 steps in the same order, and share every step after it
-// (prob, ds_value), so dQ, dK and dV see one recomputed P.
+// The dQ and dK/dV kernels sum each score over the same k16 steps in the
+// same order, and share every step after it (prob, ds_value), so dQ, dK and
+// dV see one recomputed P.  The forwards (attention_fwd_tc.cuh) run the same
+// score product; the resident one also takes its m and l from row_stats and
+// its p from prob, so the resident backward's recomputed P is, before the
+// bf16 rounding, the forward's P bit for bit.  The flash forward's p is
+// exp(s - m_new) against a running max, the backward's exp(s - lse): not the
+// same values, as on the TPU.
 #pragma once
 
 #include "common.cuh"
@@ -131,7 +134,8 @@ template <bool kFlash>
 struct Policy {
   // (b, kvh, position s, query head g) -> its index in the row statistics:
   // resident (B, KH, S, G), flash (B, KH, G, S) as the forward's lse
-  static __device__ __forceinline__ size_t row(const Args& a, int b, int kvh, int s, int g) {
+  template <typename A>
+  static __device__ __forceinline__ size_t row(const A& a, int b, int kvh, int s, int g) {
     return kFlash ? ((size_t(b) * a.KH + kvh) * a.G + g) * a.S + s
                   : ((size_t(b) * a.KH + kvh) * a.S + s) * a.G + g;
   }
@@ -172,9 +176,9 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // row r is position s0 + (r >> gsh), query head g0 + r mod 2^gsh of KV head
 // kvh (gsh: log2 of the heads folded into a tile, G a power of two since
 // it divides 64); rows past S read as zeros.  No commit, no barrier.
-template <int D>
+template <int D, typename A>
 __device__ __forceinline__ void load_q_tile(unsigned char* dst, const __nv_bfloat16* src,
-                                            const Args& a, int b, int kvh, int s0, int gsh,
+                                            const A& a, int b, int kvh, int s0, int gsh,
                                             int g0, int tid) {
   constexpr int kChunks = D / 8;
   const size_t pos_stride = size_t(a.KH) * a.G * D;
@@ -191,9 +195,9 @@ __device__ __forceinline__ void load_q_tile(unsigned char* dst, const __nv_bfloa
 
 // Keys [t0, t0 + 64) of a (B, S, KH, D) tensor, head kvh, into a swizzled
 // tile; keys past S read as zeros.  No commit, no barrier.
-template <int D>
+template <int D, typename A>
 __device__ __forceinline__ void load_k_tile(unsigned char* dst, const __nv_bfloat16* src,
-                                            const Args& a, int b, int kvh, int t0, int tid) {
+                                            const A& a, int b, int kvh, int t0, int tid) {
   constexpr int kChunks = D / 8;
   for (int i = tid; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, j = i % kChunks;
@@ -267,6 +271,66 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float* acc,
           __floats2bfloat162_rn(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
     }
   }
+}
+
+// The resident policy's first pass over the key tiles [0, n_kt) of the
+// query tile in Qs: each row's max m and sum l of exp(s - m) over its keys,
+// the sum rescaled whenever the max grows, from the scores alone.  The dQ
+// kernel and the resident forward (attention_fwd_tc.cuh) both take their
+// statistics from it, so the forward's P and the backward's recomputed P
+// are one function summed in one order.  Key tiles stream through a
+// two-stage ring at ``ring`` (stages ``stage`` bytes apart, each with its
+// key_ok after two tiles): load_keys(st, t0) issues the copies of the tile
+// at key t0 into stage st, score(dot, key_ok, j, t0) masks and scales
+// accumulator element j.  Ends with a barrier: the ring is free again.
+template <int D, typename LoadKeys, typename Score>
+__device__ __forceinline__ void row_stats(const unsigned char* Qs, unsigned char* ring, int stage,
+                                          int n_kt, LoadKeys load_keys, Score score,
+                                          float (&m)[2], float (&l)[2]) {
+  constexpr int kT = TileT<D>::kBytes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  load_keys(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // tile it is in; every thread is done with tile it - 1
+    if (it + 1 < n_kt) load_keys((it + 1) & 1, (it + 1) * kTile);
+    cp_async_commit();
+    const unsigned char* ks = ring + (it & 1) * stage;
+    const int* key_ok = reinterpret_cast<const int*>(ks + 2 * kT);
+    float s[32];
+    wgmma_fence();
+    scores<D>(s, Qs, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = score(s[j], key_ok, j, it * kTile);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h], m_new)));
+        rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h + 1], m_new)));
+      }
+      rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 1));
+      rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 2));
+      l[h] = __fmaf_rn(l[h], exp_f(__fsub_rn(m[h], m_new)), rs);
+      m[h] = m_new;
+    }
+  }
+  __syncthreads();
 }
 
 template <int D>
@@ -358,47 +422,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
   };
 
   if constexpr (!kFlash) {
-    // first pass: each row's max m and sum l over its keys, the sum
-    // rescaled whenever the max grows
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    load_keys(0, 0, false);
-    cp_async_commit();
-    for (int it = 0; it < n_kt; ++it) {
-      cp_async_wait<0>();
-      fence_async_shared();
-      __syncthreads();  // tile it is in; every thread is done with tile it - 1
-      if (it + 1 < n_kt) load_keys((it + 1) & 1, (it + 1) * kTile, false);
-      cp_async_commit();
-      const unsigned char* ks = ring + (it & 1) * L::kStage;
-      const int* key_ok = reinterpret_cast<const int*>(ks + 2 * kT);
-      float s[32];
-      wgmma_fence();
-      scores<D>(s, Qs, ks);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < 32; ++j) s[j] = score(s[j], key_ok, j, it * kTile);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        float rs = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h], m_new)));
-          rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h + 1], m_new)));
-        }
-        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 1));
-        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 2));
-        l[h] = __fmaf_rn(l[h], exp_f(__fsub_rn(m[h], m_new)), rs);
-        m[h] = m_new;
-      }
-    }
-    __syncthreads();  // the ring is free for the second pass
+    float m[2], l[2];
+    row_stats<D>(Qs, ring, L::kStage, n_kt, [&](int st, int t0) { load_keys(st, t0, false); },
+                 score, m, l);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       st0[h] = m[h];
@@ -621,9 +647,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const Args a) {
   if constexpr (kWantDK) store_rows<D>(a.dk, dk, w, g, c, row_off);
 }
 
-template <typename Kernel>
+template <typename Kernel, typename A>
 cudaError_t launch_kernel(Kernel kernel, int bytes, unsigned blocks, cudaStream_t st,
-                          const Args& a) {
+                          const A& a) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

@@ -21,9 +21,9 @@
 // a dQ kernel whose first pass computes each row's max m and sum l from
 // tensor-core scores and writes m, l and delta to the stats scratch, and a
 // dK/dV kernel over key tiles that reads them.  P is recomputed in the
-// backward and is the same P in both kernels, though not the forward's bit
-// for bit (the tensor cores sum the scores in another order than the
-// forward's FMA chain).
+// backward and is the same P in both kernels, and the forward's
+// (attention_prefill.cu) bit for bit: the forward runs the same score
+// product and the same first pass (row_stats) and prob.
 //
 // A left-pad row attends to no valid key: its m is the -1e30 fill and its
 // P the mean over the keys it visits, finite.  On the training path these

@@ -18,6 +18,11 @@ import torch
 NEG_INF = -1e30
 
 
+def _causal(s, device):
+    """(S, S) bool: query position q sees key t where t <= q."""
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
 def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
     """Plain causal grouped-query attention (``_grouped_attention``).
 
@@ -30,8 +35,7 @@ def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
     d = qg.shape[-1]
     s = qg.shape[1]
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
-    causal = torch.ones((s, s), dtype=torch.bool, device=qg.device).tril()
-    bias = torch.where(causal, 0.0, NEG_INF)
+    bias = torch.where(_causal(s, qg.device), 0.0, NEG_INF)
     if pad_mask is not None:
         key_ok = pad_mask[:, None, None, None, :].bool()
         bias = bias + torch.where(key_ok, 0.0, NEG_INF)

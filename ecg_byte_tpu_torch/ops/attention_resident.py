@@ -13,18 +13,23 @@ the interface is the JAX one, ``qg (B, S, KH, G, D)`` and
 
 The TPU kernel holds a whole (batch, kv-head) row of keys in VMEM and takes
 an exact softmax over it.  A Hopper block has at most 227 KB of shared
-memory, so the CUDA kernel tiles instead: one block per (batch, kv-head,
-tile of query positions), the G query heads of that KV head folded into
-the tile's 64 rows so each K/V tile loaded into shared memory serves all
-of them, and loops over 64-key tiles up to the causal edge.  The first loop
-finds each row's softmax max and sum; the second recomputes the scores and
-forms the exact probabilities, rounded to bf16 after normalisation as the
-TPU kernel and the plain version round them, for P.V.  (An online softmax
-rounds unnormalized probabilities; through 16 layers of random weights
-that moved the logits past the end-to-end bound.)  What bounds it at
-S = 1024 is arithmetic: about 6·S²·H·D/2 operations with the recomputed
-scores against O(S·H·D) bytes; the forward still does them as f32 FMAs
-from shared memory, the backward on the tensor cores (below).
+memory, so the CUDA kernel tiles instead: one block (one warpgroup) per
+(batch, kv-head, tile of query positions), the G query heads of that KV
+head folded into the tile's 64 rows so each K/V tile loaded into shared
+memory serves all of them, and loops over 64-key tiles up to the causal
+edge.  The first loop finds each row's softmax max and sum; the second
+recomputes the scores and forms the exact probabilities, rounded to bf16
+after normalisation as the TPU kernel and the plain version round them,
+for P.V.  (An online softmax rounds unnormalized probabilities; through 16
+layers of random weights that moved the logits past the end-to-end
+bound.)  What bounds it on the H100 is operations: 17.2 GFLOP of causal
+products at B4 S1024 (half again for the first loop's scores) against 42
+MB.  So both products run on the tensor cores (``wgmma``, the forward
+core ``csrc/attention_fwd_tc.cuh``): the scores from Q and K tiles in
+shared memory, P.V with P straight from the score accumulators as the
+register operand and V read N-major, while the next K/V tile loads.  The
+first loop and the probability are the backward's own (below), so the
+backward recomputes the forward's P bit for bit.
 
 Masked logits get the finite ``-1e30`` of the JAX code, and every row sees
 at least its first key tile, so a left-pad query row whose keys are all
@@ -44,8 +49,7 @@ the TPU kernel carries dK and dV across a sequential grid axis, the CUDA
 backward splits the work FlashAttention-2 style into a dQ kernel over
 query tiles (its first pass finds each row's max and sum) and a dK/dV
 kernel over key tiles, with no atomics, so a call is deterministic.  Its P
-is the same in both kernels, though summed in another order than the
-forward's, so not the forward's bit for bit.
+is the same in both kernels and the forward's.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from __future__ import annotations
 import torch
 
 from ecg_byte_tpu_torch.ops import _cuda
-from ecg_byte_tpu_torch.ops.attention import NEG_INF, grouped_attention
+from ecg_byte_tpu_torch.ops.attention import NEG_INF, _causal, grouped_attention
 
 ROWS = 64  # query rows per block: G heads x (ROWS / G) positions
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
@@ -141,11 +145,6 @@ def resident_attention_bwd_plain(qg, k, v, pad_mask, out, grad):
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(ct))
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg.to(ct))
     return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _causal(s, device):
-    """(S, S) bool: query position q sees key t where t <= q."""
-    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
 
 
 def resident_attention_bwd(qg, k, v, pad_mask, out, grad):

@@ -26,12 +26,17 @@ dO V^T``, ``delta = rowsum(dO O)`` from the bf16 output, ``dS = bf16(p (dP
 - delta) scale)``, ``dQ = dS K``, ``dK = dS^T Q``; the JAX code rounds dK
 and dV per query head, then sums the G heads of each KV head (``:339-343``).
 
-What bounds both kernels on the H100 is arithmetic (172 GFLOP of causal
-products at B1 S4096 against 17 MB).  The forward does it as f32 FMAs from
-shared memory.  The backward runs every product on the tensor cores
-(``wgmma``), in the core it shares with the resident backward
-(``csrc/attention_bwd_tc.cuh``, flash policy): a dQ kernel over query
-tiles, and a dK/dV kernel over (key tile, KV head) that walks the G query
+What bounds both kernels on the H100 is operations: at B1 S4096 the
+forward's causal products are 68.7 GFLOP against 42 MB, the backward's
+172 GFLOP against 84 MB.  So both run every product on the tensor cores
+(``wgmma``).  The forward (``csrc/attention_fwd_tc.cuh``, flash policy,
+the core it shares with the resident forward) takes one block per 64
+query rows and streams whole 128-key blocks through a cp.async ring: both
+64-key score products land before the row max steps, so it steps where
+the TPU kernel's does, and P goes from the score accumulators straight
+into P.V's register operand.  The backward (``csrc/attention_bwd_tc.cuh``,
+flash policy, shared with the resident backward) is a dQ kernel over query
+tiles and a dK/dV kernel over (key tile, KV head) that walks the G query
 heads in order and sums their bf16-rounded dK, dV in f32 in shared memory,
 rounding once at the end, so no per-head buffer goes through device memory.
 

@@ -1,5 +1,5 @@
-"""``chip_smoke.py``'s checks of the attention backward kernels, of the
-flash forward, of the int8 weight product and of the device BPE encoder's
+"""``chip_smoke.py``'s checks of the attention backward kernels, of both
+attention forwards, of the int8 weight product and of the device BPE encoder's
 token streams, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
@@ -17,6 +17,7 @@ import torch
 from ecg_byte_tpu_torch.cli.make_synthetic import make_signal
 from ecg_byte_tpu_torch.models.quantized import quantize_weight
 from ecg_byte_tpu_torch.ops import (
+    attention,
     attention_resident,
     bpe_encode,
     flash_attention,
@@ -176,6 +177,61 @@ def test_flash_fwd_norm_bounds_catch_a_late_pv_fault(fault, monkeypatch):
     monkeypatch.setattr(chip_smoke, "FLASH_OUT_NORM", float("inf"))
     with pytest.raises(AssertionError, match=r"out row \|d\|/\|ref\|"):
         chip_smoke.check_flash_fwd(got, want, mask, fault)
+
+
+def _resident_case(s=3072, pad=300):
+    """bf16 inputs (1, s, 2, 2, 64) with a left pad longer than a key tile
+    and the plain forward's out."""
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(1, s, 2, 2, 64), randn(1, s, 2, 64), randn(1, s, 2, 64)
+    mask = torch.ones(1, s, dtype=torch.int32)
+    mask[:, :pad] = 0
+    return q, k, v, mask, attention.grouped_attention(q, k, v, mask)
+
+
+def test_resident_fwd_check_passes_plain():
+    _, _, _, mask, want = _resident_case()
+    assert chip_smoke.check_resident_fwd(want, want, mask, "plain") == 0.0
+
+
+@pytest.mark.parametrize("fault", ["skipped-key-tile", "last-32-keys-twice", "last-tile-x1.25",
+                                   "nan-pad-row", "sees-next-key", "loses-own-key"])
+def test_resident_fwd_check_refuses_faults(fault, monkeypatch):
+    """The faults the flash check is fed, as a resident forward would have
+    them: a skipped 64-key tile, P.V over the last 32 keys counted twice or
+    over the last key tile scaled by 1.25, a NaN in a left-pad row, the
+    causal diagonal off by one either way.  At S 3072 the two late P.V
+    faults move only the last rows, whose |out| is ~sqrt(e / 3072): they
+    pass the allclose bound (max|d| 1.8e-2 and 6.1e-3), and the norm (3.4e-3
+    and 1.6e-3 of |ref|) and row bounds refuse them."""
+    q, k, v, mask, want = _resident_case()
+    s = q.shape[1]
+    if fault == "skipped-key-tile":
+        got = attention.grouped_attention(q, k, v, _skipping_block(mask, 384, 448))
+    elif fault in ("last-32-keys-twice", "last-tile-x1.25"):
+        bad_v = v.clone()
+        if fault == "last-32-keys-twice":
+            bad_v[:, s - 32:] *= 2
+        else:
+            bad_v[:, s - 64:] *= 1.25
+        got = attention.grouped_attention(q, k, bad_v, mask)
+        valid = mask.bool()
+        assert torch.allclose(got.float()[valid], want.float()[valid], atol=2e-2, rtol=2e-2)
+    elif fault == "nan-pad-row":
+        got = want.clone()
+        got[0, 5, 1, 0, 3] = float("nan")
+    else:
+        diagonal = 1 if fault == "sees-next-key" else -1
+        monkeypatch.setattr(attention, "_causal",
+                            lambda n, device: torch.ones((n, n), dtype=torch.bool,
+                                                         device=device).tril(diagonal))
+        got = attention.grouped_attention(q, k, v, mask)
+    with pytest.raises(AssertionError, match="K1 fwd"):
+        chip_smoke.check_resident_fwd(got, want, mask, fault)
 
 
 def test_flash_bwd_check_passes_plain():

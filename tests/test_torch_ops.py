@@ -81,12 +81,16 @@ def _attn_inputs(b, s, kh, g, d, left_pad, seed=0):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("left_pad", [0, 37])
+@pytest.mark.parametrize("left_pad", [0, 37, 70])
 @pytest.mark.parametrize(
     "b,s,kh,g,d,block_m",
     [
         (2, 256, 2, 4, 64, 512),  # G = 4, as llama
         (1, 256, 2, 1, 64, 256),  # G = 1, as gpt2
+        # S a multiple of 16 but not of 64: the CUDA kernel's last query and
+        # key tiles hold rows past S; with 70 left-pad positions the padding
+        # passes its first key tile
+        (1, 80, 2, 4, 64, 512),
     ],
 )
 def test_prefill_plain_matches_resident_kernel(b, s, kh, g, d, block_m, left_pad):
