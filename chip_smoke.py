@@ -36,6 +36,11 @@ Phases, each printing its own lines, in the order they run:
    tensor-core one, each forced at both sides of their threshold and at
    M 1152, up to M 4992 and at gpt2's ragged c_attn (N 4800), and the KV
    quantizer (equal to its plain version exactly).
+   Both RMSNorm kernels at the main paths' rows with llama's stored bf16
+   weight and an f32 one (gemma's 1 + w), and at width 1,600 with 1,003
+   rows (check_rmsnorm_fwd: 1 bf16 ulp; check_rmsnorm_bwd_dx; dw by
+   check_rmsnorm_dw: 1e-3 relative, two calls equal), with device times
+   (CUDA graphs) beside the eager ones for kernel, plain and F.rms_norm.
    The two BPE kernels must equal their plain versions exactly, and the
    device encoder's streams the host C++ trie's, at (64, 6,000) and
    (256, 30,000) symbols; the trie is their yardstick.
@@ -137,8 +142,8 @@ SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
                             "ecg_byte_tpu/ops/flash_attention.py:93"),
     "decode_attention": ("cuda", "ecg_byte_tpu_torch/csrc/attention_decode.cu",
                          "ecg_byte_tpu/ops/attention_decode.py:90"),
-    "rmsnorm": ("triton", "ecg_byte_tpu_torch/ops/rmsnorm.py", "ecg_byte_tpu/ops/rmsnorm.py:59"),
-    "rmsnorm_bwd": ("triton", "ecg_byte_tpu_torch/ops/rmsnorm.py",
+    "rmsnorm": ("cuda", "ecg_byte_tpu_torch/csrc/rmsnorm.cu", "ecg_byte_tpu/ops/rmsnorm.py:59"),
+    "rmsnorm_bwd": ("cuda", "ecg_byte_tpu_torch/csrc/rmsnorm.cu",
                     "ecg_byte_tpu/ops/rmsnorm.py:66"),
     "bpe_match": ("cuda", "ecg_byte_tpu_torch/csrc/bpe_match.cu",
                   "ecg_byte_tpu/ops/bpe_match.py:369"),
@@ -279,21 +284,24 @@ def time_in_turns(fns, iters):
     return times
 
 
-def time_graphed(fns, calls=20, replays=5):
+def time_graphed(fns, calls=20, replays=5, stream=None):
     """Device ms per call of each function: ``calls`` calls captured in one
     CUDA graph, its replays timed with CUDA events in turns (as
-    :func:`time_in_turns`), so the host's launch cost drops out."""
+    :func:`time_in_turns`), so the host's launch cost drops out.  Each is
+    warmed and captured on a side stream of its own, or on ``stream``
+    (an autograd backward runs on its forward's stream: make the forward
+    there)."""
     import torch
 
     graphs = []
     for fn in fns:
-        side = torch.cuda.Stream()
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()  # warm: allocations and lazy builds outside the capture
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=side):
             for _ in range(calls):
                 fn()
         graphs.append(g)
@@ -482,6 +490,36 @@ def check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, eps, shape):
     assert beyond <= 1e-5 * dx.numel(), \
         f"K3 bwd {shape}: {beyond} of {dx.numel()} beyond 2 bf16 ulps of dx itself"
     return diff.max().item()
+
+
+def check_rmsnorm_fwd(got, want, shape):
+    """Hold the kernel's RMSNorm output against the plain one's and return
+    max|d|.  Both round (x r) w to bf16 from the same f32 products, and r
+    differs only by the order of the row's sum of squares and the rsqrt's
+    last f32 bits: every element must be finite and within 1 bf16 ulp of
+    plain's."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all(), f"K3 {shape}: non-finite y"
+    assert (diff <= bf16_ulp(want)).all(), f"K3 {shape}: y off by more than 1 bf16 ulp"
+    return diff.max().item()
+
+
+def check_rmsnorm_dw(dw, pdw, again, shape):
+    """Hold the kernel's RMSNorm dw against the plain one's and return
+    max|d|/max|dw|, which must be at most 1e-3: both sum g x r over the rows
+    in f32, in other orders.  ``again``, a second call's dw, must equal the
+    first bit for bit: the kernel adds its blocks' partials in a fixed
+    order."""
+    import torch
+
+    assert torch.isfinite(dw.float()).all(), f"K3 bwd {shape}: non-finite dw"
+    rel = ((dw.float() - pdw.float()).abs().max() / pdw.float().abs().max()).item()
+    print(f"rmsnorm_bwd {shape}: dw max|d|/max|dw| {rel:.3e} (bound 1e-3)")
+    assert rel <= 1e-3, f"K3 bwd {shape}: dw relative {rel:.3e}"
+    assert torch.equal(dw, again), f"K3 bwd {shape}: two calls' dw differ"
+    return rel
 
 
 def check_int8_linear(got, want, x, q, scale, bias, shape):
@@ -893,50 +931,67 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
                        main=(b, s, h) == (1, 1152, 32))
             del q4, k4, v4, bmask
 
-    # K3 forward: rows x 2048; the decode row is the serving path's commonest call
-    for shape in [(4096, 2048), (1024, 2048), (1, 2048)]:
+    # K3 forward: the main paths' shapes with llama's stored bf16 weight,
+    # the training rows also with an f32 weight (gemma's 1 + w), and a
+    # ragged row count at gpt2-xl's width 1,600 (200 vectors: the block's
+    # last warp a quarter full); the decode row is the serving path's
+    # commonest call.  Eager times (host launch costs included, as the
+    # serving loop pays them) and device times (CUDA graphs).
+    for shape, w_dtype in [((4096, 2048), torch.bfloat16), ((4096, 2048), torch.float32),
+                           ((1024, 2048), torch.bfloat16), ((1, 2048), torch.bfloat16),
+                           ((1003, 1600), torch.float32)]:
         with torch.inference_mode():
             x = randn(*shape)
-            w = torch.randn(shape[-1], generator=gen, device=dev)
-            got = rmsnorm.rmsnorm(x, w, 1e-5)
-            want = rmsnorm.rmsnorm_plain(x, w, 1e-5)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            assert (diff <= bf16_ulp(want)).all(), "K3 off by more than 1 bf16 ulp"
+            w = torch.randn(shape[-1], generator=gen, device=dev).to(w_dtype)
+            err = check_rmsnorm_fwd(rmsnorm.rmsnorm(x, w, 1e-5), rmsnorm.rmsnorm_plain(x, w, 1e-5),
+                                    list(shape))
             wb = w.to(torch.bfloat16)
-            times = time_in_turns([
-                lambda: rmsnorm.rmsnorm(x, w, 1e-5),
-                lambda: rmsnorm.rmsnorm_plain(x, w, 1e-5),
-                lambda: F.rms_norm(x, (shape[-1],), wb, 1e-5),
-            ], 200)
-            record("rmsnorm", list(shape), diff.max().item(), times, 4 * x.numel(),
-                   4 * x.numel() + 4 * w.numel(), main=shape[0] == 4096)
+            fns = [lambda: rmsnorm.rmsnorm(x, w, 1e-5), lambda: rmsnorm.rmsnorm_plain(x, w, 1e-5),
+                   lambda: F.rms_norm(x, (shape[-1],), wb, 1e-5)]
+            times = time_in_turns(fns, 200)
+            dev_ms = time_graphed(fns)
+            record("rmsnorm", list(shape), err, times, 4 * x.numel(),
+                   4 * x.numel() + w.element_size() * w.numel(),
+                   main=(shape, w_dtype) == ((4096, 2048), torch.bfloat16),
+                   w_dtype=str(w_dtype).removeprefix("torch."), device_ms=dev_ms[0],
+                   plain_device_ms=dev_ms[1], library_device_ms=dev_ms[2])
 
-    # K3 backward: the training path's (4096, 2048) and a ragged row count;
-    # dx as check_rmsnorm_bwd_dx says, dw relative 1e-3 (summation order);
-    # timed as the LoRA path runs it, without dw (the norm weights are
-    # frozen)
-    for shape in [(4096, 2048), (1000, 2048)]:
+    # K3 backward: the training path's (4096, 2048), a ragged row count, and
+    # gpt2-xl's width with an f32 weight; dx held by check_rmsnorm_bwd_dx, dw
+    # by check_rmsnorm_dw; timed as the LoRA path runs it, without dw (the
+    # norm weights are frozen), eager and on the device, against
+    # F.rms_norm's autograd backward (its forward made on the capture
+    # stream, where its backward then runs)
+    for shape, w_dtype in [((4096, 2048), torch.bfloat16), ((1000, 2048), torch.bfloat16),
+                           ((1003, 1600), torch.float32)]:
         x, gout = randn(*shape), randn(*shape)
-        w = torch.randn(shape[-1], generator=gen, device=dev)
+        w = torch.randn(shape[-1], generator=gen, device=dev).to(w_dtype)
         with torch.no_grad():
-            dx, dw = rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, True)
+            dx, none = rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, False)  # the LoRA path's call
+            dx_dw, dw = rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, True)
+            again = rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, True)[1]
             pdx, pdw = rmsnorm.rmsnorm_bwd_plain(x, w, gout, 1e-5, True)
             torch.cuda.synchronize()
+            assert none is None
             err = check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, 1e-5, list(shape))
-            dw_rel = ((dw - pdw).abs().max() / pdw.abs().max()).item()
-            assert dw_rel <= 1e-3, f"K3 bwd dw relative {dw_rel:.3e}"
-            print(f"rmsnorm_bwd {list(shape)}: dw max|d|/max|dw| {dw_rel:.3e}")
-        xl = x.detach().requires_grad_(True)
-        yl = F.rms_norm(xl, (shape[-1],), w.to(torch.bfloat16), 1e-5)
-        times = time_in_turns([
-            lambda: rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, False),
-            lambda: rmsnorm.rmsnorm_bwd_plain(x, w, gout, 1e-5, False),
-            lambda: torch.autograd.grad(yl, xl, gout, retain_graph=True),
-        ], 50)
+            check_rmsnorm_bwd_dx(dx_dw, pdx, x, w, gout, 1e-5, list(shape) + ["with dw"])
+            check_rmsnorm_dw(dw, pdw, again, list(shape))
+        cap = torch.cuda.Stream()
+        cap.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(cap):
+            xl = x.detach().requires_grad_(True)
+            yl = F.rms_norm(xl, (shape[-1],), w.to(torch.bfloat16), 1e-5)
+        torch.cuda.current_stream().wait_stream(cap)
+        fns = [lambda: rmsnorm.rmsnorm_bwd(x, w, gout, 1e-5, False),
+               lambda: rmsnorm.rmsnorm_bwd_plain(x, w, gout, 1e-5, False),
+               lambda: torch.autograd.grad(yl, xl, gout, retain_graph=True)]
+        times = time_in_turns(fns, 50)
+        dev_ms = time_graphed(fns, stream=cap)
         del yl
         record("rmsnorm_bwd", list(shape), err, times, 8 * x.numel(),
-               6 * x.numel() + 4 * w.numel(), main=shape[0] == 4096)
+               6 * x.numel() + w.element_size() * w.numel(), main=shape[0] == 4096,
+               w_dtype=str(w_dtype).removeprefix("torch."), device_ms=dev_ms[0],
+               plain_device_ms=dev_ms[1], library_device_ms=dev_ms[2])
 
     int8_checks(record, dev, randn, serve_prompt)
     flash_checks(record, dev, randn, serve_prompt)
@@ -1496,7 +1551,8 @@ def profile_steps(step, state, batch, gen, n=2):
               "attention backward (bwd::dq_kernel, dkv_kernel <D, false>)":
               (("bwd::dq_kernel<", "bwd::dkv_kernel<"), ("false",)),
               "attention forward (fwd::fwd_kernel <D, false>)": (("fwd::fwd_kernel<",), ("false",)),
-              "rmsnorm (triton)": (("rmsnorm_fwd", "rmsnorm_bwd", "sum_partials"), ()),
+              "rmsnorm (rmsnorm_fwd_kernel, rmsnorm_bwd_kernel, rmsnorm_dw_sum_kernel)":
+              (("rmsnorm_fwd_kernel<", "rmsnorm_bwd_kernel<", "rmsnorm_dw_sum_kernel<"), ()),
               "matmuls (cuBLAS)": (("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"), ())}
     totals = dict.fromkeys(list(groups) + ["other"], 0.0)
     kernels = []

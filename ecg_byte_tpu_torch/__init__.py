@@ -17,7 +17,8 @@ The kernels the TPU ran in Pallas are written by hand for Hopper:
   ``ops/attention_resident.py``);
 - decode attention over a bf16 KV cache, CUDA C++
   (``csrc/attention_decode.cu``, ``ops/attention_decode.py``);
-- RMSNorm, forward and backward, Triton (``ops/rmsnorm.py``);
+- RMSNorm, forward and backward, CUDA C++ (``csrc/rmsnorm.cu``,
+  ``ops/rmsnorm.py``);
 - the BPE encoder's longest match and greedy chain, CUDA C++
   (``csrc/bpe_match.cu``, ``csrc/bpe_chain.cu``, ``ops/bpe_match.py``).
 

@@ -12,7 +12,7 @@ Python loop where the JAX package scans.
 
 Numerics follow the JAX code: norms and RoPE in f32 and cast back, logits
 returned in f32, masked attention logits filled with the finite ``-1e30``.
-RMSNorm goes through the Triton kernels (forward and backward), prefill
+RMSNorm goes through its CUDA kernels (forward and backward), prefill
 attention through the CUDA kernels (forward and backward), decode attention
 through its CUDA kernel; on the CPU each takes its plain PyTorch version.
 
@@ -145,9 +145,9 @@ def _norm(x, weight, bias, config: TransformerConfig):
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
-    w = weight.float()
-    if config.rmsnorm_unit_offset:  # gemma: scale by (1 + w)
-        w = 1.0 + w
+    w = weight  # the kernel converts a bf16 weight in registers
+    if config.rmsnorm_unit_offset:  # gemma: scale by (1 + w), the sum in f32
+        w = 1.0 + weight.float()
     return rmsnorm.RMSNorm.apply(x.contiguous(), w, eps)
 
 

@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes; every entry returns the cudaError_t of its launch
 _SIGNATURES = {
     # qg, k, v, pad_mask, out, B, S, KH, G, D, stream
@@ -61,6 +62,10 @@ _SIGNATURES = {
     "ecg_bpe_match": [_P] * 5 + [_I, _I, _I, _P],
     # match_len, match_tok, visited, ids, counts, B, N, stream
     "ecg_bpe_chain": [_P] * 5 + [_I, _I, _P],
+    # x, w, y, n, d, w_f32, eps, stream
+    "ecg_rmsnorm": [_P] * 3 + [_I] * 3 + [_F, _P],
+    # x, w, g, dx, dw_part, dw (or NULL), n, d, w_f32, parts, eps, stream
+    "ecg_rmsnorm_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
 }
 
 _lock = threading.Lock()

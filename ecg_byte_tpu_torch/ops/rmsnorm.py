@@ -1,5 +1,6 @@
-"""RMSNorm forward and backward: Triton kernels, their plain PyTorch
-versions, and :class:`RMSNorm`, the autograd function that joins them.
+"""RMSNorm forward and backward: the CUDA kernels of ``csrc/rmsnorm.cu``,
+their plain PyTorch versions, and :class:`RMSNorm`, the autograd function
+that joins them.
 
 Replaces the Pallas kernels of ``ecg_byte_tpu/ops/rmsnorm.py``: the forward
 ``_fwd_kernel`` (reached through ``_rmsnorm_fwd``) and the backward
@@ -9,21 +10,21 @@ RMSNorm of its path (twice per layer, once before the unembedding).
 
     y  = (x_f32 * r * w_f32).to(x.dtype),   r = rsqrt(mean(x_f32^2) + eps)
     dx = r * (g*w - x * r^2 * mean(g*w*x))  per row, in x's dtype
-    dw = sum over rows of g * x * r         f32
+    dw = sum over rows of g * x * r         summed in f32, in w's dtype
 
-What bounds it on the H100: bytes.  One row is read once and written once
-(2 x 4 KB at d = 2048 in bf16) around a reduction and a few multiplies per
-element, far below the card's ratio of operations to bytes.  The kernel
-therefore keeps the whole row in registers, one program per row: one
-read of x, the f32 statistics and products in registers, one write of y.
-With a (1, 2048) decode row the launch, not the bytes, is the cost.
+On the card x is bf16, as every kernel of the port takes it, and w bf16
+or f32: the kernels convert w in registers, so a model's stored bf16 norm
+weight goes in as it is.  The width D must be a multiple of 8 (16-byte
+vectors) up to ``MAX_WIDTH``.
 
-The backward is bound by bytes too: it reads x and g and writes dx, one
-pass, with two row reductions (r and mean(g*w*x)) in f32 registers.  One
-program takes a block of rows and keeps its f32 partial sum of dw in
-registers; a second small kernel sums the partials, as the TPU kernel sums
-dw in its own body over its sequential grid.  Where the weight is frozen
-(LoRA training) dw is not computed at all.
+What bounds it on the H100: bytes, and for the (1, 2048) decode row the
+launch.  One block per row holds the row in registers between its one
+read and its one write; the backward without dw (the frozen norms of LoRA
+training) is the same shape.  With dw, blocks walk contiguous runs of rows
+and a second kernel, launched by the same C call, sums their f32 partials
+in a fixed order.  The wrappers launch through ``ctypes`` on ``_cuda.stream``, the
+raw-stream path of every kernel of the port: eager decode is bound by the
+host's launches.
 
 Gemma's ``1 + w`` stays with the caller, as in ``transformer._norm``; its
 gradient flows through that sum by autograd.
@@ -31,12 +32,15 @@ gradient flows through that sum by autograd.
 
 from __future__ import annotations
 
-import functools
-import os
-
 import torch
 
 from ecg_byte_tpu_torch.ops import _cuda
+
+# a row is at most 2,048 vectors of 8 values: 256 threads of 8 vectors
+# each (csrc/rmsnorm.cu)
+MAX_WIDTH = 2048 * 8
+# blocks per SM of the backward with dw, each with its partial row of dw
+DW_BLOCKS_PER_SM = 4
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -62,90 +66,44 @@ def rmsnorm_bwd_plain(x, w, g, eps: float, need_dw: bool = True):
     return dx, dw.to(w.dtype)
 
 
-@functools.lru_cache(maxsize=1)
-def _kernels():
-    # Triton's compile cache goes beside the CUDA build, inside the package
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_cuda.BUILD_DIR, "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_fwd(x_ptr, w_ptr, y_ptr, d, eps, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inb = cols < d
-        x = tl.load(x_ptr + row * d + cols, mask=inb, other=0.0).to(tl.float32)
-        r = 1.0 / tl.sqrt(tl.sum(x * x, axis=0) / d + eps)
-        w = tl.load(w_ptr + cols, mask=inb, other=0.0)
-        y = x * r * w
-        tl.store(y_ptr + row * d + cols, y.to(y_ptr.dtype.element_ty), mask=inb)
-
-    @triton.jit
-    def rmsnorm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, dw_part_ptr, n_rows, d, eps, rows_per_prog,
-                    BLOCK: tl.constexpr, HAS_DW: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inb = cols < d
-        w = tl.load(w_ptr + cols, mask=inb, other=0.0)
-        dw = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(rows_per_prog):
-            row = pid * rows_per_prog + i
-            ok = inb & (row < n_rows)
-            x = tl.load(x_ptr + row * d + cols, mask=ok, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + row * d + cols, mask=ok, other=0.0).to(tl.float32)
-            r = 1.0 / tl.sqrt(tl.sum(x * x, axis=0) / d + eps)
-            gw = g * w
-            dot = tl.sum(gw * x, axis=0) / d
-            dx = r * (gw - x * (r * r * dot))
-            tl.store(dx_ptr + row * d + cols, dx.to(dx_ptr.dtype.element_ty), mask=ok)
-            if HAS_DW:
-                dw += g * x * r
-        if HAS_DW:
-            tl.store(dw_part_ptr + pid * d + cols, dw, mask=inb)
-
-    @triton.jit
-    def sum_partials(part_ptr, out_ptr, n_parts, d, BLOCK: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        inb = cols < d
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(n_parts):
-            acc += tl.load(part_ptr + i * d + cols, mask=inb, other=0.0)
-        tl.store(out_ptr + cols, acc, mask=inb)
-
-    return triton, rmsnorm_fwd, rmsnorm_bwd, sum_partials
-
-
 def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
+    """Raise on what the kernels do not take, the device last, so that a
+    test can reach the other checks on a ``meta`` tensor."""
+    if x.dtype != torch.bfloat16 or w.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: x must be bfloat16 and w bfloat16 or float32, got "
+                         f"{x.dtype}, {w.dtype}")
     d = x.shape[-1]
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: x must be contiguous")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"{what}: unsupported dtype {x.dtype}")
-    if w.dtype != torch.float32 or w.shape != (d,) or w.device != x.device:
-        raise ValueError(f"{what}: w must be a float32 (D,) tensor on x's device")
-    if not w.is_contiguous():
-        raise ValueError(f"{what}: w must be contiguous")
+    if d % 8 or d > MAX_WIDTH:
+        raise ValueError(f"{what}: width {d} is not a multiple of 8 up to {MAX_WIDTH}")
+    if x.numel() == 0:
+        raise ValueError(f"{what}: x has no rows")
+    if not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError(f"{what}: x and w must be contiguous")
+    if w.shape != (d,) or w.device != x.device:
+        raise ValueError(f"{what}: w must be a (D,) tensor on x's device")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if (x.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError(f"{what}: x and w must be 16-byte aligned")
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm over the last axis of ``x`` (..., D) with f32 weight ``w``,
-    forward only (differentiable callers go through :class:`RMSNorm`).
+    """RMSNorm over the last axis of ``x`` (..., D) with the weight ``w``
+    (D,), forward only (differentiable callers go through
+    :class:`RMSNorm`).
 
     A CPU tensor takes :func:`rmsnorm_plain`; a CUDA tensor launches the
-    Triton kernel or raises.
+    kernel or raises.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rmsnorm_plain(x, w, eps)
     _check(x, w, "rmsnorm")
-    triton, kernel, _, _ = _kernels()
     d = x.shape[-1]
     y = torch.empty_like(x)
-    block = triton.next_power_of_2(d)
-    with torch.cuda.device(x.device):
-        kernel[(x.numel() // d,)](x, w, y, d, eps, BLOCK=block,
-                                  num_warps=min(max(block // 256, 1), 16))
+    err = _cuda.library().ecg_rmsnorm(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), x.numel() // d, d, w.dtype == torch.float32,
+        eps, _cuda.stream(x))
+    _cuda.check(err, "rmsnorm")
     rmsnorm.launches += 1
     return y
 
@@ -156,34 +114,31 @@ rmsnorm.launches = 0
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float,
                 need_dw: bool = True):
     """Gradients (dx, dw) of :func:`rmsnorm` for the output gradient ``g``;
-    dw is None unless ``need_dw``.
+    dw, in w's dtype, is None unless ``need_dw``.
 
     A CPU tensor takes :func:`rmsnorm_bwd_plain`; a CUDA tensor launches the
-    Triton kernels or raises.
+    kernels or raises.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rmsnorm_bwd_plain(x, w, g, eps, need_dw)
     _check(x, w, "rmsnorm_bwd")
-    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
-        raise ValueError("rmsnorm_bwd: g must be a contiguous tensor like x")
-    triton, _, kernel, sum_partials = _kernels()
+    if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+            or not g.is_contiguous() or g.data_ptr() % 16):
+        raise ValueError("rmsnorm_bwd: g must be a contiguous, 16-byte aligned tensor like x")
     d = x.shape[-1]
     n = x.numel() // d
-    block = triton.next_power_of_2(d)
-    # about two programs per SM, each walking its rows; each program's dw
-    # partial is one f32 row of the partials
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows_per_prog = max(1, -(-n // (2 * sms)))
-    progs = -(-n // rows_per_prog)
     dx = torch.empty_like(x)
-    part = torch.empty((progs, d) if need_dw else (1,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        kernel[(progs,)](x, w, g, dx, part, n, d, eps, rows_per_prog, BLOCK=block,
-                         HAS_DW=need_dw, num_warps=min(max(block // 256, 1), 16))
-        dw = None
-        if need_dw:
-            dw = torch.empty(d, dtype=torch.float32, device=x.device)
-            sum_partials[(triton.cdiv(d, 256),)](part, dw, progs, d, BLOCK=256, num_warps=2)
+    part = dw = None
+    parts = 0
+    if need_dw:  # one f32 partial row of dw per block
+        parts = min(n, DW_BLOCKS_PER_SM * _cuda.sm_count(x.device.index))
+        part = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+        dw = torch.empty_like(w)
+    err = _cuda.library().ecg_rmsnorm_bwd(
+        x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), None if dw is None else dw.data_ptr(), n, d,
+        w.dtype == torch.float32, parts, eps, _cuda.stream(x))
+    _cuda.check(err, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dw
 

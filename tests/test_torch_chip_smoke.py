@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s checks of the attention backward kernels, of both
-attention forwards, of the int8 weight product and of the device BPE encoder's
-token streams, on the CPU:
+attention forwards, of both RMSNorm kernels, of the int8 weight product and of
+the device BPE encoder's token streams, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
@@ -356,6 +356,83 @@ def test_rmsnorm_bwd_dx_check_refuses_errors(ulps):
         bad[0, 0] += ulps * chip_smoke.bf16_ulp(dx[0, 0])
     with pytest.raises(AssertionError, match="K3 bwd"):
         chip_smoke.check_rmsnorm_bwd_dx(bad, dx, x, w, g, 1e-5, "mutated")
+
+
+def _norm_out(rows=64, d=256):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(rows, d, generator=gen).to(torch.bfloat16)
+    w = torch.randn(d, generator=gen).to(torch.bfloat16)
+    return rmsnorm.rmsnorm_plain(x, w, 1e-5)
+
+
+def test_rmsnorm_fwd_check_passes_plain_and_one_ulp():
+    y = _norm_out()
+    assert chip_smoke.check_rmsnorm_fwd(y, y, "plain") == 0.0
+    near = y.float()
+    near[5] += chip_smoke.bf16_ulp(y[5])  # a whole row 1 ulp off: the tolerance
+    assert chip_smoke.check_rmsnorm_fwd(near.to(torch.bfloat16), y, "1 ulp") > 0
+
+
+@pytest.mark.parametrize("fault", ["two-ulps", "row-scaled", "nan"])
+def test_rmsnorm_fwd_check_refuses_errors(fault):
+    """One element 2 ulps off, one row scaled by 1.02 (a wrong r for one
+    row), one NaN."""
+    y = _norm_out()
+    bad = y.float()
+    if fault == "two-ulps":
+        bad[5, 7] += 2 * chip_smoke.bf16_ulp(y[5, 7])
+    elif fault == "row-scaled":
+        bad[9] *= 1.02
+    else:
+        bad[3, 0] = float("nan")
+    with pytest.raises(AssertionError, match="K3"):
+        chip_smoke.check_rmsnorm_fwd(bad.to(torch.bfloat16), y, "mutated")
+
+
+def _norm_dw(rows=64, d=256, parts=16):
+    """The plain dw, and dw from per-block partials of g x r (rows in
+    contiguous runs, as the kernel's blocks take them) summed in order and
+    in reverse order."""
+    x, w, g, _ = _norm_grads(rows, d)
+    _, pdw = rmsnorm.rmsnorm_bwd_plain(x, w, g, 1e-5, True)
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-5)
+    part = (gf * xf * r).reshape(parts, rows // parts, d).sum(1)
+    ordered, reverse = torch.zeros(d), torch.zeros(d)
+    for p in range(parts):
+        ordered += part[p]
+        reverse += part[parts - 1 - p]
+    return pdw, ordered, reverse
+
+
+def test_rmsnorm_dw_check_passes_plain_and_blocked():
+    pdw, ordered, _ = _norm_dw()
+    assert chip_smoke.check_rmsnorm_dw(pdw, pdw, pdw.clone(), "plain") == 0.0
+    assert chip_smoke.check_rmsnorm_dw(ordered, pdw, ordered.clone(), "blocked") < 1e-6
+
+
+def test_rmsnorm_dw_check_refuses_another_order():
+    """A second call whose partials were summed in another order: within
+    1e-3 of the first, but not equal to it."""
+    pdw, ordered, reverse = _norm_dw()
+    assert not torch.equal(ordered, reverse)
+    with pytest.raises(AssertionError, match="two calls' dw differ"):
+        chip_smoke.check_rmsnorm_dw(ordered, pdw, reverse, "another order")
+
+
+@pytest.mark.parametrize("fault", ["beyond-1e-3", "nan"])
+def test_rmsnorm_dw_check_refuses_errors(fault):
+    """A dw 2e-3 of max|dw| off in one element (its partials summed with
+    one dropped would be further), and a NaN; the second call equal to the
+    first, so only the bound can refuse them."""
+    pdw, ordered, _ = _norm_dw()
+    bad = ordered.clone()
+    if fault == "nan":
+        bad[0] = float("nan")
+    else:
+        bad[17] += 2e-3 * pdw.abs().max()
+    with pytest.raises(AssertionError, match="K3 bwd"):
+        chip_smoke.check_rmsnorm_dw(bad, pdw, bad.clone(), "mutated")
 
 
 def _encoded_batch():

@@ -164,6 +164,43 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_rmsnorm_plain_bf16_weight_matches_f32_weight_and_pallas():
+    """The stored bf16 norm weight goes to the kernels as it is: the plain
+    forward with a bf16 w equals the one with ``w.float()`` bit for bit,
+    and both equal the Pallas kernel (interpret mode) given the same bf16
+    w, which it converts in-register."""
+    x, w = _norm_inputs(seed=9)
+    xb = _torch_bf16(_bf16_np(x))
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    got = rmsnorm.rmsnorm(xb, wb, 1e-5)
+    assert torch.equal(got, rmsnorm.rmsnorm(xb, wb.float(), 1e-5))
+    pallas = np.asarray(jax_rmsnorm.rmsnorm(jnp.asarray(_bf16_np(x), jnp.bfloat16),
+                                            jnp.asarray(wb.float().numpy(), jnp.bfloat16),
+                                            1e-5, 512, True)).astype(np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), pallas)
+    assert rmsnorm.rmsnorm.launches == 0
+
+
+@pytest.mark.parametrize("width", [12, 4, 16392], ids=["not-8", "below-8", "too-wide"])
+def test_rmsnorm_wrappers_refuse_widths(width):
+    """A width the CUDA kernels do not take (not a multiple of 8, or a row
+    above 2,048 vectors of 8) raises before the device is looked at; the
+    widest they take, with either weight type, gets as far as the device
+    check, and an x other than bf16 is refused."""
+    x = torch.empty(4, width, device="meta", dtype=torch.bfloat16)
+    w = torch.ones(width, device="meta")
+    with pytest.raises(ValueError, match="width"):
+        rmsnorm.rmsnorm(x, w, 1e-5)
+    with pytest.raises(ValueError, match="width"):
+        rmsnorm.rmsnorm_bwd(x, w, x, 1e-5, False)
+    x = torch.empty(4, rmsnorm.MAX_WIDTH, device="meta", dtype=torch.bfloat16)
+    for w_dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="device"):
+            rmsnorm.rmsnorm(x, torch.ones(rmsnorm.MAX_WIDTH, device="meta", dtype=w_dtype), 1e-5)
+    with pytest.raises(ValueError, match="x must be bfloat16"):
+        rmsnorm.rmsnorm(x.float(), torch.ones(rmsnorm.MAX_WIDTH, device="meta"), 1e-5)
+
+
 def test_wrappers_reject_other_devices():
     """Only a CPU tensor takes the plain version; anything else goes to the
     kernel's checks, which raise before any launch."""

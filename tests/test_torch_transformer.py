@@ -133,3 +133,66 @@ def test_resize_embeddings_matches_jax():
     p, cfg = T.resize_embeddings(params, pc, 600)
     assert cfg.vocab_size == jcfg.vocab_size == 600
     np.testing.assert_allclose(p["embed"].numpy(), np.asarray(jp["embed"]), atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["llama", "gemma"])
+def test_norm_weight_as_stored_is_bit_equal_to_f32_cast(arch):
+    """``_norm`` hands llama's stored bf16 norm weight to the RMSNorm kernel
+    as it is (the kernel converts it in registers); gemma's caller still
+    adds its 1 in f32.  Logits and LoRA gradients of a bf16 model equal,
+    bit for bit, those of the same model with its norm weights cast to
+    f32 first."""
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+    from ecg_byte_tpu_torch.ops import rmsnorm
+
+    pc = tiny_test_config(arch, dtype="bfloat16")
+    params = T.init_params(pc, torch.Generator().manual_seed(0), CPU)
+    rng = np.random.default_rng(4)
+
+    def tree(fn, t, name=""):
+        if isinstance(t, dict):
+            return {k: tree(fn, v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [tree(fn, v, name) for v in t]
+        return fn(name, t)
+
+    def noisy(name, t):  # unit norm weights would hide a dropped weight
+        if "norm" not in name:
+            return t
+        return (t.float() + 0.1 * torch.from_numpy(rng.standard_normal(t.shape))).to(t.dtype)
+
+    params = tree(noisy, params)
+    cast = tree(lambda name, t: t.float() if "norm" in name else t, params)
+    assert params["final_norm"].dtype == torch.bfloat16
+    lora = lora_lib.init_lora(pc, torch.Generator().manual_seed(1), CPU)
+    lora = tree(lambda name, t: (0.05 * torch.from_numpy(rng.standard_normal(t.shape))).to(t.dtype)
+                if name == "b" else t, lora)
+    ids, mask = _prompt()
+    labels = np.where(rng.random(ids.shape) < 0.5, ids, -100)
+    seen = []
+    real = rmsnorm.rmsnorm
+
+    def spy(x, w, eps):
+        seen.append(w.dtype)
+        return real(x, w, eps)
+
+    def run(p):
+        lo = tree(lambda name, t: t.detach().clone().requires_grad_(True), lora)
+        h = T.forward(p, pc, _t(ids).long(), _t(mask), lora=lo, return_hidden=True)
+        T.lm_loss_from_hidden(p, pc, h, _t(labels).long()).backward()
+        with torch.no_grad():
+            logits = T.forward(p, pc, _t(ids).long(), _t(mask), lora=lo)
+        return logits, lora_lib.leaves(tree(lambda name, t: t.grad, lo))
+
+    rmsnorm.rmsnorm = spy
+    try:
+        (logits, grads), (logits_f32, grads_f32) = run(params), run(cast)
+    finally:
+        rmsnorm.rmsnorm = real
+    half = len(seen) // 2
+    assert set(seen[:half]) == {torch.bfloat16 if arch == "llama" else torch.float32}
+    assert set(seen[half:]) == {torch.float32}
+    assert torch.equal(logits, logits_f32)
+    assert len(grads) == len(grads_f32) > 0
+    for a, b in zip(grads, grads_f32):
+        assert a is not None and torch.equal(a, b)
