@@ -29,9 +29,13 @@ Phases, each printing its own lines, in the order they run:
    serving path's cache (B1 and B4, gemma's heads), there at forced split
    counts too (1, 7 and one range a tile; the B4 cache has range
    boundaries inside its left padding and whole ranges past its filled
-   slots), with device times (CUDA graphs) beside the eager ones.
-   The int8 kernels: decode attention over the int8 cache, 1,152 slots and
-   the long one (SDPA on the bf16 cache as yardstick), the int8 weight
+   slots), with device times (CUDA graphs) beside the eager ones.  Both
+   decode kernels as the decode step calls them, with this token's K/V row
+   on a stale cache (check_fused_decode: equal, out and cache bytes, to the
+   append followed by the kernel, at every split count and with the row on
+   tile and range boundaries, in the last tile and past 5,120), timed
+   against that pair.  The int8 kernels: decode attention over the int8
+   cache, 1,152 slots and the long one (SDPA on the bf16 cache as yardstick), the int8 weight
    product (cuBLAS on the bf16 weight) on the GEMV kernel and on the
    tensor-core one, each forced at both sides of their threshold and at
    M 1152, up to M 4992 and at gpt2's ragged c_attn (N 4800), and the KV
@@ -43,7 +47,10 @@ Phases, each printing its own lines, in the order they run:
    (CUDA graphs) beside the eager ones for kernel, plain and F.rms_norm.
    The two BPE kernels must equal their plain versions exactly, and the
    device encoder's streams the host C++ trie's, at (64, 6,000) and
-   (256, 30,000) symbols; the trie is their yardstick.
+   (256, 30,000) symbols; the trie is their yardstick.  The chain kernel
+   also on adversarial rows (chain_rows: lengths all 1, all 2, all
+   max_len, <= 0 and past max_len, N = 1, N below the block, a ragged last
+   segment, one record past the shared-memory stage), exactly.
 6. Train: ``ecg_byte_tpu_torch.cli.main`` trains a random Llama-3.2-1B at
    full width with LoRA (``--peft --dev``, batch 4 x 1024) on ``ptb_500``,
    its records encoded once into the device token cache; exact launch
@@ -58,7 +65,9 @@ Phases, each printing its own lines, in the order they run:
 5. Serving kernel path vs plain path: one prompt plus 32 teacher-forced
    tokens through prefill and decode_step; the logits must agree.
 9. The same for the int8 model and cache.  Phases 5, 9 and 12 end with
-   the device time of a decode step (``torch.profiler``).
+   the device time and device launches of a decode step
+   (``torch.profiler``), and the same with the append run before the
+   kernel, as the decode step did before the kernel took the row.
 7. Train-step kernel path vs plain path: loss, cross entropy and LoRA
    gradients of 4 items at B1 x 1024 with the kernels, with the plain
    versions and in f32.
@@ -163,6 +172,9 @@ SOURCES = {  # kernel -> (route, source, the TPU kernel it replaces)
                  "ecg_byte_tpu/models/transformer.py:1013"),
 }
 LAYERS = 16  # Llama-3.2-1B
+# the first chain kernel's times (one thread walked each record), NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, section 6), beside this one's
+OLD_CHAIN_MS = {(64, 6000): 0.2193, (256, 30000): 0.2363}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,12 +202,13 @@ class ServePath:
 
 
 # per forward 2L + 1 norms; per prefill L attention kernels (the flash
-# forward from S 4096 on), per decode step L decode kernels; with int8, per
-# prefill the 7 projections of every layer on the tensor-core product (M =
-# the prompt's bucket) and per decode step on the GEMV one (M = 1), per
-# forward the head on the GEMV one (the last position only) and one KV
-# append a layer; no BPE kernel (serving encodes on the host).  --toy
-# decodes a quarter of the test records.
+# forward from S 4096 on), per decode step L decode kernels, each of which
+# also appends its token's K/V row; with int8, per prefill the 7
+# projections of every layer on the tensor-core product (M = the prompt's
+# bucket) and one KV append a layer (kv_quant), per decode step the
+# projections on the GEMV one (M = 1), per forward the head on the GEMV one
+# (the last position only); no BPE kernel (serving encodes on the host).
+# --toy decodes a quarter of the test records.
 NORMS = {"rmsnorm": 2 * LAYERS + 1}
 SERVE = ServePath(
     "serve", "4. serve: cli.main --inference --peft on phase 6's checkpoint (LoRA merged)",
@@ -208,9 +221,9 @@ SERVE_INT8 = ServePath(
     f"9. int8 serving kernel path vs plain path: one prompt + {TEACHER_FORCED} teacher-forced "
     "tokens, int8 weights and KV cache",
     ("--int8_decode", "--toy"), NUM_MERGES,
-    {"prefill_attention": LAYERS, "int8_linear_tc": 7 * LAYERS},
+    {"prefill_attention": LAYERS, "int8_linear_tc": 7 * LAYERS, "kv_quant": LAYERS},
     {"decode_attention_int8": LAYERS, "int8_linear": 7 * LAYERS},
-    {**NORMS, "int8_linear": 1, "kv_quant": LAYERS},
+    {**NORMS, "int8_linear": 1},
     records=max(1, int(N_TEST * 0.25)), min_prompt=1024, int8=True)
 SERVE_LONG = ServePath(
     "serve_long", "11. long serve: cli.main --inference --peft --toy on phase 10's checkpoint "
@@ -468,6 +481,20 @@ def check_decode(got, want, shape, tag="K2"):
     return err
 
 
+def check_fused_decode(got, want, caches, want_caches, shape):
+    """Hold decode attention with this token's row (``fresh_k``, ``fresh_v``
+    and ``write_idx`` on a stale cache) to the pair it replaces, the append
+    and then the kernel on the updated cache: the output and every cache
+    tensor (rows and, with the int8 cache, scales) must be equal bit for
+    bit.  The fused kernel writes the row with the append kernel's
+    quantizer and attends the same values in the same order."""
+    import torch
+
+    assert torch.equal(got, want), f"K2 fresh {shape}: out differs from append + kernel"
+    for name, a, w in zip(("k_cache", "v_cache", "k_scale", "v_scale"), caches, want_caches):
+        assert torch.equal(a, w), f"K2 fresh {shape}: {name} differs from append + kernel"
+
+
 def check_rmsnorm_bwd_dx(dx, pdx, x, w, gout, eps, shape):
     """Hold the kernel's RMSNorm dx against the plain one's and return
     max|d|.  dx = r (g w - x r^2 mean(g w x)) is a difference: where its two
@@ -576,6 +603,39 @@ def check_streams(ids, counts, want, what):
         assert (ids[r, c:] == PAD_TOKEN).all(), f"{what}: record {r} is not padded after {c}"
 
 
+def chain_rows(gen, max_len, device, n=6000, long_n=40_001, threads=512):
+    """The chain kernel's adversarial rows, each ``(label, match_len,
+    match_tok)`` int32 (B, N) on ``device``, random from ``gen``; ``n`` is
+    the common row length (a multiple of 4: the kernel's 16-byte path),
+    ``long_n`` one past the kernel's shared-memory stage (its first stage
+    on the 16-byte path, its second on the 4-byte one), ``threads`` its
+    block (one segment a thread)."""
+    import torch
+
+    def rand(b, width, lo=1, hi=max_len):
+        return torch.randint(lo, hi + 1, (b, width), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def full(b, v):
+        return torch.full((b, n), v, dtype=torch.int32, device=device)
+
+    stops = torch.cat([full(1, 0), full(1, -1), full(1, max_len + 1),
+                       rand(2, n, -2, max_len + 1)])
+    ones = full(2, 1)
+    ones[1, n // 3] = 0
+    rows = [("random lengths in [1, max_len]", rand(4, n)),
+            ("all lengths 1 (and one 0 at n // 3)", ones),
+            ("all lengths 2 (no synchronization)", full(2, 2)),
+            ("all lengths max_len", full(2, max_len)),
+            ("lengths <= 0 and > max_len (each ends the chain)", stops),
+            ("N = 1", rand(3, 1)),
+            ("N below the thread count", rand(3, threads // 2 + 3)),
+            ("N not a multiple of the segment", rand(3, n + 5)),
+            ("B = 1, N past the shared-memory stage", rand(1, long_n))]
+    return [(label, ln, torch.randint(0, 70_000, ln.shape, generator=gen, device=device,
+                                      dtype=torch.int32)) for label, ln in rows]
+
+
 def _chain_plain(match_len, match_tok, max_len):
     """``bpe_match.greedy_chain``'s plain path: the chain, then the sort."""
     from ecg_byte_tpu_torch.ops import bpe_encode, bpe_match
@@ -643,7 +703,8 @@ def plain_path(kernels=tuple(SOURCES)):
     )
 
     _counters()
-    decode = (attention_decode, "decode_attention_fused", attention.decode_attention)
+    decode = (attention_decode, "decode_attention_fused",
+              attention_decode.decode_attention_fused_plain)
     product = (int8_linear, "int8_linear", int8_linear.int8_linear_plain)
     swaps = {
         "prefill_attention": (attention_resident, "resident_attention", attention.grouped_attention),
@@ -927,8 +988,7 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
             bmask = mask.bool()[:, None, None, :]
             decode_row(record, "decode_attention", [b, s, h, kh, d], forced, q, kc, vc, mask,
                        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
-                                                              enable_gqa=True),
-                       main=(b, s, h) == (1, 1152, 32))
+                                                              enable_gqa=True))
             del q4, k4, v4, bmask
 
     # K3 forward: the main paths' shapes with llama's stored bf16 weight,
@@ -994,6 +1054,7 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
                plain_device_ms=dev_ms[1], library_device_ms=dev_ms[2])
 
     int8_checks(record, dev, randn, serve_prompt)
+    fused_decode_checks(record, dev, randn, serve_prompt)
     flash_checks(record, dev, randn, serve_prompt)
 
     # the BPE kernels: one batch of the token cache at ptb_500's 12 x 500
@@ -1015,7 +1076,7 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     return report
 
 
-def decode_row(record, name, shape, forced, q, kc, vc, mask, library, main, k_scale=None,
+def decode_row(record, name, shape, forced, q, kc, vc, mask, library, k_scale=None,
                v_scale=None):
     """Decode attention over one cache: the kernel at each forced split
     count and at its own (``num_splits``) held to plain by check_decode;
@@ -1050,9 +1111,113 @@ def decode_row(record, name, shape, forced, q, kc, vc, mask, library, main, k_sc
     # a K or V row: bf16, or int8 with its bf16 scale
     row_bytes = 2 * kh * d if k_scale is None else kh * d + 2 * kh
     nbytes = 2 * n_valid * row_bytes + 2 * 2 * q.numel() + 4 * mask.numel()
-    record(name, shape, err, times, 4 * d * h * n_valid, nbytes, main=main, ranges=default,
+    record(name, shape, err, times, 4 * d * h * n_valid, nbytes, main=False, ranges=default,
            device_ms=dev_ms[0], library_device_ms=dev_ms[1],
            forced_device_ms={n: t for n, t in zip(counts, dev_ms[2:])})
+
+
+def fused_decode_checks(record, dev, randn, serve_prompt):
+    """Decode attention as the decode step calls it, with this token's row
+    (``fresh_k``, ``fresh_v``, ``write_idx``) on a stale cache, for both
+    caches at the serving cache (S_max 1,152) and the long one: held by
+    check_fused_decode to the pair it replaces (:func:`append_then_kernel`:
+    ``kv_quant.append_kv`` or two slice copies, then the kernel), at every
+    forced split count and its own, with the row on a tile boundary, on a
+    range boundary, in the last tile and past slot 5,120; then, with the row where a decode step
+    writes it, held to plain by check_decode and timed in turns with the
+    pair, the plain version and SDPA (the bf16 rows) on the host clock
+    (100 eager calls), and with the pair, the kernel alone on the updated
+    cache (what the row adds to phase A) and SDPA on the device (CUDA
+    graphs).  These are the main rows of both decode kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from ecg_byte_tpu_torch.ops import _cuda, kv_quant
+    from ecg_byte_tpu_torch.ops import attention_decode as ad
+
+    kernel = ad.decode_attention_fused
+    bucket, prompt_len = serve_prompt
+    for int8 in (False, True):
+        name = "decode_attention_int8" if int8 else "decode_attention"
+        for b, s, h, kh, d, pad, at in [(1, 1152, 32, 8, 64, 3, 1100),
+                                        (1, bucket + 128, 32, 8, 64, bucket - prompt_len,
+                                         bucket + 64)]:
+            shape = [b, s, h, kh, d]
+            with torch.inference_mode():
+                q, kb, vb = randn(b, 1, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
+                fk, fv = randn(b, 1, kh, d), randn(b, 1, kh, d)
+                if int8:
+                    (kc, ks), (vc, vs) = kv_quant.quant_kv_rows(kb), kv_quant.quant_kv_rows(vb)
+                    stale = [kc, vc, ks, vs]
+                else:
+                    stale = [kb, vb]
+
+                def cache_mask(idx):  # a decode step's: the slots up to its own
+                    m = torch.zeros(b, s, dtype=torch.int32, device=dev)
+                    m[:, :idx + 1] = 1
+                    m[0, :pad] = 0
+                    return m
+
+                def fused(c, mask, idx, n=None, call=kernel):
+                    return call(q, c[0], c[1], mask, *(c[2:] if int8 else (None, None)), n,
+                                fresh_k=fk, fresh_v=fv, write_idx=idx)
+
+                def pair(c, mask, idx, n=None):
+                    return fused(c, mask, idx, n, call=append_then_kernel)
+
+                tiles = -(-s // ad.KEYS)
+                own = ad.num_splits(b, kh, s, _cuda.sm_count(q.device.index))
+                checked = 0
+                for n in sorted({own, 1, 7, tiles}):
+                    starts = [lo for lo, _ in ad.split_ranges(s, n)]
+                    slots = {10 * ad.KEYS, starts[len(starts) // 2], s - 1}
+                    if s > 5120 + 8:
+                        slots.add(5120 + 7)
+                    for idx in sorted(slots):
+                        mask = cache_mask(idx)
+                        got_c, want_c = [t.clone() for t in stale], [t.clone() for t in stale]
+                        got, want = fused(got_c, mask, idx, n), pair(want_c, mask, idx, n)
+                        torch.cuda.synchronize()
+                        check_fused_decode(got, want, got_c, want_c,
+                                           shape + [f"{n} ranges", f"slot {idx}"])
+                        checked += 1
+                print(f"{name} {shape} with this token's row: {checked} calls (split counts "
+                      f"{sorted({own, 1, 7, tiles})}, slots on a tile boundary, a range "
+                      "boundary, the last tile, past 5,120) equal append + kernel "
+                      "(torch.equal: out, cache rows and scales)")
+
+                mask = cache_mask(at)
+                c_f, c_p, c_l = ([t.clone() for t in stale] for _ in range(3))
+                scales = (c_l[2], c_l[3]) if int8 else (None, None)
+                want = ad.decode_attention_fused_plain(q, c_l[0], c_l[1], mask, *scales,
+                                                       fresh_k=fk, fresh_v=fv, write_idx=at)
+                got = fused(c_f, mask, at)
+                torch.cuda.synchronize()
+                err = check_decode(got, want, shape + ["this token's row", f"slot {at}"])
+                q4 = q.transpose(1, 2)
+                k4, v4 = kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
+                bmask = mask.bool()[:, None, None, :]
+                fns = [lambda: fused(c_f, mask, at), lambda: pair(c_p, mask, at),
+                       lambda: ad.decode_attention_fused_plain(
+                           q, c_l[0], c_l[1], mask, *scales, fresh_k=fk, fresh_v=fv,
+                           write_idx=at),
+                       lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
+                                                              enable_gqa=True)]
+                times = time_in_turns(fns, [100, 100, 20, 100])
+                alone = lambda: kernel(q, c_p[0], c_p[1], mask,  # noqa: E731
+                                       *(c_p[2:] if int8 else (None, None)))
+                dev_ms = time_graphed([fns[0], fns[1], alone, fns[3]])
+                n_valid = mask.sum().item()
+                row_bytes = kh * d + 2 * kh if int8 else 2 * kh * d
+                # the valid cache rows read once (the fresh one from its bf16
+                # input instead), the fresh rows written, q read, out written
+                nbytes = (2 * (n_valid - 1) * row_bytes + 2 * 2 * fk.numel() + 2 * row_bytes
+                          + 2 * 2 * q.numel() + 4 * mask.numel())
+                record(name, shape + ["fresh"], err, (times[0], times[2], times[3]),
+                       4 * d * h * n_valid, nbytes, main=s == 1152, ranges=own, write_idx=at,
+                       pair_ms=times[1], device_ms=dev_ms[0], pair_device_ms=dev_ms[1],
+                       alone_device_ms=dev_ms[2], library_device_ms=dev_ms[3])
+                del q4, k4, v4, bmask
 
 
 def int8_checks(record, dev, randn, serve_prompt):
@@ -1083,7 +1248,7 @@ def int8_checks(record, dev, randn, serve_prompt):
             decode_row(record, "decode_attention_int8", [b, s, h, kh, d], (), q, kc, vc, mask,
                        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
                                                               enable_gqa=True),
-                       main=(b, s, h) == (1, 1152, 32), k_scale=ks, v_scale=vs)
+                       k_scale=ks, v_scale=vs)
             del q4, k4, v4, bmask
 
     # the int8 weight product, each row on the kernel the wrapper picks or
@@ -1152,8 +1317,9 @@ def int8_checks(record, dev, randn, serve_prompt):
         print(f"host cost of one {label} call at (1, 64) x (64, 64): "
               f"{(time.perf_counter() - t0) * 1e3:.1f} us (host clock over 1,000 calls)")
 
-    # the KV quantizer: a decode step's rows (B1, B4) and a prefill's, into a
-    # 1,152-slot cache, and gemma's D 256; it must equal the plain version
+    # the KV quantizer: a prefill's rows (its main path's call, one a layer
+    # per prompt), a decode step's (B1, B4) and gemma's D 256, into a
+    # 1,152-slot cache; it must equal the plain version
     for b, rows, kh, d, idx in [(1, 1, 8, 64, 1100), (4, 1, 8, 64, 1100), (1, 1152, 8, 64, 0),
                                 (1, 1, 1, 256, 5)]:
         with torch.inference_mode():
@@ -1182,7 +1348,7 @@ def int8_checks(record, dev, randn, serve_prompt):
             # once; ~5 operations per element (abs, max, divide, round, clamp)
             nbytes = 2 * (2 * k.numel() + k.numel() + 2 * b * rows * kh)
             record("kv_quant", [b, rows, kh, d], 0.0, (*times, None), 10 * k.numel(), nbytes,
-                   main=(b, rows) == (1, 1), host_ms=host[0], plain_host_ms=host[1])
+                   main=rows == 1152, host_ms=host[0], plain_host_ms=host[1])
     print("  kv_quant: int8 rows and bf16 scales equal the plain version's (torch.equal)")
 
 
@@ -1262,11 +1428,43 @@ def flash_checks(record, dev, randn, serve_prompt):
     torch.cuda.empty_cache()
 
 
+def chain_checks(record, dev, max_len):
+    """The chain kernel on :func:`chain_rows`' adversarial rows (with the
+    main path's ``max_len``, and the first three also at max_len 64, 128
+    and 255: the kernel's instances for longer tokens): each must equal the
+    plain chain and ``_compact`` exactly; timed in turns with the plain
+    version, and on the device (CUDA graphs)."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops import bpe_match
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(max_len, row) for row in chain_rows(gen, max_len, dev)]
+    cases += [(w, row) for w in (64, 128, 255) for row in chain_rows(gen, w, dev)[:3]]
+    for w, (label, ln, tok) in cases:
+        got = bpe_match.greedy_chain(ln, tok, w)
+        want = _chain_plain(ln, tok, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"bpe_chain {label}, max_len {w}: differs from plain"
+        kernel = lambda: bpe_match.greedy_chain(ln, tok, w)  # noqa: E731
+        times = time_in_turns([kernel, lambda: _chain_plain(ln, tok, w)], [20, 1])
+        b, n = ln.shape
+        record("bpe_chain", [b, n], 0.0, (*times, None), 0, 8 * b * n + b * n + 4 * b * n + 4 * b,
+               False, row=label, max_len=w,
+               tokens_per_record=round(want[2].float().mean().item(), 1),
+               device_ms=time_graphed([kernel])[0])
+    print(f"  bpe_chain: every adversarial row (max_len {max_len}, and 64, 128, 255) equals the "
+          "plain chain and _compact exactly")
+
+
 def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
     """Both BPE kernels against their plain versions (exactly), the device
     encoder against the host trie (every record), and the times of kernel,
     plain and the host trie, in turns; ``iters`` calls of the kernels, of
-    the plain versions and of the trie per turn."""
+    the plain versions and of the trie per turn.  The chain's tokens per
+    record and ns per token beside the first design's; with ``main`` also
+    :func:`chain_checks` at this ``max_len``."""
     import numpy as np
     import torch
 
@@ -1306,14 +1504,28 @@ def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
                                  lambda: bpe_match.longest_match_plain(q, table), trie], iters)
     chain_times = time_in_turns([lambda: bpe_match.greedy_chain(ln, tok, table.max_len),
                                  lambda: _chain_plain(ln, tok, table.max_len)], iters[:2])
+    # device times (CUDA graphs): eager, a call's host cost hides a kernel
+    # that takes less
+    dev_ms = time_graphed([lambda: bpe_match.longest_match(q, table),
+                           lambda: bpe_match.greedy_chain(ln, tok, table.max_len)])
     trie_ms = match_times[2]
     print(f"  host trie (C++, the --online_encode path) {trie_ms:.3f} ms for the batch; the "
           f"plain versions over {iters[1]} call(s) a turn")
     # bytes: each input once, each output once (no floating-point work)
     record("bpe_match", [b, n], 0.0, (match_times[0], match_times[1], None), 0,
-           b * n + table_bytes + 8 * b * n, main, host_trie_ms=trie_ms)
+           b * n + table_bytes + 8 * b * n, main, host_trie_ms=trie_ms, device_ms=dev_ms[0])
     record("bpe_chain", [b, n], 0.0, (chain_times[0], chain_times[1], None), 0,
-           8 * b * n + b * n + 4 * b * n + 4 * b, main, host_trie_ms=trie_ms)
+           8 * b * n + b * n + 4 * b * n + 4 * b, main, host_trie_ms=trie_ms,
+           device_ms=dev_ms[1])
+    per_record = counts.float().mean().item()
+    old = OLD_CHAIN_MS.get((b, n))
+    print(f"  bpe_chain {label}: {per_record:.1f} tokens per record; "
+          f"{chain_times[0] * 1e6 / per_record:.2f} ns per chain token eager, "
+          f"{dev_ms[1] * 1e6 / per_record:.2f} on the device" + (
+              "" if old is None else f" (the one-thread walk, {old} ms eager in PERF.md: "
+              f"{old * 1e6 / per_record:.2f} ns per token)"))
+    if main:
+        chain_checks(record, dev, table.max_len)
 
 
 def train_phase(root, vocab, merges):
@@ -1727,38 +1939,82 @@ def paths_phase(root, vocab, merges, path):
     decode_device_time(run, params, config, s, "int8" if path.int8 else "bf16")
 
 
+def append_then_kernel(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=None, splits=None,
+                       *, fresh_k=None, fresh_v=None, write_idx=None):
+    """Decode attention as the decode step ran it before the kernel took
+    this token's row: the append first (``kv_quant.append_kv`` for the int8
+    cache, two slice copies for the bf16 one), then the kernel on the
+    updated cache.  A stand-in for ``decode_attention_fused`` that
+    measures what the fused row saves."""
+    from ecg_byte_tpu_torch.ops import kv_quant
+
+    if k_scale is not None:
+        kv_quant.append_kv(fresh_k, fresh_v, k_cache, v_cache, k_scale, v_scale, write_idx)
+    else:
+        k_cache[:, write_idx:write_idx + 1] = fresh_k
+        v_cache[:, write_idx:write_idx + 1] = fresh_v
+    kernel = _counters()["decode_attention"][0]  # the wrapper, whatever is patched in
+    return kernel(q, k_cache, v_cache, valid_mask, k_scale, v_scale, splits)
+
+
+# the wrapper counts its launches on what its module's name holds, which is
+# this function while it is patched in
+append_then_kernel.launches = append_then_kernel.int8_launches = 0
+
+
 def decode_device_time(run, params, config, s, label, steps=16):
-    """Device time of a decode step of ``run`` after a prompt bucketed to
-    ``s``: ``torch.profiler`` over ``steps`` teacher-forced steps after the
-    prefill, the kernels' device time summed; beside it the wall time of
-    the same steps (host clock, the profiler's overhead included)."""
+    """Device time and device launches of a decode step of ``run`` after a
+    prompt bucketed to ``s``: ``torch.profiler`` over ``steps``
+    teacher-forced steps after the prefill, the kernels' (and copies')
+    device time summed and their launches counted; beside it the wall time
+    of the same steps (host clock, the profiler's overhead included).  Once
+    as the decode step runs, once with the append before the kernel
+    (:func:`append_then_kernel`), in the order fused, append, append,
+    fused."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run(params, config, steps=2)  # warm
-    torch.cuda.synchronize()
-    marks = {}
+    from ecg_byte_tpu_torch.ops import attention_decode
 
-    def on_step(step):
-        if step == 1:  # the prefill and the first step are outside the window
-            torch.cuda.synchronize()
-            marks["t0"] = time.perf_counter()
-            prof.start()
+    _counters()  # the wrappers themselves, before the patch below
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    run(params, config, steps=steps + 1, on_step=on_step)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - marks["t0"]) / steps * 1e3
-    prof.stop()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"decode step after a {s}-token prompt, {label}, over {steps} steps (torch.profiler): "
-          f"device busy {busy:.3f} ms/step, wall {wall:.3f} ms/step, idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}; top: " + "; ".join(
-              f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f}" for e in top))
+    def measure():
+        run(params, config, steps=2)  # warm
+        torch.cuda.synchronize()
+        marks = {}
+
+        def on_step(step):
+            if step == 1:  # the prefill and the first step are outside the window
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+                prof.start()
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        run(params, config, steps=steps + 1, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - marks["t0"]) / steps * 1e3
+        prof.stop()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        n = sum(e.count for e in kernels) / steps
+        return busy, wall, n, sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+
+    variants = {"fused append": contextlib.nullcontext,
+                "append, then kernel": lambda: mock.patch.object(
+                    attention_decode, "decode_attention_fused", append_then_kernel)}
+    got = {}
+    for name in list(variants) + list(reversed(variants)):
+        with variants[name]():
+            got.setdefault(name, []).append(measure())
+    for name, (first, second) in got.items():
+        busy, wall, n = ((a + b) / 2 for a, b in zip(first[:3], second[:3]))
+        print(f"decode step after a {s}-token prompt, {label}, {name}, over {steps} steps x 2 "
+              f"(torch.profiler): device busy {busy:.3f} ms/step, {n:.1f} device launches a "
+              f"token, wall {wall:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}; "
+              "top: " + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f}"
+                                  for e in first[3]))
 
 
 def train_paths_phase(root, vocab, merges, check):

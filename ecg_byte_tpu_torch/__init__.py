@@ -15,8 +15,9 @@ The kernels the TPU ran in Pallas are written by hand for Hopper:
 - prefill and training attention, forward and backward, CUDA C++
   (``csrc/attention_prefill.cu``, ``csrc/attention_prefill_bwd.cu``,
   ``ops/attention_resident.py``);
-- decode attention over a bf16 KV cache, CUDA C++
-  (``csrc/attention_decode.cu``, ``ops/attention_decode.py``);
+- decode attention over a bf16 or int8 KV cache, which also writes this
+  token's K/V row into the cache, CUDA C++ (``csrc/attention_decode.cu``,
+  ``ops/attention_decode.py``);
 - RMSNorm, forward and backward, CUDA C++ (``csrc/rmsnorm.cu``,
   ``ops/rmsnorm.py``);
 - the BPE encoder's longest match and greedy chain, CUDA C++

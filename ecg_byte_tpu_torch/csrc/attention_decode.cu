@@ -46,12 +46,25 @@
 // uniform mean of V over its S positions, as the plain version does.  No
 // float atomics: every sum has a fixed order.
 //
+// This token's row (the fresh-row contract of the TPU kernel).  With
+// write_idx >= 0 the cache comes in stale and fresh_k, fresh_v (B, 1, KH, D)
+// bf16 hold this token's rows.  The one phase-A block of each (b, kvh)
+// whose range holds slot write_idx writes them into the cache: copied for
+// the bf16 cache, quantized by ecg::quant_row (kv_quant.cuh, the append
+// kernel's quantizer) with their bf16 scales for the int8 cache.  It
+// stages its K row and K scale from shared memory in place of the stale
+// slot; phase B, the next launch on the stream, reads the written V row
+// and V scale.  No other block touches the slot, so no atomics and no
+// extra barrier.  The result equals an append followed by the kernel, bit
+// for bit, and a decode step needs no launch of its own for the append.
+//
 // Scratch (one f32 buffer from the wrapper): logits (B, KH, G, S), stats
 // (B, KH, splits, G, 2), partials (B, KH, splits, G, D) when splits > 1.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -75,16 +88,29 @@ __device__ __forceinline__ int range_start(int split, int splits, int tiles) {
   return int((long long)split * tiles / splits);
 }
 
+// This token's rows and where they go (write_idx < 0: none).
+template <typename T>
+struct Fresh {
+  const __nv_bfloat16* k;  // (B, 1, KH, D)
+  const __nv_bfloat16* v;
+  T* k_cache;  // the caches and scales the rows are written into
+  T* v_cache;
+  __nv_bfloat16* k_scale;  // int8 cache only
+  __nv_bfloat16* v_scale;
+  int idx;
+};
+
 struct StatsSmem {
-  size_t q, lg, stats, ok, k, scales, bytes;
+  size_t q, lg, fresh, stats, ok, k, scales, bytes;
   __host__ __device__ StatsSmem(int G, int D, bool int8) {
     q = size_t(G) * D * 4;             // f32 queries
     lg = size_t(G) * kKeys * 4;        // the tile's logits
+    fresh = size_t(D) * 2 + 16;        // this token's K row (bf16) and K scale
     stats = size_t(2) * G * 4;         // running max and sum of each head
     ok = size_t(kKeys) * 4;            // validity of the tile's positions
     k = size_t(kKeys) * (D + 2) * 2;   // K tile, rows padded by one pair
     scales = int8 ? size_t(kKeys) * 4 : 0;  // the tile's K scales
-    bytes = q + lg + stats + ok + k + scales;
+    bytes = q + lg + fresh + stats + ok + k + scales;
   }
 };
 
@@ -123,7 +149,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_stats_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
                     const __nv_bfloat16* __restrict__ k_scale,
                     const int* __restrict__ valid_mask, float* __restrict__ work, int S, int KH,
-                    int G, int D, int splits, float scale) {
+                    int G, int D, int splits, float scale, Fresh<T> fr) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   const StatsSmem L(G, D, kInt8);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -132,6 +158,9 @@ decode_stats_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   sp += L.q;
   float* lg = reinterpret_cast<float*>(sp);
   sp += L.lg;
+  __nv_bfloat16* fresh = reinterpret_cast<__nv_bfloat16*>(sp);  // 16-byte aligned
+  float* fresh_scale = reinterpret_cast<float*>(sp + size_t(D) * 2);
+  sp += L.fresh;
   float* m = reinterpret_cast<float*>(sp);
   float* l = m + G;
   sp += L.stats;
@@ -157,6 +186,25 @@ decode_stats_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
     m[g] = ecg::kNegInf;
     l[g] = 0.f;
   }
+  // the block whose range holds slot fr.idx writes this token's rows: warp
+  // 0 the K row (and its copy in shared memory), warp 1 the V row
+  const int fresh_tile = fr.idx >= 0 ? fr.idx / kKeys : -1;
+  if (fresh_tile >= tile_lo && fresh_tile < tile_hi && warp < 2) {
+    const size_t slot = (size_t(b) * S + fr.idx) * KH + kvh;
+    const __nv_bfloat16* src = (warp == 0 ? fr.k : fr.v) + (size_t(b) * KH + kvh) * D;
+    T* dst = (warp == 0 ? fr.k_cache : fr.v_cache) + slot * D;
+    if constexpr (kInt8) {
+      const float sc = ecg::quant_row(src, dst, (warp == 0 ? fr.k_scale : fr.v_scale) + slot,
+                                      lane, D, warp == 0 ? fresh : nullptr);
+      if (warp == 0 && lane == 0) *fresh_scale = sc;
+    } else {
+      for (int e = lane; e < D; e += 32) {
+        const __nv_bfloat16 x = src[e];
+        dst[e] = x;
+        if (warp == 0) fresh[e] = x;
+      }
+    }
+  }
 
   const int chunks = D / 8;
   const int kw = D / 2 + 1;  // K row stride in bf16 pairs
@@ -168,14 +216,20 @@ decode_stats_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
       const int j = idx / chunks, c = idx % chunks;
       const int t = t0 + j;
       uint4 kv = make_uint4(0, 0, 0, 0);
-      if (t < S) kv = load8(k_cache, ((size_t(b) * S + t) * KH + kvh) * D + c * 8);
+      if (t == fr.idx) {  // only in the writing block's range
+        kv = *reinterpret_cast<const uint4*>(fresh + c * 8);
+      } else if (t < S) {
+        kv = load8(k_cache, ((size_t(b) * S + t) * KH + kvh) * D + c * 8);
+      }
       ecg::store_words(Ks + j * (D + 2) + c * 8, kv);
     }
     if (tid < kKeys) {
       const int t = t0 + tid;
       key_ok[tid] = (t < S) ? valid_mask[size_t(b) * S + t] : 0;
       if constexpr (kInt8) {
-        ksc[tid] = (t < S) ? __bfloat162float(k_scale[(size_t(b) * S + t) * KH + kvh]) : 1.f;
+        ksc[tid] = t == fr.idx ? *fresh_scale
+                   : (t < S)   ? __bfloat162float(k_scale[(size_t(b) * S + t) * KH + kvh])
+                               : 1.f;
       }
     }
     __syncthreads();
@@ -345,15 +399,22 @@ decode_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ ou
 }
 
 template <typename T>
-int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-           const void* v_scale, const void* valid_mask, void* out, void* work, int B, int S,
-           int KH, int G, int D, int splits, void* stream) {
+int launch(const void* q, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+           const void* valid_mask, const void* fresh_k, const void* fresh_v,
+           void* out, void* work, int B, int S, int KH, int G, int D, int splits, int write_idx,
+           void* stream) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   const int tiles = (S + kKeys - 1) / kKeys;
-  if (B <= 0 || S <= 0 || KH <= 0 || G <= 0 || D <= 0 || D % 8 != 0 || D > 256 ||
-      splits < 1 || splits > tiles || B > 65535 || KH > 65535) {
+  if (B <= 0 || S <= 0 || KH <= 0 || G <= 0 || D <= 0 || D % 8 != 0 ||
+      D > 32 * ecg::kQuantMaxPerLane || splits < 1 || splits > tiles || B > 65535 ||
+      KH > 65535 || write_idx < -1 || write_idx >= S ||
+      (write_idx >= 0 && (fresh_k == nullptr || fresh_v == nullptr))) {
     return cudaErrorInvalidValue;
   }
+  const Fresh<T> fr{static_cast<const __nv_bfloat16*>(fresh_k),
+                    static_cast<const __nv_bfloat16*>(fresh_v), static_cast<T*>(k_cache),
+                    static_cast<T*>(v_cache), static_cast<__nv_bfloat16*>(k_scale),
+                    static_cast<__nv_bfloat16*>(v_scale), write_idx};
   const StatsSmem LA(G, D, kInt8);
   const PvSmem LB(G, D, splits, kInt8);
   if (LA.bytes > 227 * 1024 || LB.bytes > 227 * 1024) return cudaErrorInvalidValue;
@@ -371,7 +432,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   decode_stats_kernel<T><<<grid, kThreads, LA.bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
       static_cast<const __nv_bfloat16*>(k_scale), static_cast<const int*>(valid_mask), w, S, KH,
-      G, D, splits, scale);
+      G, D, splits, scale, fr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_pv_kernel<T><<<grid, kThreads, LB.bytes, s>>>(
@@ -388,17 +449,23 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 
 }  // namespace
 
-extern "C" int ecg_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* valid_mask, void* out, void* work, int B, int S,
-                                    int KH, int G, int D, int splits, void* stream) {
-  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, valid_mask, out, work, B,
-                               S, KH, G, D, splits, stream);
+// fresh_k, fresh_v: this token's rows, written at slot write_idx (-1: none;
+// the pointers may then be NULL).
+extern "C" int ecg_decode_attention(const void* q, void* k_cache, void* v_cache,
+                                    const void* valid_mask, const void* fresh_k,
+                                    const void* fresh_v, void* out, void* work, int B, int S,
+                                    int KH, int G, int D, int splits, int write_idx,
+                                    void* stream) {
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, valid_mask, fresh_k,
+                               fresh_v, out, work, B, S, KH, G, D, splits, write_idx, stream);
 }
 
-extern "C" int ecg_decode_attention_int8(const void* q, const void* k_cache, const void* v_cache,
-                                         const void* k_scale, const void* v_scale,
-                                         const void* valid_mask, void* out, void* work, int B,
-                                         int S, int KH, int G, int D, int splits, void* stream) {
-  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, work, B, S, KH,
-                        G, D, splits, stream);
+extern "C" int ecg_decode_attention_int8(const void* q, void* k_cache, void* v_cache,
+                                         void* k_scale, void* v_scale,
+                                         const void* valid_mask, const void* fresh_k,
+                                         const void* fresh_v, void* out, void* work, int B,
+                                         int S, int KH, int G, int D, int splits, int write_idx,
+                                         void* stream) {
+  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, valid_mask, fresh_k, fresh_v, out,
+                        work, B, S, KH, G, D, splits, write_idx, stream);
 }

@@ -5,49 +5,20 @@
 // Pallas kernel.  k and v (B, s, KH, D) bf16, this step's rows; k_cache and
 // v_cache (B, S, KH, D) int8 and k_scale, v_scale (B, S, KH) bf16, one
 // layer's slice of the cache.  Rows t of k and v go to cache slot idx + t.
-// Per (b, t, kv head) row, over D:
+// Each (b, t, kv head) row is quantized by ecg::quant_row (kv_quant.cuh),
+// which decode attention's fresh row shares, bit for bit.
 //
-//   scale = amax|x| > 0 ? amax|x| / 127 : 1          (f32)
-//   q     = clip(rint(x / scale), -127, 127)          (int8)
-//
-// and the scale is stored rounded to bf16.  Division is IEEE (__fdiv_rn)
-// and rint rounds half to even, as jnp.round and torch.round do, so the
-// cache equals the plain version's bit for bit.
-//
-// What bounds it: launches, not bytes (a decode step quantizes 2 * B * KH
-// rows of D values).  One warp per row quantizes the K row and the V row,
-// and one launch per layer replaces the ~12 launches of the plain version.
+// It appends a prompt's rows at prefill, one launch per layer in place of
+// the ~12 of the plain version; a decode step's row is quantized and
+// appended by decode attention itself (attention_decode.cu), which saves
+// this launch on every token.  What bounds it: launches, not bytes.  One
+// warp per row quantizes the K row and the V row.
 
-#include "common.cuh"
+#include "kv_quant.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxPerLane = 8;  // D <= 256
-
-__device__ __forceinline__ void quant_row(const __nv_bfloat16* __restrict__ src,
-                                          int8_t* __restrict__ dst,
-                                          __nv_bfloat16* __restrict__ scale_out, int lane, int D) {
-  float f[kMaxPerLane];
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int e = lane + 32 * i;
-    f[i] = e < D ? __bfloat162float(src[e]) : 0.f;
-    amax = fmaxf(amax, fabsf(f[i]));
-  }
-  amax = ecg::warp_max(amax);
-  const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int e = lane + 32 * i;
-    if (e < D) {
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(f[i], scale)), -127.f), 127.f);
-      dst[e] = static_cast<int8_t>(r);
-    }
-  }
-  if (lane == 0) *scale_out = __float2bfloat16(scale);
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 kv_quant_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
@@ -62,8 +33,8 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __rest
   const int b = row / (KH * s);
   const size_t src = size_t(row) * D;
   const size_t slot = (size_t(b) * S + idx + t) * KH + h;
-  quant_row(k + src, k_cache + slot * D, k_scale + slot, lane, D);
-  quant_row(v + src, v_cache + slot * D, v_scale + slot, lane, D);
+  ecg::quant_row(k + src, k_cache + slot * D, k_scale + slot, lane, D);
+  ecg::quant_row(v + src, v_cache + slot * D, v_scale + slot, lane, D);
 }
 
 }  // namespace
@@ -71,7 +42,7 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __rest
 extern "C" int ecg_kv_quant(const void* k, const void* v, void* k_cache, void* v_cache,
                             void* k_scale, void* v_scale, int B, int s, int S, int KH, int D,
                             int idx, void* stream) {
-  if (B <= 0 || s <= 0 || KH <= 0 || D <= 0 || D > 32 * kMaxPerLane || idx < 0 ||
+  if (B <= 0 || s <= 0 || KH <= 0 || D <= 0 || D > 32 * ecg::kQuantMaxPerLane || idx < 0 ||
       idx + s > S) {
     return cudaErrorInvalidValue;
   }

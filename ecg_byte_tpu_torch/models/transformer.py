@@ -22,14 +22,16 @@ LoRA (``models/lora.py`` trees) overlays the projections as in the JAX
 dropout mask per group.  Dropout masks come from a ``torch.Generator``, so
 their bits differ from JAX's ``fold_in(rng, hash(name))`` stream.
 
-The KV cache is updated in place: prefill writes slots ``[0, S)``, each
-decode step writes its row at ``write_idx`` before the decode kernel reads
-the cache.  The int8 serving cache (``init_kv_cache(dtype=torch.int8)``)
-quantizes the rows it is given as they are written (``ops/kv_quant``), with
-one bf16 scale per (position, kv head); prefill attention still reads the
-fresh K/V, only the cache copy is quantized.  An int8 serving tree
-(``models/quantized.py``: ``weight_q``/``weight_scale`` entries,
-``lm_head_q``/``lm_head_scale``) goes through ``ops/int8_linear``.
+The KV cache is updated in place: prefill writes slots ``[0, S)``
+(``ops/kv_quant`` for the int8 cache), and each decode step hands its row
+to the decode kernel with ``write_idx`` (the fresh-row contract of the JAX
+``decode_step``), which writes it into the stale cache as it attends.  The
+int8 serving cache (``init_kv_cache(dtype=torch.int8)``) quantizes the rows
+it is given as they are written, with one bf16 scale per (position, kv
+head); prefill attention still reads the fresh K/V, only the cache copy is
+quantized.  An int8 serving tree (``models/quantized.py``:
+``weight_q``/``weight_scale`` entries, ``lm_head_q``/``lm_head_scale``) goes
+through ``ops/int8_linear``.
 """
 
 from __future__ import annotations
@@ -480,16 +482,16 @@ def init_kv_cache(
     return cache
 
 
-def _append_kv(cache: Params, i: int, k, v, idx: int) -> None:
-    """Write fresh (B, s, KH, D) K/V rows at slots [idx, idx + s) of layer
+def _append_kv(cache: Params, i: int, k, v) -> None:
+    """Write a prompt's (B, s, KH, D) K/V rows at slots [0, s) of layer
     ``i``'s cache in place, quantizing them for the int8 cache."""
     if cache["k"].dtype == torch.int8:
         kv_quant.append_kv(k, v, cache["k"][i], cache["v"][i], cache["k_scale"][i],
-                           cache["v_scale"][i], idx)
+                           cache["v_scale"][i], 0)
     else:
         s = k.shape[1]
-        cache["k"][i, :, idx:idx + s] = k
-        cache["v"][i, :, idx:idx + s] = v
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
 
 
 def prefill(
@@ -518,7 +520,7 @@ def prefill(
 
         def attn_fn(q, k, v, i=i):
             # attention reads the fresh K/V; only the cache copy may be int8
-            _append_kv(cache, i, k, v, 0)
+            _append_kv(cache, i, k, v)
             return attention.causal_attention(q, k, v, attn_mask)
 
         h = _block(c, h, layer_p, rope, attn_fn, lora_p)
@@ -538,8 +540,10 @@ def decode_step(
     *,
     lora: Optional[Params] = None,
 ):
-    """One decode step.  Appends this token's K/V rows to the cache in place;
-    returns (logits (B, V) f32, cache).  ``lora`` as in :func:`prefill`."""
+    """One decode step.  Decode attention writes this token's K/V rows into
+    the cache at ``write_idx`` in place as it attends them (the fresh-row
+    contract); returns (logits (B, V) f32, cache).  ``lora`` as in
+    :func:`prefill`."""
     c = config
     pos2d = positions[:, None]
     h = _embed(params, c, token[:, None], pos2d)
@@ -549,10 +553,10 @@ def decode_step(
     for i, (layer_p, lora_p) in enumerate(zip(layers, _layer_loras(lora, len(layers)))):
 
         def attn_fn(q, k, v, i=i):
-            _append_kv(cache, i, k, v, write_idx)
             return attention_decode.decode_attention_fused(
                 q, cache["k"][i], cache["v"][i], cache_mask,
                 cache["k_scale"][i] if int8 else None, cache["v_scale"][i] if int8 else None,
+                fresh_k=k, fresh_v=v, write_idx=write_idx,
             )
 
         h = _block(c, h, layer_p, rope, attn_fn, lora_p)

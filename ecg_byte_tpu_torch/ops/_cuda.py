@@ -47,11 +47,12 @@ _SIGNATURES = {
     "ecg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, lse, dout, dq, dk, dv, delta, B, S, KH, G, D, stream
     "ecg_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
-    # q, k_cache, v_cache, valid_mask, out, work, B, S, KH, G, D, splits, stream
-    "ecg_decode_attention": [_P] * 6 + [_I] * 6 + [_P],
-    # q, k_cache, v_cache, k_scale, v_scale, valid_mask, out, work, B, S, KH, G, D,
-    # splits, stream
-    "ecg_decode_attention_int8": [_P] * 8 + [_I] * 6 + [_P],
+    # q, k_cache, v_cache, valid_mask, fresh_k, fresh_v, out, work, B, S, KH, G, D, splits,
+    # write_idx, stream
+    "ecg_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
+    # q, k_cache, v_cache, k_scale, v_scale, valid_mask, fresh_k, fresh_v, out, work, B, S,
+    # KH, G, D, splits, write_idx, stream
+    "ecg_decode_attention_int8": [_P] * 10 + [_I] * 7 + [_P],
     # x, q, scale, bias (or NULL), out, M, N, K, f32_out, stream
     "ecg_int8_linear": [_P] * 5 + [_I, _I, _I, _I, _P],
     # x, q, scale, bias (or NULL), out, M, N, K, f32_out, tile, stream
@@ -60,8 +61,8 @@ _SIGNATURES = {
     "ecg_kv_quant": [_P] * 6 + [_I, _I, _I, _I, _I, _I, _P],
     # q, trans, token, match_tok, match_len, B, N, max_len, stream
     "ecg_bpe_match": [_P] * 5 + [_I, _I, _I, _P],
-    # match_len, match_tok, visited, ids, counts, B, N, stream
-    "ecg_bpe_chain": [_P] * 5 + [_I, _I, _P],
+    # match_len, match_tok, visited, ids, counts, B, N, max_len, stream
+    "ecg_bpe_chain": [_P] * 5 + [_I, _I, _I, _P],
     # x, w, y, n, d, w_f32, eps, stream
     "ecg_rmsnorm": [_P] * 3 + [_I] * 3 + [_F, _P],
     # x, w, g, dx, dw_part, dw (or NULL), n, d, w_f32, parts, eps, stream

@@ -29,19 +29,29 @@ are converted to bf16 as they are staged (exact), so the compute is the
 bf16 branch's.  The wrapper allocates one f32 scratch tensor a call
 (:func:`scratch_floats`).
 
+The fresh-row contract of the TPU kernel: with ``fresh_k``, ``fresh_v``
+and ``write_idx`` the cache comes in stale and this token's (B, 1, KH, D)
+bf16 rows come beside it.  The kernel writes them into slot ``write_idx``
+in place (for the int8 cache quantized, with their bf16 scales, by the
+quantizer of ``csrc/kv_quant.cu``: IEEE division, round half to even, the
+bits of ``_quant_kv_rows``), and attends as if they had been appended
+first: phase A's block whose range holds the slot writes the rows and
+stages its K row from shared memory, phase B reads the written V row.  So
+a decode step launches nothing to append.  One difference from the JAX
+signature: the JAX caller quantizes the rows and passes ``fresh_ks`` and
+``fresh_vs``; here the kernel quantizes them itself, and the rows come in
+bf16 for both cache types.  The TPU kernel substitutes the row in VMEM
+and leaves the cache's update to XLA; this one updates the cache too.
+
 The TPU kernel's block-diagonal query, lane-roll gather and ones-block
-expansion fed the TPU's matrix unit and have no counterpart here.  Nor has
-its fresh-row substitution: it existed because JAX updates the cache
-functionally.  The port appends this token's K/V row to the cache in place
-(quantized for the int8 cache) before the kernel runs, so the kernel reads
-the updated cache and the result is the same.
+expansion fed the TPU's matrix unit and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ecg_byte_tpu_torch.ops import _cuda
+from ecg_byte_tpu_torch.ops import _cuda, kv_quant
 
 MAX_HEAD_DIM = 256
 KEYS = 64  # cache positions per tile
@@ -76,7 +86,7 @@ def scratch_floats(b: int, s_max: int, kh: int, g: int, d: int, splits: int) -> 
     return rows * (s_max + 2 * splits + (splits * d if splits > 1 else 0))
 
 
-def _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale):
+def _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale, fresh):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     b, _, h, d = q.shape
@@ -117,23 +127,54 @@ def _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale):
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if fresh is not None:
+        fresh_k, fresh_v, write_idx = fresh
+        for name, t in (("fresh_k", fresh_k), ("fresh_v", fresh_v)):
+            if t.shape != (b, 1, kh, d) or t.dtype != torch.bfloat16:
+                raise ValueError(f"{name} must be bfloat16 (B, 1, KH, D), got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            if not t.is_cuda or t.device != q.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on q's CUDA device")
+        if not 0 <= write_idx < s:
+            raise ValueError(f"write_idx {write_idx} outside the cache's {s} slots")
+
+
+def decode_attention_fused_plain(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=None,
+                                 *, fresh_k=None, fresh_v=None, write_idx=None):
+    """The plain version of :func:`decode_attention_fused`: the fresh rows
+    appended at slot ``write_idx`` in place (quantized by
+    ``kv_quant.append_kv_plain`` for an int8 cache, copied for a bf16 one),
+    then ``attention.decode_attention`` on the updated cache."""
+    from ecg_byte_tpu_torch.ops.attention import decode_attention
+
+    if fresh_k is not None and k_scale is not None:
+        kv_quant.append_kv_plain(fresh_k, fresh_v, k_cache, v_cache, k_scale, v_scale, write_idx)
+    elif fresh_k is not None:
+        k_cache[:, write_idx:write_idx + 1] = fresh_k
+        v_cache[:, write_idx:write_idx + 1] = fresh_v
+    return decode_attention(q, k_cache, v_cache, valid_mask, k_scale, v_scale)
 
 
 def decode_attention_fused(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=None,
-                           splits=None):
+                           splits=None, *, fresh_k=None, fresh_v=None, write_idx=None):
     """Single-position attention over the cache; returns (B, 1, H, D).
     ``k_scale``, ``v_scale``: the (B, S_max, KH) bf16 scales of an int8
     cache, None for a bf16 one.  ``splits`` overrides :func:`num_splits`.
+    ``fresh_k``, ``fresh_v`` (B, 1, KH, D) and ``write_idx``: this token's
+    rows, written into the (stale) cache at slot ``write_idx`` in place,
+    quantized for an int8 cache, before they are attended.
 
-    A CPU tensor takes ``attention.decode_attention``; a CUDA tensor
+    A CPU tensor takes :func:`decode_attention_fused_plain`; a CUDA tensor
     launches the kernel or raises.  ``.launches`` counts the wrapper's
     calls over a bf16 cache, ``.int8_launches`` those over an int8 cache.
     """
+    if (fresh_k is None) != (fresh_v is None) or (fresh_k is None) != (write_idx is None):
+        raise ValueError("fresh_k, fresh_v and write_idx go together")
     if q.device.type == "cpu":
-        from ecg_byte_tpu_torch.ops.attention import decode_attention
-
-        return decode_attention(q, k_cache, v_cache, valid_mask, k_scale, v_scale)
-    _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale)
+        return decode_attention_fused_plain(q, k_cache, v_cache, valid_mask, k_scale, v_scale,
+                                            fresh_k=fresh_k, fresh_v=fresh_v, write_idx=write_idx)
+    fresh = None if fresh_k is None else (fresh_k, fresh_v, int(write_idx))
+    _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale, fresh)
     b, _, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     if splits is None:
@@ -146,16 +187,18 @@ def decode_attention_fused(q, k_cache, v_cache, valid_mask, k_scale=None, v_scal
     lib = _cuda.library()
     int8 = k_cache.dtype == torch.int8
     stream = _cuda.stream(q)
+    fk, fv, idx = (None, None, -1) if fresh is None else (fresh[0].data_ptr(),
+                                                         fresh[1].data_ptr(), fresh[2])
     if int8:
         err = lib.ecg_decode_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), valid_mask.data_ptr(), out.data_ptr(), work.data_ptr(),
-            b, s, kh, h // kh, d, splits, stream,
+            v_scale.data_ptr(), valid_mask.data_ptr(), fk, fv, out.data_ptr(), work.data_ptr(),
+            b, s, kh, h // kh, d, splits, idx, stream,
         )
     else:
         err = lib.ecg_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_mask.data_ptr(),
-            out.data_ptr(), work.data_ptr(), b, s, kh, h // kh, d, splits, stream,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_mask.data_ptr(), fk, fv,
+            out.data_ptr(), work.data_ptr(), b, s, kh, h // kh, d, splits, idx, stream,
         )
     _cuda.check(err, "decode attention")
     if int8:

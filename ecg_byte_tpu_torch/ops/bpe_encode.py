@@ -16,9 +16,10 @@ stages batched over records:
 Stages 1 and 2 are the two kernels of ``ops/bpe_match.py`` (the chain
 kernel also compacts); on a CPU tensor they run their plain versions and
 :func:`_compact`.  The one matcher table is the dense trie automaton of
-:func:`build_automaton`: it has no token-length or token-id limit, unlike
-the TPU package's Pallas tables (16 symbols, ids below 8192), so every
-vocabulary takes the same path.  Streams are token-exact with the host
+:func:`build_automaton`: it has no token-id limit and, on the card, takes
+tokens of up to 255 symbols (the chain kernel's byte-wide lengths), where
+the TPU package's Pallas tables take 16 symbols and ids below 8192, so
+every vocabulary of that size takes the same path.  Streams are token-exact with the host
 trie, including its overwrite rule for duplicate expanded sequences (the
 later merge id wins).
 """

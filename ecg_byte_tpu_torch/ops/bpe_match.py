@@ -19,12 +19,18 @@ each block's shared memory, for tables that fit there, measured no faster
 
 ``greedy_chain`` replaces ``_chain_kernel`` (reached through
 ``greedy_chain``), which carried a 16-row window of the banded recurrence
-across a sequential grid.  The chain is serial within a record and
-independent across records, so one block per record stages the match
-lengths and tokens in shared memory chunk by chunk and one thread walks
-``i -> i + match_len[i]``, writing the visited mask, the compacted ids and
-the count in the same walk (``bpe_encode._compact``'s sort is not needed
-on the card).  What bounds it: the walk's serial shared-memory loads.
+across a sequential grid, and on the card ``bpe_encode._compact``'s sort.
+The chain is serial within a record: one thread walking it took ~0.2 ms
+for a 1.5 us byte bound (NVIDIA H100 80GB HBM3 at 700 W, ``PERF.md``).  So
+one block per record stages the lengths as bytes and cuts them into one
+segment per thread; each thread tabulates where a chain entering its
+segment at each offset leaves it (one backward pass), the warps and then
+one thread compose those maps into every segment's true entry (a few
+dozen dependent lookups, whatever the chain's length, also on rows whose
+chains never meet again), each thread walks its segment once more to rank
+its tokens, and after a block-wide prefix sum of the counts the block
+writes the outputs position by position.  Lengths are staged in a byte,
+so the wrapper takes ``max_len`` up to :data:`CHAIN_MAX_LEN`.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
 or raises.  Each wrapper counts its launches in ``.launches``.
@@ -37,6 +43,8 @@ import torch
 from ecg_byte_tpu_torch.ops import _cuda
 from ecg_byte_tpu_torch.ops.bpe_encode import PAD_SYMBOL, Automaton, _compact
 from ecg_byte_tpu_torch.ops.quantize import _BYTE_A
+
+CHAIN_MAX_LEN = 255  # the chain kernel's lengths and exits fit a byte
 
 
 def longest_match_plain(q: torch.Tensor, table: Automaton):
@@ -124,7 +132,9 @@ def longest_match(q: torch.Tensor, table: Automaton):
 longest_match.launches = 0
 
 
-def _check_chain(match_len, match_tok):
+def _check_chain(match_len, match_tok, max_len):
+    if not 0 <= max_len <= CHAIN_MAX_LEN:
+        raise ValueError(f"max_len {max_len} outside the chain kernel's [0, {CHAIN_MAX_LEN}]")
     if match_len.dim() != 2 or match_tok.shape != match_len.shape:
         raise ValueError("match_len and match_tok must be (B, N) of one shape")
     for name, t in (("match_len", match_len), ("match_tok", match_tok)):
@@ -139,13 +149,15 @@ def _check_chain(match_len, match_tok):
 def greedy_chain(match_len: torch.Tensor, match_tok: torch.Tensor, max_len: int):
     """The greedy chain and its compaction: ``(visited, ids, counts)``,
     visited bool (B, N), ids int32 (B, N) left-aligned and padded with
-    ``PAD_TOKEN``, counts int32 (B,).  A CPU tensor takes
-    ``greedy_chain_plain`` and ``bpe_encode._compact``; a CUDA tensor
-    launches ``csrc/bpe_chain.cu``, which needs no ``max_len``."""
+    ``PAD_TOKEN``, counts int32 (B,).  A length outside [1, max_len] ends
+    the chain there.  A CPU tensor takes ``greedy_chain_plain`` and
+    ``bpe_encode._compact``; a CUDA tensor launches ``csrc/bpe_chain.cu``
+    (``max_len`` at most :data:`CHAIN_MAX_LEN`)."""
     if match_len.device.type == "cpu":
         visited = greedy_chain_plain(match_len, max_len)
         return (visited, *_compact(match_tok, visited))
-    _check_chain(match_len, match_tok)
+    max_len = int(max_len)
+    _check_chain(match_len, match_tok, max_len)
     b, n = match_len.shape
     dev = match_len.device
     visited = torch.empty((b, n), dtype=torch.bool, device=dev)
@@ -156,7 +168,7 @@ def greedy_chain(match_len: torch.Tensor, match_tok: torch.Tensor, max_len: int)
     lib = _cuda.library()
     stream = _cuda.stream(match_len)
     err = lib.ecg_bpe_chain(match_len.data_ptr(), match_tok.data_ptr(), visited.data_ptr(),
-                            ids.data_ptr(), counts.data_ptr(), b, n, stream)
+                            ids.data_ptr(), counts.data_ptr(), b, n, max_len, stream)
     _cuda.check(err, "BPE greedy chain")
     greedy_chain.launches += 1
     return visited, ids, counts

@@ -9,10 +9,13 @@ scale over D: the row is quantized with the f32 scale, and the scale is
 stored, and later dequantized, rounded to bf16.
 
 Why a kernel: the plain version costs about twelve launches per layer
-(absmax, where, divide, round, clamp, casts and four slice writes), and
-eager decode is bound by the host's launches.  The kernel is one launch
-per layer for K and V together, and equals the plain version bit for bit:
-IEEE division and round-half-to-even in both.
+(absmax, where, divide, round, clamp, casts and four slice writes).  The
+kernel is one launch per layer for K and V together, and equals the plain
+version bit for bit: IEEE division and round-half-to-even in both.  It
+appends a prompt's rows at prefill; a decode step's row is quantized and
+written by decode attention itself (``ops/attention_decode``), with the
+same row quantizer (``csrc/kv_quant.cuh``), so the step launches nothing
+to append.
 
 A CPU tensor takes :func:`append_kv_plain`; a CUDA tensor launches the
 kernel or raises.  ``append_kv.launches`` counts the launches.

@@ -561,3 +561,114 @@ def test_decode_check_refuses_a_lost_or_doubled_range(int8, splits, fault):
         assert err <= 2e-2  # the max bound alone would pass it
     with pytest.raises(AssertionError, match="K2"):
         chip_smoke.check_decode(got, want, f"{fault} range {mid} of {splits}")
+
+
+def _fresh_case(int8, s=256, idx=130):
+    """A stale (B1, S, 2, 64) cache, this token's rows and a decode step's
+    mask (slots up to ``idx``); returns (q, stale caches, fk, fv, mask)."""
+    from ecg_byte_tpu_torch.ops import kv_quant
+
+    gen = torch.Generator().manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    q, k, v, fk, fv = randn(1, 1, 8, 64), randn(1, s, 2, 64), randn(1, s, 2, 64), \
+        randn(1, 1, 2, 64), randn(1, 1, 2, 64)
+    stale = [k, v]
+    if int8:
+        (k, ks), (v, vs) = kv_quant.quant_kv_rows(k), kv_quant.quant_kv_rows(v)
+        stale = [k, v, ks, vs]
+    mask = torch.zeros(1, s, dtype=torch.int32)
+    mask[:, :idx + 1] = 1
+    return q, stale, fk, fv, mask
+
+
+def _fused(q, caches, fk, fv, mask, idx):
+    from ecg_byte_tpu_torch.ops import attention_decode
+
+    scales = caches[2:] if len(caches) == 4 else (None, None)
+    return attention_decode.decode_attention_fused(q, caches[0], caches[1], mask, *scales,
+                                                   fresh_k=fk, fresh_v=fv, write_idx=idx)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_fused_decode_check_passes_the_pair(int8):
+    """check_fused_decode passes the fused call against chip_smoke's
+    stand-in for the old decode step (append_then_kernel), on the CPU."""
+    q, stale, fk, fv, mask = _fresh_case(int8)
+    got_c, want_c = [t.clone() for t in stale], [t.clone() for t in stale]
+    got = _fused(q, got_c, fk, fv, mask, 130)
+    scales = want_c[2:] if int8 else (None, None)
+    want = chip_smoke.append_then_kernel(q, want_c[0], want_c[1], mask, *scales,
+                                         fresh_k=fk, fresh_v=fv, write_idx=130)
+    chip_smoke.check_fused_decode(got, want, got_c, want_c, "pair")
+
+
+@pytest.mark.parametrize("fault", ["next slot", "stale scale", "stale v row", "one ulp"])
+def test_fused_decode_check_refuses_faults(fault):
+    """A row written one slot off, a scale or a V row left stale, an output
+    one bf16 ulp off: each is refused."""
+    q, stale, fk, fv, mask = _fresh_case(True)
+    want_c = [t.clone() for t in stale]
+    want = _fused(q, want_c, fk, fv, mask, 130)
+    got_c = [t.clone() for t in stale]
+    got = _fused(q, got_c, fk, fv, mask, 131 if fault == "next slot" else 130)
+    if fault == "stale scale":
+        got_c[2][:, 130] = stale[2][:, 130] * 2
+    if fault == "stale v row":
+        got_c[1][:, 130] = stale[1][:, 130]
+    if fault == "one ulp":
+        got = got.clone()
+        got.view(torch.int16)[0, 0, 0, 0] += 1
+    with pytest.raises(AssertionError, match="K2 fresh"):
+        chip_smoke.check_fused_decode(got, want, got_c, want_c, fault)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_step_under_the_plain_swap_and_the_old_pair(int8):
+    """The decode step's call of decode attention (this token's row and
+    write_idx) reaches the plain swap of ``plain_path`` and
+    ``append_then_kernel`` with the signature they take: three decode steps
+    give the same logits and caches each way."""
+    from unittest import mock
+
+    from ecg_byte_tpu_torch.models import tiny_test_config
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.ops import attention_decode
+
+    c = tiny_test_config("llama", dtype="bfloat16")
+    params = T.init_params(c, torch.Generator().manual_seed(0), torch.device("cpu"))
+    ids = torch.randint(0, c.vocab_size, (1, 10), generator=torch.Generator().manual_seed(1))
+
+    def run():
+        mask = torch.ones(1, 10, dtype=torch.int32)
+        cache = T.init_kv_cache(c, 1, 13, torch.device("cpu"),
+                                dtype=torch.int8 if int8 else None)
+        _, cache, pos = T.prefill(params, c, ids, mask, cache)
+        cache_mask = torch.cat([mask, torch.zeros(1, 3, dtype=torch.int32)], 1)
+        out = []
+        for step in range(3):
+            cache_mask[:, 10 + step] = 1
+            logits, cache = T.decode_step(params, c, ids[:, step].int(), pos.int() + step,
+                                          10 + step, cache, cache_mask)
+            out.append(logits)
+        return torch.stack(out), cache
+
+    want, want_cache = run()
+    with chip_smoke.plain_path():
+        plain = run()
+    with mock.patch.object(attention_decode, "decode_attention_fused",
+                           chip_smoke.append_then_kernel):
+        old = run()
+    for logits, cache in (plain, old):
+        assert torch.equal(logits, want)
+        assert all(torch.equal(cache[n], want_cache[n]) for n in want_cache)
+
+
+def test_int8_serve_path_appends_per_prefill_only():
+    """The int8 serving path launches kv_quant once a layer per prefill and
+    not per decode step: decode attention appends the step's row."""
+    path = chip_smoke.SERVE_INT8
+    assert path.per_prefill["kv_quant"] == chip_smoke.LAYERS
+    assert "kv_quant" not in path.per_step and "kv_quant" not in path.per_forward
