@@ -39,7 +39,9 @@ Phases, each printing its own lines, in the order they run:
    product (cuBLAS on the bf16 weight) on the GEMV kernel and on the
    tensor-core one, each forced at both sides of their threshold and at
    M 1152, up to M 4992 and at gpt2's ragged c_attn (N 4800), and the KV
-   quantizer (equal to its plain version exactly).
+   quantizer (check_kv_quant: equal to its plain version exactly, at a
+   decode step's rows, a prefill's, gemma's D 256 and the long prompt's
+   4,992 rows), beside the first design's device times (OLD_KV_QUANT_MS).
    Both RMSNorm kernels at the main paths' rows with llama's stored bf16
    weight and an f32 one (gemma's 1 + w), and at width 1,600 with 1,003
    rows (check_rmsnorm_fwd: 1 bf16 ulp; check_rmsnorm_bwd_dx; dw by
@@ -47,10 +49,16 @@ Phases, each printing its own lines, in the order they run:
    (CUDA graphs) beside the eager ones for kernel, plain and F.rms_norm.
    The two BPE kernels must equal their plain versions exactly, and the
    device encoder's streams the host C++ trie's, at (64, 6,000) and
-   (256, 30,000) symbols; the trie is their yardstick.  The chain kernel
-   also on adversarial rows (chain_rows: lengths all 1, all 2, all
-   max_len, <= 0 and past max_len, N = 1, N below the block, a ragged last
-   segment, one record past the shared-memory stage), exactly.
+   (256, 30,000) symbols; the trie is their yardstick.  The match kernel
+   there beside the first design's times (OLD_MATCH_MS), and on
+   adversarial rows (match_rows: a record that ends inside the longest
+   token, runs of one symbol, a 255-symbol token with ids from 8192, a
+   table past 65,536 states, compact rows, N not a multiple of 4, 16 or
+   the segment) at every (segment, warps) choose_sweep takes and with no
+   table rows staged, exactly (check_match).  The chain kernel also on
+   adversarial rows (chain_rows: lengths all 1, all 2, all max_len, <= 0
+   and past max_len, N = 1, N below the block, a ragged last segment, one
+   record past the shared-memory stage), exactly.
 6. Train: ``ecg_byte_tpu_torch.cli.main`` trains a random Llama-3.2-1B at
    full width with LoRA (``--peft --dev``, batch 4 x 1024) on ``ptb_500``,
    its records encoded once into the device token cache; exact launch
@@ -175,6 +183,12 @@ LAYERS = 16  # Llama-3.2-1B
 # the first chain kernel's times (one thread walked each record), NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md, section 6), beside this one's
 OLD_CHAIN_MS = {(64, 6000): 0.2193, (256, 30000): 0.2363}
+# the first match kernel's (a trie walk from every position), eager and on
+# the device (CUDA graphs), the same card (PERF.md, section 6)
+OLD_MATCH_MS = {(64, 6000): (0.0307, 0.0134), (256, 30000): (0.1536, 0.1329)}
+# the first KV append kernel's device times (a warp a row), the same card
+# (PERF.md, section 6)
+OLD_KV_QUANT_MS = {(1, 1152, 8, 64): 0.0061, (1, 1, 8, 64): 0.0026}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -634,6 +648,109 @@ def chain_rows(gen, max_len, device, n=6000, long_n=40_001, threads=512):
             ("B = 1, N past the shared-memory stage", rand(1, long_n))]
     return [(label, ln, torch.randint(0, 70_000, ln.shape, generator=gen, device=device,
                                       dtype=torch.int32)) for label, ln in rows]
+
+
+def match_rows(rng, merges):
+    """The match kernel's adversarial rows, each ``(label, q, merges,
+    budget)``: q (B, N) uint8 symbols (numpy, from ``rng``), the vocabulary
+    its table is built from and the table's shared-memory budget
+    (``build_automaton``'s ``sweep_budget``); ``merges`` is the main path's
+    tokenizer.  A record that ends inside the longest token, runs of one
+    symbol, a 255-symbol token with ids from 8192 (and a token of a
+    non-alphabet byte, skipped), a table past 65,536 states (the wide
+    rows), duplicate sequences (the later id wins), N not a multiple of the
+    segment, the 16-symbol chunk or 4 (down to N = 1), and two rows whose
+    table gets compact rows from a small budget."""
+    import numpy as np
+
+    a = ord("a")
+
+    def walk(b, n):
+        return (np.abs(np.cumsum(rng.integers(-1, 2, size=(b, n)), axis=1)) % 26).astype(np.uint8)
+
+    def plant(q, seq, at):
+        q[at:at + len(seq)] = np.asarray(seq[:len(q) - at], np.uint8)
+
+    longest = max((s for s, _ in merges), key=len)
+    longest = [c - a for c in longest]
+    ends = walk(8, 6000)
+    for r in range(8):  # the record ends after 1, 4, ... symbols of it; once whole mid-record
+        plant(ends[r], longest, 6000 - 1 - 4 * r)
+        plant(ends[r], longest, 3000)
+    runs = [((a,) * (1 << k), 300 + k) for k in range(1, 6)]
+    runs_q = np.zeros((3, 6000), np.uint8)
+    runs_q[1, 2000:] = 25
+    runs_q[2, ::2] = 1
+    long_tok = tuple(a + (i * 7) % 26 for i in range(255))
+    big_ids = [((a, a + 1), 8192), (long_tok[:40], 9000), (long_tok, 70000),
+               ((a, ord("A"), a), 70001), ((a + 3, a + 4, a + 5), 1 << 22)]
+    big_q = walk(4, 3000)
+    plant(big_q[0], [c - a for c in long_tok], 100)
+    plant(big_q[1], [c - a for c in long_tok], 3000 - 200)  # cut by the record's end
+    plant(big_q[2], [c - a for c in long_tok[:40]], 1000)
+    wide = [(tuple(a + int(c) for c in rng.integers(0, 26, 255)), 9000 + i) for i in range(300)]
+    wide_q = walk(3, 4000)
+    for r in range(3):
+        plant(wide_q[r], [c - a for c in wide[r][0]], 500 * r + 7)
+        plant(wide_q[r], [c - a for c in wide[-1 - r][0]], 4000 - 100)
+    dup = [((a, a + 1), 256), ((a, a + 1, a + 2), 257), ((a, a + 1, a + 2), 258), ((a, a + 1), 259)]
+    from ecg_byte_tpu_torch.ops import bpe_encode
+
+    budget = bpe_encode.SWEEP_SMEM_BUDGET
+    # 60% of the main table's full rows: compact rows for its deeper states
+    small = bpe_encode.build_sweep_table(bpe_encode._alphabet_tokens(merges)).states * 34
+    return [
+        ("a record ends inside the longest token", ends, merges, budget),
+        ("the same, full and compact rows (two tiers)", ends, merges, small),
+        ("runs of one symbol (all a, a then z, b a b a)", runs_q, merges, budget),
+        ("the same runs, a vocabulary of a^2 .. a^32", runs_q, runs, budget),
+        ("a 255-symbol token, ids from 8192 to 2^22, a non-alphabet token", big_q, big_ids,
+         budget),
+        ("a table past 65,536 states (wide rows)", wide_q, wide, budget),
+        ("duplicate sequences: the later id wins", walk(2, 1000) % 3, dup, budget),
+        ("N = 6005 (not a multiple of 4, 16 or the segment)", walk(3, 6005), merges, budget),
+        ("the same, full and compact rows", walk(3, 6005), merges, small),
+        ("N = 1", walk(3, 1), merges, budget),
+        ("N = 7", walk(3, 7), merges, budget),
+        ("N = 37", walk(5, 37), merges, budget),
+        ("B = 1, N = 30001", walk(1, 30001), merges, budget),
+    ]
+
+
+def sweep_layout(sw):
+    """A sweep table's states, rows and bytes, as a phrase."""
+    rows = "wide rows" if sw.wide else (
+        "narrow rows" if sw.full == sw.states else f"{sw.full} full and "
+        f"{sw.states - sw.full} compact narrow rows")
+    return f"{sw.states} states ({rows}, {sw.words.numel() * 4 / 1e3:.1f} KB)"
+
+
+def check_match(got, want, what):
+    """Hold the match kernel's ``(match_tok, match_len)`` to the plain
+    version's: token ids and lengths are integers, the tolerance is zero;
+    names the first position that differs."""
+    for name, g, w in (("match_tok", got[0], want[0]), ("match_len", got[1], want[1])):
+        assert g.shape == w.shape and g.dtype == w.dtype, \
+            f"{what}: {name} {g.dtype} {tuple(g.shape)}, plain {w.dtype} {tuple(w.shape)}"
+        bad = (g.cpu() != w.cpu()).nonzero()
+        if len(bad):
+            b, p = bad[0].tolist()
+            raise AssertionError(f"{what}: {name} at record {b} position {p} is "
+                                 f"{int(g[b, p])}, plain {int(w[b, p])} ({len(bad)} positions)")
+
+
+def check_kv_quant(got, want, what):
+    """Hold the KV append's cache rows and scales ``(k_cache, v_cache,
+    k_scale, v_scale)`` to the plain version's, exactly: int8 rows and bf16
+    scales are the cache's bytes, and decode attention reads them as they
+    are.  Names the first (batch row, slot) that differs."""
+    names = ("k_cache", "v_cache", "k_scale", "v_scale")
+    for name, g, w in zip(names, got, want):
+        bad = (g.cpu() != w.cpu()).nonzero()
+        if len(bad):
+            b, slot = bad[0].tolist()[:2]
+            raise AssertionError(f"{what}: {name} differs from the plain version at batch row "
+                                 f"{b}, slot {slot} ({len(bad)} values)")
 
 
 def _chain_plain(match_len, match_tok, max_len):
@@ -1318,26 +1435,27 @@ def int8_checks(record, dev, randn, serve_prompt):
               f"{(time.perf_counter() - t0) * 1e3:.1f} us (host clock over 1,000 calls)")
 
     # the KV quantizer: a prefill's rows (its main path's call, one a layer
-    # per prompt), a decode step's (B1, B4) and gemma's D 256, into a
-    # 1,152-slot cache; it must equal the plain version
-    for b, rows, kh, d, idx in [(1, 1, 8, 64, 1100), (4, 1, 8, 64, 1100), (1, 1152, 8, 64, 0),
-                                (1, 1, 1, 256, 5)]:
+    # per prompt), a decode step's (B1, B4), gemma's D 256 and the long
+    # prompt's prefill (its bucket, 4,992 rows, into 5,120 slots); it must
+    # equal the plain version (check_kv_quant)
+    for b, rows, kh, d, idx, slots in [(1, 1, 8, 64, 1100, 1152), (4, 1, 8, 64, 1100, 1152),
+                                       (1, 1152, 8, 64, 0, 1152), (1, 1, 1, 256, 5, 1152),
+                                       (1, 4992, 8, 64, 0, 5120)]:
         with torch.inference_mode():
             k, v = randn(b, rows, kh, d), randn(b, rows, kh, d)
             k[0, 0, 0] = 0.0  # a zero row: scale 1
 
             def cache():
-                return (torch.zeros(b, 1152, kh, d, dtype=torch.int8, device=dev),
-                        torch.zeros(b, 1152, kh, d, dtype=torch.int8, device=dev),
-                        torch.ones(b, 1152, kh, dtype=torch.bfloat16, device=dev),
-                        torch.ones(b, 1152, kh, dtype=torch.bfloat16, device=dev))
+                return (torch.zeros(b, slots, kh, d, dtype=torch.int8, device=dev),
+                        torch.zeros(b, slots, kh, d, dtype=torch.int8, device=dev),
+                        torch.ones(b, slots, kh, dtype=torch.bfloat16, device=dev),
+                        torch.ones(b, slots, kh, dtype=torch.bfloat16, device=dev))
 
             got, want = cache(), cache()
             kv_quant.append_kv(k, v, *got, idx)
             kv_quant.append_kv_plain(k, v, *want, idx)
             torch.cuda.synchronize()
-            assert all(torch.equal(a, w) for a, w in zip(got, want)), \
-                f"kv_quant {[b, rows, kh, d]}: differs from the plain version"
+            check_kv_quant(got, want, f"kv_quant {[b, rows, kh, d]}")
             # device time (CUDA graphs), and the host clock of calls in turns:
             # at a decode step's size the launch is the cost
             fns = [lambda: kv_quant.append_kv(k, v, *got, idx),
@@ -1349,6 +1467,10 @@ def int8_checks(record, dev, randn, serve_prompt):
             nbytes = 2 * (2 * k.numel() + k.numel() + 2 * b * rows * kh)
             record("kv_quant", [b, rows, kh, d], 0.0, (*times, None), 10 * k.numel(), nbytes,
                    main=rows == 1152, host_ms=host[0], plain_host_ms=host[1])
+            old = OLD_KV_QUANT_MS.get((b, rows, kh, d))
+            if old is not None:
+                print(f"  kv_quant {[b, rows, kh, d]}: {times[0]:.4f} ms on the device (the warp "
+                      f"a row kernel: {old} ms, in PERF.md)")
     print("  kv_quant: int8 rows and bf16 scales equal the plain version's (torch.equal)")
 
 
@@ -1458,13 +1580,42 @@ def chain_checks(record, dev, max_len):
           "plain chain and _compact exactly")
 
 
+def match_checks(dev, merges):
+    """The match kernel on :func:`match_rows`' adversarial rows at every
+    (segment length, warps) that ``bpe_match.choose_sweep`` takes, and once
+    with no table rows in shared memory (the path of a table too large to
+    stage; a table with compact rows is always staged whole): each must
+    equal the plain version exactly (:func:`check_match`)."""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.ops import bpe_encode, bpe_match
+
+    choices = bpe_match.sweep_choices()
+    for label, q_np, vocab, budget in match_rows(np.random.default_rng(11), merges):
+        table = bpe_encode.build_automaton(vocab, dev, sweep_budget=budget)
+        q = torch.from_numpy(q_np).to(dev)
+        want = bpe_match.longest_match_plain(q, table)
+        for seg, warps in choices:
+            check_match(bpe_match.sweep_match(q, table, seg, warps), want,
+                        f"bpe_match {label}, segment {seg}, {warps} warps")
+        check_match(bpe_match.sweep_match(q, table, *choices[0], max_hot=0), want,
+                    f"bpe_match {label}, no rows staged")
+        check_match(bpe_match.longest_match(q, table), want, f"bpe_match {label}")
+        sw = table.sweep
+        staging = "staged whole" if sw.full < sw.states else "and with no rows staged"
+        print(f"  bpe_match {label}: {tuple(q.shape)}, longest token {table.max_len}, "
+              f"{sweep_layout(sw)}: exact at (segment, warps) {choices}, {staging}")
+
+
 def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
     """Both BPE kernels against their plain versions (exactly), the device
     encoder against the host trie (every record), and the times of kernel,
     plain and the host trie, in turns; ``iters`` calls of the kernels, of
-    the plain versions and of the trie per turn.  The chain's tokens per
+    the plain versions and of the trie per turn.  The match kernel's eager
+    and device times beside the first design's; the chain's tokens per
     record and ns per token beside the first design's; with ``main`` also
-    :func:`chain_checks` at this ``max_len``."""
+    :func:`match_checks` and :func:`chain_checks` at this ``max_len``."""
     import numpy as np
     import torch
 
@@ -1472,27 +1623,31 @@ def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
     from ecg_byte_tpu_torch.ops.quantize import normalize_quantize
     from ecg_byte_tpu_torch.tokenizer import native
 
+    t0 = time.perf_counter()
     table = bpe_encode.build_automaton(merges, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
     signal = torch.from_numpy(signals).to(dev)
     q = normalize_quantize(signal, p1, p99)[1].reshape(signals.shape[0], -1).contiguous()
     b, n = q.shape
     states = table.trans.shape[0]
     table_bytes = states * 28 * 4  # trans (S, 27) and token (S,), int32
+    sweep_bytes = table.sweep.words.numel() * 4
     print(f"BPE {label}: ({b}, {n}) symbols; {len(merges)} merges, longest token "
           f"{table.max_len} symbols, largest id {max(t for _, t in merges)}, {states} states "
-          f"({table_bytes / 1e3:.1f} KB table)")
+          f"({table_bytes / 1e3:.1f} KB trie); sweep table {sweep_layout(table.sweep)}, both "
+          f"built in {build_ms:.1f} ms on the host")
 
     tok, ln = bpe_match.longest_match(q, table)
-    ptok, pln = bpe_match.longest_match_plain(q, table)
+    want = bpe_match.longest_match_plain(q, table)
     vis, ids, counts = bpe_match.greedy_chain(ln, tok, table.max_len)
     pvis, pids, pcounts = _chain_plain(ln, tok, table.max_len)
     torch.cuda.synchronize()
-    assert torch.equal(tok, ptok) and torch.equal(ln, pln), f"bpe_match {label}: differs from plain"
+    check_match((tok, ln), want, f"bpe_match {label}")
     assert torch.equal(vis, pvis) and torch.equal(ids, pids) and torch.equal(counts, pcounts), \
         f"bpe_chain {label}: differs from plain"
     eids, ecounts = bpe_encode.quantize_and_encode(signal, p1, p99, table)
-    want = host_streams(signals, p1, p99, merges)
-    check_streams(eids, ecounts, want, f"quantize_and_encode {label}")
+    host = host_streams(signals, p1, p99, merges)
+    check_streams(eids, ecounts, host, f"quantize_and_encode {label}")
     print(f"  exact: both kernels equal their plain versions; quantize_and_encode equals the "
           f"host trie on all {b} records ({int(ecounts.sum())} tokens, "
           f"{n * b / int(ecounts.sum()):.2f} symbols per token)")
@@ -1508,12 +1663,22 @@ def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
     # that takes less
     dev_ms = time_graphed([lambda: bpe_match.longest_match(q, table),
                            lambda: bpe_match.greedy_chain(ln, tok, table.max_len)])
+    seg, warps = bpe_match.choose_sweep(b, n)
     trie_ms = match_times[2]
     print(f"  host trie (C++, the --online_encode path) {trie_ms:.3f} ms for the batch; the "
           f"plain versions over {iters[1]} call(s) a turn")
-    # bytes: each input once, each output once (no floating-point work)
+    old = OLD_MATCH_MS.get((b, n))
+    print(f"  bpe_match {label}: segment {seg}, {warps} warps a block, {match_times[0]:.4f} ms "
+          f"eager, {dev_ms[0]:.4f} on the device" + ("" if old is None else
+                                                     f" (the trie walk from every position: "
+                                                     f"{old[0]} eager, {old[1]} on the device, "
+                                                     "in PERF.md)"))
+    # bytes: each input once, each output once (no floating-point work); the
+    # trie's bytes, whichever table the kernel reads
     record("bpe_match", [b, n], 0.0, (match_times[0], match_times[1], None), 0,
-           b * n + table_bytes + 8 * b * n, main, host_trie_ms=trie_ms, device_ms=dev_ms[0])
+           b * n + table_bytes + 8 * b * n, main, host_trie_ms=trie_ms, device_ms=dev_ms[0],
+           segment=seg, warps=warps, sweep_states=table.sweep.states,
+           sweep_full_rows=table.sweep.full, sweep_bytes=sweep_bytes)
     record("bpe_chain", [b, n], 0.0, (chain_times[0], chain_times[1], None), 0,
            8 * b * n + b * n + 4 * b * n + 4 * b, main, host_trie_ms=trie_ms,
            device_ms=dev_ms[1])
@@ -1525,6 +1690,7 @@ def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
               "" if old is None else f" (the one-thread walk, {old} ms eager in PERF.md: "
               f"{old * 1e6 / per_record:.2f} ns per token)"))
     if main:
+        match_checks(dev, merges)
         chain_checks(record, dev, table.max_len)
 
 

@@ -398,6 +398,22 @@ decode_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ ou
   out[idx] = __float2bfloat16(s);
 }
 
+constexpr size_t kSmemMax = 227 * 1024;
+
+// Both kernels' dynamic shared-memory limit, raised to the whole budget
+// once per process, not on every launch.
+template <typename T>
+cudaError_t raise_smem_limits() {
+  static const cudaError_t raised = [] {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemMax));
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(decode_pv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(kSmemMax));
+  }();
+  return raised;
+}
+
 template <typename T>
 int launch(const void* q, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
            const void* valid_mask, const void* fresh_k, const void* fresh_v,
@@ -417,12 +433,8 @@ int launch(const void* q, void* k_cache, void* v_cache, void* k_scale, void* v_s
                     static_cast<__nv_bfloat16*>(v_scale), write_idx};
   const StatsSmem LA(G, D, kInt8);
   const PvSmem LB(G, D, splits, kInt8);
-  if (LA.bytes > 227 * 1024 || LB.bytes > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(LA.bytes));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(decode_pv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(LB.bytes));
+  if (LA.bytes > kSmemMax || LB.bytes > kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err = raise_smem_limits<T>();
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = float(1.0 / sqrt(double(D)));

@@ -59,8 +59,9 @@ _SIGNATURES = {
     "ecg_int8_linear_tc": [_P] * 5 + [_I] * 5 + [_P],
     # k, v, k_cache, v_cache, k_scale, v_scale, B, s, S, KH, D, idx, stream
     "ecg_kv_quant": [_P] * 6 + [_I, _I, _I, _I, _I, _I, _P],
-    # q, trans, token, match_tok, match_len, B, N, max_len, stream
-    "ecg_bpe_match": [_P] * 5 + [_I, _I, _I, _P],
+    # q, sweep words, match_tok, match_len, B, N, states, full, wide, warm, seg, warps,
+    # max_hot, sms, stream
+    "ecg_bpe_match": [_P] * 4 + [_I] * 10 + [_P],
     # match_len, match_tok, visited, ids, counts, B, N, max_len, stream
     "ecg_bpe_chain": [_P] * 5 + [_I, _I, _I, _P],
     # x, w, y, n, d, w_f32, eps, stream

@@ -7,15 +7,17 @@
 ``_match_kernel_bits`` and ``_match_kernel``, reached through
 ``longest_match``).  Those fed the TPU's matrix unit: matching was an int8
 product of symbol windows against a table of token columns, and a packed
-(length, id) max.  That caps tokens at 16 symbols and ids below 8192.  Here
-one thread per position walks the dictionary's trie automaton
-(``bpe_encode.build_automaton``) from the root, one dependent table load
-per symbol, and remembers the last terminal state: no length or id limit.
-What bounds it on the H100: the chain of dependent loads, not bytes (the
-walk touches the table ~10 times per position).  The table is read through
-the read-only path: its hot states stay in L1, the rest in L2.  A copy in
-each block's shared memory, for tables that fit there, measured no faster
-(``PERF.md``), so there is one placement for every table size.
+(length, id) max.  That caps tokens at 16 symbols and ids below 8192.  On
+the H100 the work is a chain of dependent table loads: a walk of the trie
+from every position takes ~10 a position, repeating its neighbours'.  The
+kernel sweeps each record right to left over the Aho-Corasick automaton of
+the reversed tokens (``bpe_encode.build_sweep_table``): one transition and
+one lookup per position, from a table in shared memory.  A record is cut
+into segments of :func:`choose_sweep`'s length, one a thread, each sweep
+starting ``max_len - 1`` symbols right of its segment or at the record's
+end, which makes the cut exact.  No length or id limit: a table past
+65,536 states, ids from 2^23 or tokens past 255 symbols take the wide
+(int32) rows.
 
 ``greedy_chain`` replaces ``_chain_kernel`` (reached through
 ``greedy_chain``), which carried a 16-row window of the banded recurrence
@@ -92,37 +94,77 @@ def greedy_chain_plain(match_len: torch.Tensor, max_len: int) -> torch.Tensor:
     return visited[:, w:]
 
 
+# (segment length, warps a block) by the positions of a call, the best of
+# every length and warp count at the shapes the port launches
+# (tools/bpe_match_shapes.py, PERF.md): (16, 8) up to the token cache's
+# (64, 6000) and (12, 30000), whose few threads need short segments to
+# fill the card; (32, 16) at its (64, 30000); (64, 16) at (256, 30000),
+# where longer segments save warm-up and more warps hide the loads
+SWEEP_CHOICES = ((1 << 20, (16, 8)), (1 << 22, (32, 16)))
+SWEEP_LARGE = (64, 16)
+
+
+def choose_sweep(b: int, n: int):
+    """The match kernel's ``(segment length, warps a block)`` for a (b, n)
+    call."""
+    for limit, choice in SWEEP_CHOICES:
+        if b * n < limit:
+            return choice
+    return SWEEP_LARGE
+
+
+def sweep_choices():
+    """Every ``(segment length, warps a block)`` :func:`choose_sweep`
+    returns."""
+    return [choice for _, choice in SWEEP_CHOICES] + [SWEEP_LARGE]
+
+
 def _check_match(q, table):
     if q.dim() != 2 or q.dtype != torch.uint8:
         raise ValueError(f"q must be a uint8 (B, N) tensor, got {q.dtype} {tuple(q.shape)}")
-    trans, token = table.trans, table.token
-    if trans.dim() != 2 or trans.shape[1] != PAD_SYMBOL + 1 or token.shape != trans.shape[:1]:
-        raise ValueError("the table must be an Automaton: trans (S, 27), token (S,)")
-    for name, t in (("q", q), ("trans", trans), ("token", token)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must lie on q's CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if trans.dtype != torch.int32 or token.dtype != torch.int32:
-        raise ValueError("the table's trans and token must be int32")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if not q.is_cuda:
+        raise ValueError("q must lie on a CUDA device")
+    sweep = table.sweep
+    if sweep is None:
+        raise ValueError("the table has no sweep table: build it with bpe_encode.build_automaton")
+    words = sweep.words
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise ValueError(f"the sweep table's words must be int32 (n,), got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    if words.get_device() != q.get_device():
+        raise ValueError("the sweep table must lie on q's CUDA device")
+    if not words.is_contiguous() or words.data_ptr() % 16:
+        raise ValueError("the sweep table must be contiguous and 16-byte aligned")
 
 
 def longest_match(q: torch.Tensor, table: Automaton):
     """``longest_match_plain``'s contract; a CUDA tensor launches
-    ``csrc/bpe_match.cu``."""
+    ``csrc/bpe_match.cu`` over ``table.sweep`` at :func:`choose_sweep`'s
+    segment length and warps."""
     if q.device.type == "cpu":
         return longest_match_plain(q, table)
+    return sweep_match(q, table, *choose_sweep(*q.shape))
+
+
+def sweep_match(q: torch.Tensor, table: Automaton, seg: int, warps: int, max_hot: int = -1):
+    """Launch the match kernel on a CUDA ``q``: segments of ``seg``
+    positions (16, 32 or 64), ``warps`` a block, at most ``max_hot`` table
+    rows in shared memory (-1: as many as fit; a table with compact rows is
+    staged whole).  Counts in ``longest_match.launches``."""
     _check_match(q, table)
     b, n = q.shape
     match_tok = torch.empty((b, n), dtype=torch.int32, device=q.device)
     match_len = torch.empty((b, n), dtype=torch.int32, device=q.device)
     if q.numel() == 0:
         return match_tok, match_len
+    sweep = table.sweep
     lib = _cuda.library()
-    stream = _cuda.stream(q)
     err = lib.ecg_bpe_match(
-        q.data_ptr(), table.trans.data_ptr(), table.token.data_ptr(), match_tok.data_ptr(),
-        match_len.data_ptr(), b, n, table.max_len, stream,
+        q.data_ptr(), sweep.words.data_ptr(), match_tok.data_ptr(), match_len.data_ptr(), b, n,
+        sweep.states, sweep.full, int(sweep.wide), table.max_len - 1, seg, warps, max_hot,
+        _cuda.sm_count(q.get_device()), _cuda.stream(q),
     )
     _cuda.check(err, "BPE longest match")
     longest_match.launches += 1

@@ -12,10 +12,12 @@ Why a kernel: the plain version costs about twelve launches per layer
 (absmax, where, divide, round, clamp, casts and four slice writes).  The
 kernel is one launch per layer for K and V together, and equals the plain
 version bit for bit: IEEE division and round-half-to-even in both.  It
-appends a prompt's rows at prefill; a decode step's row is quantized and
-written by decode attention itself (``ops/attention_decode``), with the
-same row quantizer (``csrc/kv_quant.cuh``), so the step launches nothing
-to append.
+appends a prompt's rows at prefill, where it is bound by bytes: a group of
+D / 8 lanes quantizes a row of K and V from 16-byte loads (its design is in
+the source).  A decode step's row is quantized and written by decode
+attention itself (``ops/attention_decode``), with the same arithmetic
+(``csrc/kv_quant.cuh``), so the step launches nothing to append.  The
+kernel takes head dims that are a multiple of 8, up to 256.
 
 A CPU tensor takes :func:`append_kv_plain`; a CUDA tensor launches the
 kernel or raises.  ``append_kv.launches`` counts the launches.
@@ -75,8 +77,11 @@ def _check(k, v, k_cache, v_cache, k_scale, v_scale, idx):
             raise ValueError(f"{name} must lie on k's CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
+    if d > MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up to {MAX_HEAD_DIM}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
     if idx < 0 or idx + s > big_s:
         raise ValueError(f"slots [{idx}, {idx + s}) outside the cache's {big_s}")
 
@@ -86,7 +91,9 @@ def append_kv(k, v, k_cache, v_cache, k_scale, v_scale, idx: int) -> None:
     cache, in place (see :func:`append_kv_plain`)."""
     if k.device.type == "cpu":
         return append_kv_plain(k, v, k_cache, v_cache, k_scale, v_scale, idx)
-    k, v = k.contiguous(), v.contiguous()
+    # the kernel loads 16 bytes a lane: a misaligned view is copied
+    k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (k, v))
     _check(k, v, k_cache, v_cache, k_scale, v_scale, idx)
     b, s, kh, d = k.shape
     lib = _cuda.library()

@@ -20,8 +20,10 @@ from ecg_byte_tpu_torch.ops import (
     attention,
     attention_resident,
     bpe_encode,
+    bpe_match,
     flash_attention,
     int8_linear,
+    kv_quant,
     rmsnorm,
 )
 from ecg_byte_tpu_torch.ops.quantize import normalize_quantize, quantized_to_string
@@ -672,3 +674,73 @@ def test_int8_serve_path_appends_per_prefill_only():
     path = chip_smoke.SERVE_INT8
     assert path.per_prefill["kv_quant"] == chip_smoke.LAYERS
     assert "kv_quant" not in path.per_step and "kv_quant" not in path.per_forward
+
+
+def _matched():
+    """A toy vocabulary's table, two 300-symbol records of a walk and the
+    plain matcher's (match_tok, match_len) of them."""
+    rng = np.random.default_rng(4)
+    walk = (np.abs(np.cumsum(rng.integers(-1, 2, size=(2, 300)), axis=1)) % 26).astype(np.uint8)
+    merges = BpeTokenizer.train(quantized_to_string(walk), 40).merges
+    table = bpe_encode.build_automaton(merges, torch.device("cpu"))
+    return bpe_match.longest_match_plain(torch.from_numpy(walk), table)
+
+
+def test_match_check_passes_plain():
+    want = _matched()
+    chip_smoke.check_match(want, want, "plain")
+
+
+@pytest.mark.parametrize("fault", ["length-one-short", "wrong-id"])
+def test_match_check_refuses_faults(fault):
+    """One position's match one symbol short (a kernel whose sweep starts
+    a symbol too late), or one position's token id wrong: each is refused
+    and named."""
+    want = _matched()
+    tok, ln = (t.clone() for t in want)
+    p = int((ln[1] > 1).nonzero()[0])  # a position with a token of 2 symbols or more
+    if fault == "length-one-short":
+        ln[1, p] -= 1
+        match = f"match_len at record 1 position {p}"
+    else:
+        tok[1, p] += 1
+        match = f"match_tok at record 1 position {p}"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_match((tok, ln), want, fault)
+
+
+def _appended(idx=3, shift=0):
+    """One layer's int8 cache of 8 slots after the plain append of 2 x 3
+    rows of 2 kv heads of 64 at slot ``idx + shift``."""
+    gen = torch.Generator().manual_seed(6)
+    k, v = (torch.randn(2, 3, 2, 64, generator=gen).to(torch.bfloat16) for _ in range(2))
+    cache = (torch.zeros(2, 8, 2, 64, dtype=torch.int8), torch.zeros(2, 8, 2, 64, dtype=torch.int8),
+             torch.ones(2, 8, 2, dtype=torch.bfloat16), torch.ones(2, 8, 2, dtype=torch.bfloat16))
+    kv_quant.append_kv_plain(k, v, *cache, idx + shift)
+    return cache
+
+
+def test_kv_quant_check_passes_plain():
+    want = _appended()
+    chip_smoke.check_kv_quant(want, want, "plain")
+
+
+@pytest.mark.parametrize("fault", ["row-one-off", "scale-one-ulp", "one-slot-off"])
+def test_kv_quant_check_refuses_faults(fault):
+    """One int8 value one off, one bf16 scale one ulp off, or the rows
+    written one slot late: each is refused and named."""
+    want = _appended()
+    got = tuple(t.clone() for t in want)
+    if fault == "row-one-off":
+        got[1][1, 4, 0, 9] += 1 if got[1][1, 4, 0, 9] < 127 else -1
+        match = "v_cache differs from the plain version at batch row 1, slot 4"
+    elif fault == "scale-one-ulp":
+        s = got[2][0, 5, 1].float()
+        got[2][0, 5, 1] = torch.nextafter(s.to(torch.bfloat16), torch.tensor(
+            float("inf"), dtype=torch.bfloat16))
+        match = "k_scale differs from the plain version at batch row 0, slot 5"
+    else:
+        got = _appended(shift=1)
+        match = "k_cache differs from the plain version at batch row 0, slot 3"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_kv_quant(got, want, fault)
