@@ -90,12 +90,24 @@ Phases, each printing its own lines, in the order they run:
     teacher-forced tokens, as phase 5.
 13. The long train step, kernels vs plain, as phase 7 at B1 x 4096.  The
     1,024-token paths launch no flash kernel.
+14. HF checkpoint: ``cli.make_flagship_fixture`` writes a size-exact
+    Llama-3.2-1B directory (2.47 GB of bf16 in one ``model.safetensors``,
+    a 128,256-row ``tokenizer.json``); its first tensors read back equal
+    (check_readback) and its tokenizer round-trips the dataset's texts
+    (check_round_trip).  ``cli.main --hf_weights`` trains with LoRA as
+    phase 6 (exact launch counts of both attention and both RMSNorm
+    kernels and both BPE kernels), then serves the checkpoint with
+    ``--toy`` and BERTScore on a random BERT-base written in the phase
+    (exact decode-attention counts; check_bertscore: mode ``local-bert``,
+    every F1 in (0, 1]); the BERTScore scorer on the card and on the CPU
+    agree within SCORER_TOL (check_scorers).
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.  Neither JAX nor ``ecg_byte_tpu`` is imported (the end
-asserts it).
+prints no result.  Neither JAX nor ``ecg_byte_tpu`` is imported, nor any of
+``safetensors``, ``tokenizers``, ``transformers``, ``regex`` and
+``ml_dtypes`` (the end asserts it).
 """
 
 from __future__ import annotations
@@ -2308,6 +2320,285 @@ def train_paths_phase(root, vocab, merges, check):
     assert not bad, f"gradient groups further from f32 than 1.25x the plain path: {bad}"
 
 
+# phase 14: the size-exact Llama-3.2-1B checkpoint directory
+# (cli.make_flagship_fixture), the tensors read back after it is written
+# (the first ones drawn: only they are cheap to draw again), and BERTScore's
+# card and CPU scorers, which agree within SCORER_TOL (f32, TF32 off)
+HF_FIXTURE = "llama32_1b_fixture"
+HF_READBACK = 3
+SCORER_TOL = 1e-4
+BERT_BASE = dict(hidden=768, layers=12, heads=12, intermediate=3072)
+
+
+def check_readback(written, read):
+    """Each tensor of ``written`` (name -> tensor) equals the one ``read``
+    back from the file: dtype, shape and every bit (torch.equal)."""
+    import torch
+
+    for name, want in written.items():
+        got = read.get(name)
+        assert got is not None, f"{name} is not in the file"
+        assert got.dtype == want.dtype and got.shape == want.shape, \
+            f"{name}: read {got.dtype} {tuple(got.shape)}, wrote {want.dtype} {tuple(want.shape)}"
+        assert torch.equal(got, want), f"{name}: read back differs from what was written"
+
+
+def check_round_trip(tokenizer, texts):
+    """``decode(encode(t)) == t`` for every text, without specials."""
+    for t in texts:
+        back = tokenizer.decode(tokenizer.encode(t, add_special_tokens=False))
+        assert back == t, f"decode(encode({t!r})) is {back!r}"
+
+
+def check_launch_counts(counts, expected, what):
+    """Every kernel's launch count is exactly the expected one."""
+    for name, n in counts.items():
+        assert n == expected.get(name, 0), \
+            f"{what}: {name} launched {n} times, expected {expected.get(name, 0)}"
+
+
+def check_bertscore(modes, f1s):
+    """The serving run scored BERTScore with the local BERT only (every
+    seed's ``metric_modes``) and every sample's F1 lies in (0, 1]."""
+    assert modes and all(m.get("bertscore") == ["local-bert"] for m in modes), \
+        f"BERTScore modes {modes}"
+    assert f1s and all(0.0 < f <= 1.0 for f in f1s), f"F1 outside (0, 1]: {f1s}"
+
+
+def check_scorers(card, cpu, tol=SCORER_TOL):
+    """The card's and the CPU's P, R and F1 agree within ``tol``; returns
+    the largest difference."""
+    worst = 0.0
+    for key in ("precision", "recall", "f1"):
+        assert len(card[key]) == len(cpu[key]), f"{key}: {len(card[key])} vs {len(cpu[key])} pairs"
+        for a, b in zip(card[key], cpu[key]):
+            assert abs(a - b) <= tol, f"BERTScore {key}: card {a!r}, CPU {b!r} (tol {tol})"
+            worst = max(worst, abs(a - b))
+    return worst
+
+
+def write_random_bert(out_dir, texts, hidden, layers, heads, intermediate, seed=0):
+    """A random BERT checkpoint directory (f32, HF key names) whose
+    ``vocab.txt`` holds the five specials, every character of ``texts``
+    (lower-cased), their ``##`` pieces and the texts' words; written with
+    the port's safetensors writer.  Returns the vocabulary size."""
+    import torch
+
+    from ecg_byte_tpu_torch.models.hf_loader import save_safetensors
+    from ecg_byte_tpu_torch.tokenizer.wordpiece import basic_tokenize
+
+    words = sorted({w for t in texts for w in basic_tokenize(t)})
+    chars = sorted({c for w in words for c in w})
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + [f"##{c}" for c in chars]
+             + [w for w in words if w not in chars])
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    V, H, I, P = len(vocab), hidden, intermediate, 512
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "vocab_size": V, "hidden_size": H,
+                   "num_hidden_layers": layers, "num_attention_heads": heads,
+                   "intermediate_size": I, "max_position_embeddings": P, "type_vocab_size": 2,
+                   "layer_norm_eps": 1e-12}, f)
+    gen = torch.Generator().manual_seed(seed)
+
+    def dense(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    t = {"embeddings.word_embeddings.weight": dense(V, H),
+         "embeddings.position_embeddings.weight": dense(P, H),
+         "embeddings.token_type_embeddings.weight": dense(2, H),
+         "embeddings.LayerNorm.weight": torch.ones(H), "embeddings.LayerNorm.bias": torch.zeros(H),
+         "pooler.dense.weight": dense(H, H), "pooler.dense.bias": torch.zeros(H)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            t[p + f"attention.self.{name}.weight"] = dense(H, H)
+            t[p + f"attention.self.{name}.bias"] = torch.zeros(H)
+        for name, shape in (("attention.output.dense", (H, H)), ("intermediate.dense", (I, H)),
+                            ("output.dense", (H, I))):
+            t[p + name + ".weight"] = dense(*shape)
+            t[p + name + ".bias"] = torch.zeros(shape[0])
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[p + name + ".weight"] = torch.ones(H)
+            t[p + name + ".bias"] = torch.zeros(H)
+    save_safetensors(t, os.path.join(out_dir, "model.safetensors"))
+    return V
+
+
+def hf_phase(root, vocab, merges):
+    """Phase 14: the size-exact Llama-3.2-1B directory written by the port's
+    ``cli.make_flagship_fixture``, read back; its tokenizer round-trips the
+    dataset's texts; ``cli.main --hf_weights`` trains with LoRA from the
+    device token cache and serves the checkpoint with BERTScore on a random
+    BERT-base; the card's and the CPU's scorers agree.  Returns the launch
+    counts of both runs and the phase's numbers."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.cli import common
+    from ecg_byte_tpu_torch.cli import main as cli_main
+    from ecg_byte_tpu_torch.cli import make_flagship_fixture as fixture_cli
+    from ecg_byte_tpu_torch.data import load_text_tokenizer
+    from ecg_byte_tpu_torch.data.datasets import parse_question_answer
+    from ecg_byte_tpu_torch.models.hf_loader import read_safetensors_file
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import create_train_state, make_train_step
+    from ecg_byte_tpu_torch.utils import bertscore, metrics
+
+    phase("14. HF checkpoint: a size-exact Llama-3.2-1B directory, cli.main --hf_weights "
+          "--peft --dev (train) and --inference --toy with BERTScore on a local BERT")
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    fixture = os.path.join(root, HF_FIXTURE)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = fixture_cli.main(["--out", fixture])
+    print(f"fixture written in {time.perf_counter() - t0:.1f} s: {stats['weight_bytes']:,} bytes "
+          f"of bf16 weights (drawn in {stats['draw_weights_s']} s, with the write "
+          f"{stats['write_weights_s']} s), tokenizer.json of {stats['tokenizer_vocab']:,} rows, "
+          f"{stats['tokenizer_json_bytes']:,} bytes ({stats['write_tokenizer_s']} s)")
+    cfg = fixture_cli._FLAGSHIP_CONFIG
+    written = dict(itertools.islice(fixture_cli.weight_stream(cfg, 0), HF_READBACK))
+    read = read_safetensors_file(os.path.join(fixture, "model.safetensors"))
+    check_readback(written, read)
+    print(f"read back equal (torch.equal): {', '.join(written)}; {len(read)} tensors in the file")
+    del written, read
+
+    data = os.path.join(root, "data", "ptb_500", "text")
+    texts = set()
+    for split in ("train", "val", "test"):
+        for name in sorted(os.listdir(os.path.join(data, split))):
+            with open(os.path.join(data, split, name)) as f:
+                texts.update(parse_question_answer(json.load(f), "ptb_500"))
+    texts = sorted(texts)
+    t0 = time.perf_counter()
+    tokenizer = load_text_tokenizer(fixture)
+    t_tok = time.perf_counter() - t0
+    check_round_trip(tokenizer, texts)
+    print(f"tokenizer.json loaded in {t_tok:.1f} s ({len(tokenizer):,} tokens); decode(encode(t)) "
+          f"== t for the dataset's {len(texts)} texts")
+
+    builds = []  # (seconds, config) of each model build the CLI makes
+    real_build = common.build_model
+
+    def timed_build(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_build(*args, **kw)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, out[1]))
+        return out
+
+    args = ["--hf_weights", fixture, "--dataset", "ptb_500", "--tokenizer_check",
+            f"tokenizer_{NUM_MERGES}", "--num_merges", str(NUM_MERGES), "--percentiles",
+            "data/ptb_500_dataset_stats.npy"]
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), mock.patch.object(cli_main, "build_model", timed_build):
+        result = cli_main.main(args + TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = launches()
+    summary = result["training"]
+    steps, evals = summary["steps"], 2
+    build_s, config = builds[-1]
+    print(f"launches {train_counts}; {steps} train steps, {evals} eval steps; "
+          f"phase wall {wall:.1f} s")
+    assert steps == 12, f"{steps} train steps"
+    assert config.vocab_size == len(tokenizer) + len(vocab) + 3, config.vocab_size
+    # as phase 6: per train step each layer's attention forward and
+    # backward, 2L + 1 norms forward and 2L backward; per eval step the
+    # forwards; each BPE kernel once per split's batch of the token cache
+    L = LAYERS
+    check_launch_counts(train_counts, {
+        "prefill_attention": L * (steps + evals), "prefill_attention_bwd": L * steps,
+        "rmsnorm": (2 * L + 1) * (steps + evals), "rmsnorm_bwd": 2 * L * steps,
+        "bpe_match": 2, "bpe_chain": 2}, "HF training")
+    losses = summary["train_loss"] + summary["val_loss"]
+    assert all(np.isfinite(losses)), losses
+    print(f"model built from --hf_weights in {build_s:.1f} s: vocab {config.vocab_size:,} "
+          f"(128,256 + {config.vocab_size - 128256:,} ECG tokens and specials, mean rows), "
+          f"hidden {config.hidden_size}, layers {config.num_layers}, {config.dtype}; "
+          f"train loss {summary['train_loss']}, val loss {summary['val_loss']}")
+
+    # the train step alone at B4 x 1024 on the loaded weights, as phase 6
+    params, config, hf_tok = common.build_model(None, vocab, dev, hf_weights=fixture)
+    opt = make_optimizer(config.hidden_size, 500)
+    state = create_train_state(config, opt, torch.Generator(device=dev).manual_seed(0),
+                               peft=True, params=params)
+    del params
+    batch = _training_items(root, vocab, merges, hf_tok, 4)
+    b, s = batch["input_ids"].shape
+    state, ms_step, _ = time_train_step(make_train_step(config, opt, remat="none"), state, batch,
+                                        torch.Generator().manual_seed(0), "--hf_weights")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    bert_dir = os.path.join(root, "bert_base")
+    t0 = time.perf_counter()
+    n_bert = write_random_bert(bert_dir, texts, **BERT_BASE)
+    print(f"random BERT-base (12 layers, hidden 768, f32, {n_bert} WordPiece rows) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    f1s = []
+    real_score = metrics.bertscore_with_mode
+
+    def scored(references, hypotheses, device=None):
+        out = real_score(references, hypotheses, device)
+        f1s.extend(out[0]["hf-f1"])
+        return out
+
+    checkpoint = os.path.basename(summary["directory"])
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), mock.patch.dict(os.environ, {bertscore.MODEL_ENV: bert_dir}), \
+            mock.patch.object(metrics, "bertscore_with_mode", scored):
+        result = cli_main.main(args + ["--inference", "--dev", "--peft", "--toy", "--checkpoint",
+                                       checkpoint, "--eval_batch_size", "1"])
+    wall = time.perf_counter() - t0
+    serve_counts = launches()
+    serving = result["serving"]
+    prefills, dsteps = serving["records"], serving["decode_steps"]
+    print(f"launches {serve_counts}; {prefills} prefills, {dsteps} decode steps; "
+          f"phase wall {wall:.1f} s")
+    assert prefills == 5 * max(1, int(N_TEST * 0.25)), f"{prefills} records decoded"
+    check_launch_counts(serve_counts, {
+        "prefill_attention": L * prefills, "decode_attention": L * dsteps,
+        "rmsnorm": (2 * L + 1) * (prefills + dsteps)}, "HF serving")
+    for r in result["records"]:
+        toks = r["tokens"]
+        assert toks.shape == (1, 128) and toks.min() >= 0 and toks.max() < config.vocab_size
+    modes = []
+    for seed in (0, 42, 123, 456, 789):
+        with open(os.path.join(root, "runs", "0", checkpoint,
+                               f"seed_{seed}_results_ptb_500.json")) as f:
+            modes.append(json.load(f)["metric_modes"])
+    check_bertscore(modes, f1s)
+    print(f"BERTScore mode local-bert in every seed; {len(f1s)} F1s in "
+          f"[{min(f1s):.4f}, {max(f1s):.4f}]")
+
+    refs = texts[:4]
+    cands = [texts[(i + 1) % len(texts)] for i in range(len(refs))]
+    card = bertscore.LocalBertScorer(bert_dir, device=dev)
+    cpu = bertscore.LocalBertScorer(bert_dir, device="cpu")
+    card.score(refs, cands)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.score(refs, cands)
+    scorer_ms = (time.perf_counter() - t0) * 1e3 / len(refs)
+    worst = check_scorers(got, cpu.score(refs, cands))
+    print(f"LocalBertScorer on the card vs the CPU, {len(refs)} pairs: max |d| {worst:.2e} over "
+          f"P, R, F1 (tol {SCORER_TOL}); {scorer_ms:.2f} ms a pair on the card (host clock)")
+    numbers = {"vocab": config.vocab_size, "build_s": build_s, "ms_per_step": ms_step,
+               "tokens_per_s": b * s / ms_step * 1e3,
+               "prefill_ms": serving["prefill_ms_mean"],
+               "ms_per_token": serving["decode_ms_per_step"], "scorer_ms_per_pair": scorer_ms}
+    print(f"phase 14: {json.dumps(numbers)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"hf_train": train_counts, "hf_serve": serve_counts}, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2345,7 +2636,10 @@ def main() -> int:
             long_root, long_train["checkpoint"], SERVE_LONG)
         paths_phase(long_root, long_vocab, long_merges, SERVE_LONG)
         train_paths_phase(long_root, long_vocab, long_merges, LONG_TRAIN_CHECK)
-    for mod in ("jax", "ecg_byte_tpu"):
+        hf_counts, hf = hf_phase(root, vocab, merges)
+        by_path.update(hf_counts)
+    for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
+                "ml_dtypes"):
         assert mod not in sys.modules, f"{mod} was imported"
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
@@ -2366,6 +2660,10 @@ def main() -> int:
     print(f"long path: train step B1 x 4096 {long_train['ms_per_step']:.2f} ms, "
           f"{long_train['tokens_per_s']:.0f} tokens/s, peak {long_train['peak_gib']:.2f} GiB; "
           f"decode {ms['serve_long']:.3f} ms/token bf16 (host clock)")
+    print(f"--hf_weights: vocab {hf['vocab']:,}, build {hf['build_s']:.1f} s, train step "
+          f"{hf['ms_per_step']:.2f} ms, {hf['tokens_per_s']:.0f} tokens/s; prefill "
+          f"{hf['prefill_ms']:.2f} ms, decode {hf['ms_per_token']:.3f} ms/token (host clock); "
+          f"BERTScore {hf['scorer_ms_per_pair']:.2f} ms a pair")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,11 +4,16 @@ from __future__ import annotations
 
 import os
 import random
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ecg_byte_tpu_torch.data.text_tokenizer import ByteTextTokenizer, register_ecg_tokens
+from ecg_byte_tpu_torch.data.text_tokenizer import (
+    ByteTextTokenizer,
+    load_text_tokenizer,
+    register_ecg_tokens,
+)
 from ecg_byte_tpu_torch.models import (
     gemma_2b,
     gpt2_xl,
@@ -41,17 +46,37 @@ def set_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def build_model(model_name: str, vocab, device: torch.device):
+def build_model(
+    model_name: str,
+    vocab,
+    device: torch.device,
+    *,
+    hf_weights: Optional[str] = None,
+    dtype: Optional[str] = None,
+):
     """Construct (params, config, text_tokenizer) with ECG tokens registered.
 
-    A preset config at full width with random weights (a ``torch.Generator``
+    With ``hf_weights`` (a local HF model directory) the checkpoint loads on
+    ``device`` in ``dtype`` (default bf16) with its own tokenizer, and the
+    embedding grows by mean rows to hold the ECG tokens.  Otherwise a
+    preset config at full width with random weights (a ``torch.Generator``
     seeded with 0 on ``device``) and the byte tokenizer; the vocabulary
-    grows to hold the ECG tokens.  Real checkpoints (``--hf_weights``) are
-    ROADMAP.md queue 1, item 6.
+    grows to hold the ECG tokens.
     """
+    if hf_weights:
+        from ecg_byte_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+        params, config = load_hf_checkpoint(hf_weights, dtype or "bfloat16", device)
+        tokenizer = load_text_tokenizer(hf_weights)
+        new_size = register_ecg_tokens(tokenizer, vocab)
+        params, config = T.resize_embeddings(params, config, new_size)
+        return params, config, tokenizer
     if model_name not in _PRESETS:
-        raise ValueError(f"unknown model {model_name!r}; options: {sorted(_PRESETS)}")
+        raise ValueError(f"unknown model {model_name!r}; options: {sorted(_PRESETS)} "
+                         "or pass --hf_weights for a local checkpoint")
     config = _PRESETS[model_name]()
+    if dtype:
+        config = config.replace(dtype=dtype)
     tokenizer = ByteTextTokenizer()
     new_size = register_ecg_tokens(tokenizer, vocab)
     config = config.replace(vocab_size=max(config.vocab_size, new_size))

@@ -15,6 +15,10 @@ loss record, the per-seed result JSONs).
   checkpoint are merged into the base first (``--no_merge_lora`` serves
   them attached).  ``--int8_decode`` serves an int8 copy of the merged
   weights with an int8 KV cache.  ``main()`` returns the serving summary.
+- ``--hf_weights <dir>``: a local HF checkpoint's weights and tokenizer take
+  the preset's place (``cli/common.build_model``); serving a ``--peft``
+  checkpoint trained on them rebuilds the base from the same directory and
+  grafts the saved adapters.
 
 Training encodes every record once, before the first step, into a token
 cache on the run's device (the BPE kernels on the card); ``--online_encode``
@@ -70,9 +74,9 @@ from ecg_byte_tpu_torch.utils.viz_utils import plot_train_val_loss
 
 # options the port does not have yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "dis": "multi-GPU (DDP), ROADMAP.md queue 1, item 12",
-    "hf_weights": "HF checkpoint ingest, ROADMAP.md queue 1, item 6",
-    "profile": "the torch profiler, ROADMAP.md queue 1, item 14",
+    "dis": "multi-GPU (DDP), ROADMAP.md section 1, item 5",
+    "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
+               "the first benchmark PR)",
 }
 
 
@@ -109,7 +113,10 @@ def get_args(argv=None):
     parser.add_argument('--interpret', action='store_true')
     parser.add_argument('--tp', type=int, default=1)
     parser.add_argument('--fsdp', type=int, default=1)
-    parser.add_argument('--hf_weights', type=str, default=None)
+    parser.add_argument('--hf_weights', type=str, default=None,
+                        help='a local HF checkpoint directory (config.json, '
+                             '*.safetensors, tokenizer.json): its weights and '
+                             'tokenizer replace --model\'s preset')
     parser.add_argument('--profile', type=str, default=None)
     parser.add_argument('--resume', type=str, default=None)
     parser.add_argument('--eval_batch_size', type=int, default=1,
@@ -174,13 +181,16 @@ def main(argv=None):
         raise SystemExit(f"error: {e}")
     if args.dev:
         args.epochs = 2
+    if args.model is None and args.hf_weights:
+        args.model = os.path.basename(os.path.normpath(args.hf_weights))
     set_seed(args.seed)
 
     vocab, merges = load_vocab_and_merges(
         os.path.join(args.data_root, f"{args.tokenizer_check}.pkl")
     )
     t0 = time.perf_counter()
-    params, config, tokenizer = build_model(args.model, vocab, device)
+    params, config, tokenizer = build_model(args.model, vocab, device,
+                                            hf_weights=args.hf_weights)
     print(f"Model {args.model}: vocab={config.vocab_size} "
           f"hidden={config.hidden_size} layers={config.num_layers} on {device} "
           f"(build {time.perf_counter() - t0:.1f}s)")
@@ -266,7 +276,7 @@ def _serve(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     for seed in seeds:
         print(f"Setting Seed to {seed}")
         set_seed(seed)
-        seed_results = tester(generate_fn, test_loader, dev=args.dev)
+        seed_results = tester(generate_fn, test_loader, dev=args.dev, device=device)
         all_seed_results.append(seed_results)
         with open(f"{ckpt_dir}/seed_{seed}_results_{args.dataset}.json", "w") as f:
             json.dump({"averages": seed_results["metrics"],

@@ -1,13 +1,16 @@
-"""Self-contained byte-level text tokenizer with the HF surface the
-pipeline consumes.
+"""Text tokenizers with the HF surface the pipeline consumes.
 
 A copy of ``ecg_byte_tpu/data/text_tokenizer.py`` (importing that module
-runs ``ecg_byte_tpu/data/__init__.py``, which imports JAX).  Ids 0..255 are
-raw UTF-8 bytes; specials and ECG tokens are appended.  Loading a local HF
-tokenizer (``load_text_tokenizer``) comes with ``--hf_weights``.
+runs ``ecg_byte_tpu/data/__init__.py``, which imports JAX).  Two tokenizers
+serve the pipeline: the self-contained ``ByteTextTokenizer`` of the preset
+models (ids 0..255 are raw UTF-8 bytes; specials and ECG tokens are
+appended), and a checkpoint's own tokenizer for ``--hf_weights``
+(``load_text_tokenizer``: ``tokenizer/hf_text.py``).
 """
 
 from __future__ import annotations
+
+import os
 
 from typing import Dict, Iterable, List, Optional, Union
 
@@ -235,3 +238,21 @@ def register_ecg_tokens(tokenizer, vocab) -> int:
     tokenizer.add_tokens(["<sig_end>"], special_tokens=True)
     tokenizer.add_special_tokens({"pad_token": "<pad>"})
     return len(tokenizer)
+
+
+def load_text_tokenizer(hf_dir: str):
+    """The checkpoint's own tokenizer from a local HF directory.
+
+    By default the port's reader (``tokenizer/hf_text.py``): merge-rank BPE
+    from ``tokenizer.json`` (or GPT-2's ``vocab.json`` + ``merges.txt``),
+    with ``tokenizers``' ids and no HF package.  With
+    ``ECG_BYTE_TEXT_TOKENIZER=transformers`` it is ``AutoTokenizer``
+    instead, a cross-check that imports ``transformers`` only then.
+    """
+    if os.environ.get("ECG_BYTE_TEXT_TOKENIZER") == "transformers":
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(hf_dir, local_files_only=True)
+    from ecg_byte_tpu_torch.tokenizer.hf_text import HFTextTokenizer
+
+    return HFTextTokenizer.from_pretrained(hf_dir)

@@ -5,16 +5,18 @@ difference: an exception from ``generate_fn`` propagates.  The JAX runner
 zero-fills the sample's metrics on any exception, so a failing kernel
 there would end a run with exit code 0 and zero scores.  Here only metric
 scoring may fail soft (a metric package missing offline), and it is
-zero-filled as before.
+zero-filled as before, except BERTScore, which needs none of those
+packages: it is scored on its own (the JAX runner zero-fills it too).
 
 Scoring never downloads: METEOR uses NLTK's wordnet only where it is
 already installed and otherwise the exact-match METEOR of
-``utils.metrics``, labelled ``exact``.
+``utils.metrics``, labelled ``exact``; BERTScore runs a local BERT on the
+run's ``device`` where ``$ECG_BYTE_BERTSCORE_MODEL`` names one.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ecg_byte_tpu_torch.utils import metrics
 
@@ -26,25 +28,33 @@ ZERO_RESULT = {
 }
 
 
-def evaluate_strings(reference: str, hypothesis: str) -> Dict:
-    """The metric dict of ``metrics.evaluate_strings`` for one sample."""
+def evaluate_strings(reference: str, hypothesis: str, device=None) -> Dict:
+    """The metric dict of ``metrics.evaluate_strings`` for one sample;
+    BERTScore's local BERT runs on ``device``, after the metrics that may
+    be missing here."""
     meteor, meteor_mode = metrics.meteor_with_mode([reference], [hypothesis])
-    bert, bert_mode = metrics.bertscore_with_mode([reference], [hypothesis])
+    bleu = metrics.calculate_bleu([reference], [hypothesis])
+    rouge = metrics.calculate_rouge([reference], [hypothesis])
+    bert, bert_mode = metrics.bertscore_with_mode([reference], [hypothesis], device)
     return {
-        "BLEU": metrics.calculate_bleu([reference], [hypothesis]),
+        "BLEU": bleu,
         "METEOR": meteor,
-        "ROUGE": metrics.calculate_rouge([reference], [hypothesis]),
+        "ROUGE": rouge,
         "BERTSCORE": bert,
         "MODES": {"meteor": meteor_mode, "bertscore": bert_mode},
     }
 
 
-def _score(reference: str, hypothesis: str) -> Dict:
+def _score(reference: str, hypothesis: str, device=None) -> Dict:
     try:
-        return evaluate_strings(reference, hypothesis)
+        return evaluate_strings(reference, hypothesis, device)
     except Exception as e:  # a metric that cannot run here scores zero
         print(f"could not score a sample ({type(e).__name__}: {e})")
-        return dict(ZERO_RESULT)
+    # BERTScore needs neither nltk nor rouge: it still scores, with its mode
+    result = dict(ZERO_RESULT)
+    result["BERTSCORE"], mode = metrics.bertscore_with_mode([reference], [hypothesis], device)
+    result["MODES"] = {"bertscore": mode}
+    return result
 
 
 def tester(
@@ -52,11 +62,13 @@ def tester(
     dataloader,
     *,
     dev: bool = False,
+    device: Optional[object] = None,
 ):
     """Evaluate generation over a loader of inference batches.
 
     ``generate_fn(batch)`` returns one string, or a list with one string
-    per row, with the prompt already sliced off.
+    per row, with the prompt already sliced off.  ``device`` is where
+    BERTScore's local BERT runs: the model's device.
     """
     all_results, gt_answers, gen_answers, questions = [], [], [], []
     dev_count = 0
@@ -68,7 +80,7 @@ def tester(
         text = generate_fn(batch)
         texts = text if isinstance(text, list) else [text]
         for i, t in enumerate(texts):
-            all_results.append(_score(answers[i], t))
+            all_results.append(_score(answers[i], t, device))
             gt_answers.append(answers[i])
             gen_answers.append(t)
             questions.append(batch["question"][i])

@@ -2,8 +2,9 @@
 
 The port's copy of ``ecg_byte_tpu/utils/metrics.py``: corpus BLEU
 (smoothing method1), METEOR, ROUGE-1/2/L F, BERTScore, early stopping and
-the mean/std/95% t-CI summary.  BERTScore reads the HF ``evaluate`` scorer
-or zero-fills; the JAX package's local-BERT scorer is not ported.
+the mean/std/95% t-CI summary.  BERTScore takes the HF ``evaluate`` scorer
+where it is installed, else the local BERT named by
+``$ECG_BYTE_BERTSCORE_MODEL`` (``utils/bertscore.py``), else zero-fills.
 """
 
 from __future__ import annotations
@@ -79,9 +80,11 @@ def calculate_rouge(references, hypotheses) -> Dict[str, float]:
     return {k: scores[k]["f"] for k in ("rouge-1", "rouge-2", "rouge-l")}
 
 
-def bertscore_with_mode(references, hypotheses):
-    """Returns (P/R/F1 dict, mode): "hf" (HF ``evaluate``) or "zero-fill"
-    (no scorer available offline)."""
+def bertscore_with_mode(references, hypotheses, device=None):
+    """Returns (P/R/F1 dict, mode): "hf" (HF ``evaluate``), "local-bert"
+    (the local BERT named by ``$ECG_BYTE_BERTSCORE_MODEL``, run on
+    ``device``, default the CUDA card; ``utils/bertscore.py``) or
+    "zero-fill" (no scorer available offline)."""
     try:
         from evaluate import load  # optional, absent offline
 
@@ -91,8 +94,19 @@ def bertscore_with_mode(references, hypotheses):
         return {"hf-prec": results["precision"], "hf-rec": results["recall"],
                 "hf-f1": results["f1"]}, "hf"
     except Exception:
-        n = len(hypotheses)
-        return {"hf-prec": [0.0] * n, "hf-rec": [0.0] * n, "hf-f1": [0.0] * n}, "zero-fill"
+        pass
+    try:
+        from ecg_byte_tpu_torch.utils.bertscore import local_scorer_from_env
+
+        scorer = local_scorer_from_env(device)
+        if scorer is not None:
+            results = scorer.score(references, hypotheses)
+            return {"hf-prec": results["precision"], "hf-rec": results["recall"],
+                    "hf-f1": results["f1"]}, "local-bert"
+    except Exception as e:
+        print(f"local BERTScore failed ({e}); falling back to zero-fill")
+    n = len(hypotheses)
+    return {"hf-prec": [0.0] * n, "hf-rec": [0.0] * n, "hf-f1": [0.0] * n}, "zero-fill"
 
 
 def run_statistical_analysis(all_seeds_results: Sequence[Dict]) -> Dict:

@@ -744,3 +744,83 @@ def test_kv_quant_check_refuses_faults(fault):
         match = "k_cache differs from the plain version at batch row 0, slot 3"
     with pytest.raises(AssertionError, match=match):
         chip_smoke.check_kv_quant(got, want, fault)
+
+
+def _hf_checks():
+    """The inputs of phase 14's checks as a correct run gives them: two
+    tensors written and read back, launch counts, each seed's metric
+    modes and every sample's F1, the card's and the CPU's scores."""
+    gen = torch.Generator().manual_seed(0)
+    written = {"embed": torch.randn(64, 16, generator=gen).to(torch.bfloat16),
+               "norm": torch.ones(16, dtype=torch.bfloat16)}
+    read = {k: v.clone() for k, v in written.items()}
+    counts = {"prefill_attention": 160, "decode_attention": 20320, "rmsnorm": 42240,
+              "bpe_match": 0}
+    expected = {"prefill_attention": 160, "decode_attention": 20320, "rmsnorm": 42240}
+    modes = [{"meteor": ["exact"], "bertscore": ["local-bert"]}] * 5
+    f1s = [0.5615, 0.5697, 1.0]
+    card = {"precision": [0.9, 0.5], "recall": [0.8, 0.6], "f1": [0.847, 0.545]}
+    cpu = {k: [x + 5e-5 for x in v] for k, v in card.items()}
+    return written, read, counts, expected, modes, f1s, card, cpu
+
+
+def _run_hf_checks(written, read, counts, expected, modes, f1s, card, cpu):
+    chip_smoke.check_readback(written, read)
+    chip_smoke.check_launch_counts(counts, expected, "HF serving")
+    chip_smoke.check_bertscore(modes, f1s)
+    return chip_smoke.check_scorers(card, cpu)
+
+
+def test_hf_checks_pass_a_correct_run():
+    assert _run_hf_checks(*_hf_checks()) == pytest.approx(5e-5)
+
+
+@pytest.mark.parametrize("fault", ["byte-changed", "zero-fill", "f1-zero", "launch-off-by-one",
+                                   "scorer-gap", "mode-missing", "dtype-changed"])
+def test_hf_checks_refuse_faults(fault):
+    """Phase 14 refuses a tensor read back with one byte changed (or in
+    another dtype), a BERTScore mode of "zero-fill" in one seed (or none at
+    all), an F1 of 0, a launch count off by one and a card-against-CPU
+    score gap above 1e-4."""
+    written, read, counts, expected, modes, f1s, card, cpu = _hf_checks()
+    if fault == "byte-changed":
+        raw = read["embed"].view(torch.uint8).view(-1)
+        raw[77] ^= 1
+        match = "embed: read back differs"
+    elif fault == "dtype-changed":
+        read["norm"] = read["norm"].float()
+        match = "norm: read torch.float32"
+    elif fault == "zero-fill":
+        modes = modes[:4] + [{"meteor": ["exact"], "bertscore": ["zero-fill"]}]
+        match = "BERTScore modes"
+    elif fault == "mode-missing":
+        modes = [{}] * 5
+        match = "BERTScore modes"
+    elif fault == "f1-zero":
+        f1s = f1s + [0.0]
+        match = r"F1 outside \(0, 1\]"
+    elif fault == "launch-off-by-one":
+        counts = dict(counts, decode_attention=20321)
+        match = "decode_attention launched 20321 times, expected 20320"
+    else:
+        cpu = dict(cpu, recall=[0.8, 0.6 + 1.5e-4])
+        match = "BERTScore recall"
+    with pytest.raises(AssertionError, match=match):
+        _run_hf_checks(written, read, counts, expected, modes, f1s, card, cpu)
+
+
+def test_round_trip_check_refuses_a_lossy_tokenizer():
+    """check_round_trip passes the byte tokenizer and refuses one whose
+    decode drops a character."""
+    from ecg_byte_tpu_torch.data.text_tokenizer import ByteTextTokenizer
+
+    texts = ["The heart rate is slow.", "Ünïcödé ١٢٣"]
+    tok = ByteTextTokenizer()
+    chip_smoke.check_round_trip(tok, texts)
+
+    class Lossy(ByteTextTokenizer):
+        def decode(self, ids, skip_special_tokens=False):
+            return super().decode(ids)[:-1]
+
+    with pytest.raises(AssertionError, match="decode\\(encode"):
+        chip_smoke.check_round_trip(Lossy(), texts)

@@ -1,8 +1,12 @@
-"""The port stands alone: in a process where importing ``jax`` or anything of
-``ecg_byte_tpu`` fails, every module of ``ecg_byte_tpu_torch`` and
+"""The port stands alone: in a process where importing ``jax``, anything of
+``ecg_byte_tpu``, ``safetensors``, ``tokenizers``, ``transformers``,
+``regex`` or ``ml_dtypes`` fails, every module of ``ecg_byte_tpu_torch`` and
 ``chip_smoke`` imports, ``chip_smoke``'s data helper builds the synthetic
 dataset and tokenizer on the CPU, a tiny-llama decodes and takes a LoRA
-train step, and no source line imports either package."""
+train step, and the HF path runs: the tiny size-exact Llama-3.2-1B
+directory is written, loaded with its tokenizer and the ECG tokens
+registered, and a random BERT written by ``chip_smoke`` scores BERTScore.
+No source line imports JAX or the JAX package."""
 
 import os
 import re
@@ -15,6 +19,10 @@ _SCRIPT = r"""
 import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["ecg_byte_tpu"] = None  # and so does any `import ecg_byte_tpu...`
+BLOCKED = ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
+           "ml_dtypes")
+for mod in BLOCKED:
+    sys.modules[mod] = None
 import torch
 import ecg_byte_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ecg_byte_tpu_torch.__path__, "ecg_byte_tpu_torch.")]
@@ -25,11 +33,29 @@ from ecg_byte_tpu_torch.cli.common import build_model
 from ecg_byte_tpu_torch.infer import greedy_generate
 from ecg_byte_tpu_torch.train.scheduler import make_optimizer
 from ecg_byte_tpu_torch.train.step import create_train_state, make_train_step
+cpu = torch.device("cpu")
 with tempfile.TemporaryDirectory() as root:
     vocab, merges = chip_smoke.make_data(root, n_train=4, n_val=1, n_test=1, seg_len=60,
                                          num_merges=30)
     assert os.path.exists(os.path.join(root, "data", "tokenizer_30.pkl"))
-cpu = torch.device("cpu")
+    from ecg_byte_tpu_torch.cli import make_flagship_fixture
+    from ecg_byte_tpu_torch.utils import metrics
+    fixture = os.path.join(root, "fixture")
+    make_flagship_fixture.main(["--out", fixture, "--tiny"])
+    params, config, tok = build_model(None, vocab, cpu, hf_weights=fixture)
+    assert config.vocab_size == len(tok) == 1280 + len(vocab) + 3
+    text = "Could you please help me explain my ECG? Ünïcödé ١٢٣"
+    assert tok.decode(tok.encode(text, add_special_tokens=False)) == text
+    out = greedy_generate(params, config, torch.tensor([tok.encode("The heart")]),
+                          max_new_tokens=3)
+    assert out.shape == (1, 3)
+    bert = os.path.join(root, "bert")
+    chip_smoke.write_random_bert(bert, [text, "The heart rate is slow."], hidden=32, layers=2,
+                                 heads=4, intermediate=64)
+    os.environ["ECG_BYTE_BERTSCORE_MODEL"] = bert
+    scores, mode = metrics.bertscore_with_mode(["The heart rate is slow."],
+                                               ["The heart rate is fast."], device=cpu)
+    assert mode == "local-bert" and 0.0 < scores["hf-f1"][0] <= 1.0, (mode, scores)
 params, config, tok = build_model("tiny-llama", vocab, cpu)
 out = greedy_generate(params, config, torch.tensor([[tok.bos_token_id, 65, 66, 67]]), max_new_tokens=4)
 assert out.shape == (1, 4)
@@ -39,16 +65,16 @@ ids = torch.randint(0, config.vocab_size, (2, 16))
 batch = {"input_ids": ids, "attn_mask": torch.ones(2, 16, dtype=torch.int32), "labels": ids}
 state, loss = make_train_step(config, opt)(state, batch, torch.Generator().manual_seed(1))
 assert state.step == 1 and torch.isfinite(loss)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "ecg_byte_tpu"))
-assert loaded == ["ecg_byte_tpu", "jax"], loaded
-assert sys.modules["jax"] is None and sys.modules["ecg_byte_tpu"] is None
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert loaded == sorted(BLOCKED), loaded
+assert all(sys.modules[m] is None for m in BLOCKED)
 print("modules", len(names))
 """
 
 
 def test_port_imports_and_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("ECG_BYTE_TEXT_TOKENIZER", None)
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -67,3 +93,19 @@ def test_no_jax_import_statements():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert not offenders
+
+
+def test_no_hf_package_import_statements():
+    """No source line of the port or chip_smoke imports ``safetensors``,
+    ``tokenizers``, ``regex`` or ``ml_dtypes``; ``transformers`` only in the
+    opt-in cross-check of ``data/text_tokenizer.load_text_tokenizer``."""
+    pattern = re.compile(
+        r"^\s*(import|from) (safetensors|tokenizers|transformers|regex|ml_dtypes)(\.|\s)", re.M)
+    assert pattern.search("    from transformers import AutoTokenizer\n")
+    assert not pattern.search("from ecg_byte_tpu_torch.tokenizer import x\nimport re\n")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "ecg_byte_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    found = {os.path.relpath(f, REPO): pattern.findall(open(f).read()) for f in files}
+    found = {f: [m[1] for m in ms] for f, ms in found.items() if ms}
+    assert found == {"ecg_byte_tpu_torch/data/text_tokenizer.py": ["transformers"]}
