@@ -101,13 +101,31 @@ Phases, each printing its own lines, in the order they run:
     (exact decode-attention counts; check_bertscore: mode ``local-bert``,
     every F1 in (0, 1]); the BERTScore scorer on the card and on the CPU
     agree within SCORER_TOL (check_scorers).
+15. Preprocess: 512 MIMIC-IV-ECG-shaped raw records (WFDB format 16, 12
+    leads x 5,000 samples at 500 Hz, 4 bad on purpose) and a PTB-XL folder
+    of 32 are written; the chain's operators are built cold (scipy's
+    filtfilt and interp1d, the float64 wavelet matrices, their float64
+    products on the card); ``preprocess_records`` on a 64-record batch is
+    held to float64 scipy (check_rel: FILTER_TOL for the filter and the
+    whole chain, RESAMPLE_TOL for the resample), to the port's CPU path
+    (CARD_CPU_TOL), its median of |cD4| to numpy's (check_median), and
+    timed (CUDA events) beside its bound at the FP32 rate; then
+    ``python -m ecg_byte_tpu_torch.cli.preprocess_ecg`` at seg_len 2500
+    (stats) and 500, and on the PTB-XL folder, each tree held to its
+    expected splits, skip counts, names and texts (check_tree,
+    check_skips), ``cli.sample_ecg --max_clusters 100`` on the 2500
+    segments, ``cli.train_tokenizer`` (400 merges) on its list with the new
+    stats, and the device token cache of ``mimic_500``'s train split, its
+    streams equal to the host encoder's (check_token_cache) and its BPE
+    launches counted into rows ``bpe_match`` and ``bpe_chain``.
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  Neither JAX nor ``ecg_byte_tpu`` is imported, nor any of
-``safetensors``, ``tokenizers``, ``transformers``, ``regex`` and
-``ml_dtypes`` (the end asserts it).
+``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
+``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt`` and ``wfdb`` (the end
+asserts it).
 """
 
 from __future__ import annotations
@@ -2599,6 +2617,534 @@ def hf_phase(root, vocab, merges):
     return {"hf_train": train_counts, "hf_serve": serve_counts}, numbers
 
 
+# ------------------------------------------------------- phase 15: preprocess
+
+RAW_RECORDS = 512  # MIMIC-IV-ECG-shaped: 12 leads x 5,000 samples at 500 Hz, format 16
+# records bad on purpose, by instance index: the samples overflow to inf (a
+# gain of 1e-320), fs 250, 100 samples, no .dat file; each is skipped
+RAW_BAD = {3: "inf", 100: "fs250", 201: "short", 402: "missing"}
+PTB_RECORDS = 32
+RAW_GAIN = 200.0  # adc units per mV
+RAW_LEADS = ("I", "II", "III", "aVR", "aVF", "aVL", "V1", "V2", "V3", "V4", "V5", "V6")
+PREPROCESS_SEG_LENS = (2500, 500)
+PREPROCESS_BATCH = 64  # records per batch: the CLI's default
+PREPROCESS_MERGES = 400
+SAMPLE_CLUSTERS = 100
+# against float64 scipy, |d| / max|ref| (tests/test_dsp.py:40, :67): the
+# filter chain and the whole chain 2e-4, the cubic resample 2e-5
+FILTER_TOL = 2e-4
+RESAMPLE_TOL = 2e-5
+# the card's preprocess_records against the port's CPU path on the same
+# batch, |d| / max|cpu|: both are float32 products of the same operators in
+# another summation order
+CARD_CPU_TOL = 2e-5
+PEAK_FLOPS_F32 = 67e12  # FP32 outside the tensor cores, H100 SXM (NVIDIA's data sheet)
+# PTB-XL SCP statements (scp_statements.csv): code -> (diagnostic, form,
+# rhythm, diagnostic_class, diagnostic_subclass); None is an empty cell
+SCP = {
+    "NORM": (1, None, None, "NORM", "NORM"), "IMI": (1, None, None, "MI", "IMI"),
+    "ASMI": (1, None, None, "MI", "AMI"), "LVH": (1, None, None, "HYP", "LVH"),
+    "NDT": (1, None, None, "STTC", None), "ISC_": (1, None, None, "STTC", "ISC_"),
+    "IRBBB": (1, None, None, "CD", "IRBBB"), "1AVB": (1, None, None, "CD", "_AVB"),
+    "ABQRS": (None, 1, None, None, None), "PVC": (None, 1, 1, None, None),
+    "LOWT": (None, 1, None, None, None), "SR": (None, None, 1, None, None),
+    "AFIB": (None, None, 1, None, None), "STACH": (None, None, 1, None, None),
+}
+PTB_DIAGNOSTIC = ("NORM", "IMI", "ASMI", "LVH", "NDT", "ISC_", "IRBBB", "1AVB")
+
+
+def write_wfdb16(directory, name, adc, fs=500, gain=RAW_GAIN, leads=RAW_LEADS):
+    """A format-16 WFDB record ``directory/name`` (.hea and .dat): ``adc``
+    (n, n_sig) int16, one gain for every signal (a number or its text)."""
+    os.makedirs(directory, exist_ok=True)
+    n, n_sig = adc.shape
+    with open(os.path.join(directory, f"{name}.hea"), "w") as f:
+        f.write(f"{name} {n_sig} {fs} {n}\n")
+        for i in range(n_sig):
+            f.write(f"{name}.dat 16 {gain}(0)/mV 16 0 {int(adc[0, i])} 0 0 {leads[i]}\n")
+    adc.astype("<i2").tofile(os.path.join(directory, f"{name}.dat"))
+
+
+def raw_ecg(rng, n=5000, fs=500):
+    """(n, 12) float64 mV: beats (P, QRS, T as Gaussians) at 45-120 bpm with
+    per-lead gains, baseline wander, 50 Hz hum and noise."""
+    import numpy as np
+
+    t = np.arange(n) / fs
+    rr = 60.0 / rng.uniform(45, 120)
+    beats = np.arange(rng.uniform(0, rr), n / fs + rr, rr)
+
+    def wave(shift, width, amp):
+        return amp * np.exp(-0.5 * ((t[None, :] - beats[:, None] - shift) / width) ** 2).sum(0)
+
+    qrs_width = rng.uniform(0.008, 0.02)
+    beat = (wave(-0.16, 0.025, 0.15) + wave(0.0, qrs_width, 1.0)
+            - wave(0.025, 0.01, rng.uniform(0.1, 0.4)) + wave(0.3, 0.05, rng.uniform(0.1, 0.4)))
+    lead_gain = rng.uniform(0.3, 1.5, 12) * np.where(rng.random(12) < 0.2, -1.0, 1.0)
+    wander = 0.2 * np.sin(2 * np.pi * rng.uniform(0.05, 0.5) * t + rng.uniform(0, 6.3))
+    sig = (lead_gain[:, None] * beat[None] + wander[None] + 0.05 * np.sin(2 * np.pi * 50 * t)
+           + 0.02 * rng.normal(size=(12, n)))
+    return sig.T
+
+
+def raw_adc(rng, n=5000):
+    import numpy as np
+
+    return np.round(raw_ecg(rng, n) * RAW_GAIN).astype(np.int16)
+
+
+def write_raw_mimic(root, n=RAW_RECORDS, bad=RAW_BAD, seed=0):
+    """``root/mimic``: ``n`` records as MIMIC-IV-ECG lays them out
+    (``files/p<group>/s<study>/<study>``) with their conversations JSON,
+    the records of ``bad`` written faulty; returns the JSON's path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mimic = os.path.join(root, "mimic")
+    instances = []
+    for i in range(n):
+        rel = f"files/p{1000 + i // 64}/s{40000000 + i}/{40000000 + i}"
+        directory, name = os.path.split(os.path.join(mimic, rel))
+        fault = bad.get(i)
+        adc = raw_adc(rng)
+        write_wfdb16(directory, name, adc[:100] if fault == "short" else adc,
+                     fs=250 if fault == "fs250" else 500,
+                     gain="1e-320" if fault == "inf" else RAW_GAIN)
+        if fault == "missing":
+            os.remove(os.path.join(directory, f"{name}.dat"))
+        instances.append({"ecg": rel, "conversations": [
+            {"from": "human", "value": f"<ecg>\nWhat is the rhythm of ECG {i}?"},
+            {"from": "gpt", "value": f"Record {i}: sinus rhythm, {'normal' if i % 3 else 'borderline'} ECG."}]})
+    path = os.path.join(mimic, "conversations.json")
+    with open(path, "w") as f:
+        json.dump(instances, f)
+    return path
+
+
+def ptb_codes(i):
+    """Record ``i``'s scp_codes: every fifth has no diagnostic statement
+    (so no superdiagnostic label), the others one or two."""
+    codes = {}
+    if i % 5:
+        codes[PTB_DIAGNOSTIC[i % len(PTB_DIAGNOSTIC)]] = 100.0
+        if i % 3 == 0:
+            codes[PTB_DIAGNOSTIC[(i * 7) % len(PTB_DIAGNOSTIC)]] = 50.0
+    codes[("SR", "AFIB", "STACH")[i % 3]] = 0.0
+    if i % 4 == 0:
+        codes[("ABQRS", "PVC", "LOWT")[i % 3]] = 0.0
+    return codes
+
+
+def write_raw_ptb(folder, n=PTB_RECORDS, seed=1):
+    """A PTB-XL folder: ``n`` 500 Hz records under ``records500/``,
+    ``ptbxl_database.csv`` (ecg_id, patient_id, report, scp_codes,
+    strat_fold 1-10, filename_lr, filename_hr; one empty report, quotes
+    and commas in the others) and ``scp_statements.csv`` (:data:`SCP`)."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        ecg_id = i + 1
+        rel = f"records500/00000/{ecg_id:05d}_hr"
+        write_wfdb16(os.path.join(folder, os.path.dirname(rel)), os.path.basename(rel),
+                     raw_adc(rng))
+        report = "" if i == 7 else ptb_report(i)
+        rows.append([ecg_id, 15000 + i, report, repr(ptb_codes(i)), i % 10 + 1,
+                     f"records100/00000/{ecg_id:05d}_lr", rel])
+    with open(os.path.join(folder, "ptbxl_database.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["ecg_id", "patient_id", "report", "scp_codes", "strat_fold",
+                    "filename_lr", "filename_hr"])
+        w.writerows(rows)
+    with open(os.path.join(folder, "scp_statements.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "description", "diagnostic", "form", "rhythm", "diagnostic_class",
+                    "diagnostic_subclass"])
+        for code, values in SCP.items():
+            w.writerow([code, f"statement {code}"]
+                       + ["" if v is None else (f"{v:.1f}" if isinstance(v, int) else v)
+                          for v in values])
+
+
+def expected_mimic(n=RAW_RECORDS, bad=RAW_BAD):
+    """Each split's instance indices, by the definition of the CLI's split
+    (``RandomState(42).permutation``: the test part first, ceil(0.3 n) and
+    then ceil(0.6 rest) records), and each split's skip count."""
+    import math
+
+    import numpy as np
+
+    def split(items, test_size):
+        n_test = math.ceil(test_size * len(items))
+        perm = np.random.RandomState(42).permutation(len(items))
+        return [items[i] for i in perm[n_test:]], [items[i] for i in perm[:n_test]]
+
+    train, rest = split(list(range(n)), 0.3)
+    val, test = split(rest, 0.6)
+    splits = {"train": train, "val": val, "test": test}
+    return splits, {name: sum(i in bad for i in idx) for name, idx in splits.items()}
+
+
+def expected_ptb(n=PTB_RECORDS):
+    """Per split, the records kept (those with a superdiagnostic label), in
+    file order, with their label rows; and the sorted classes."""
+    labels = [sorted({SCP[c][3] for c in ptb_codes(i) if SCP[c][0] == 1}) for i in range(n)]
+    splits = {"train": [], "val": [], "test": []}
+    for i, row in enumerate(labels):
+        fold = i % 10 + 1
+        if row:
+            splits["train" if fold < 8 else "val" if fold == 8 else "test"].append((i, row))
+    return splits, sorted({c for row in labels for c in row})
+
+
+def ptb_report(i):
+    """Record ``i``'s report as the CLI saves it (an empty cell reads as
+    NaN, saved as "nan")."""
+    return "nan" if i == 7 else f'sinusrhythmus, "lagetyp" normal {i}, t abnormal'
+
+
+def check_tree(out, splits, segments, names_of, texts_of=None):
+    """``out/{ecg,text}/<split>`` hold exactly the expected files: for each
+    split the names ``names_of(position, segment)`` of each kept record's
+    ``segments`` segments, each array (12, L) float32 and finite, each text
+    ``texts_of(split, position)`` where given.  Returns the file count."""
+    import numpy as np
+
+    total = 0
+    for split, positions in splits.items():
+        want = {names_of(p, j) for p in positions for j in range(segments)}
+        for kind, ext in (("ecg", "npy"), ("text", "json")):
+            got = set(os.listdir(os.path.join(out, kind, split)))
+            names = {f"{kind}_{w}.{ext}" for w in want}
+            assert got == names, (f"{out} {kind}/{split}: {len(got)} files, expected "
+                                  f"{len(names)}; extra {sorted(got - names)[:3]}, "
+                                  f"missing {sorted(names - got)[:3]}")
+        for w in sorted(want)[:: max(1, len(want) // 16)]:
+            seg = np.load(os.path.join(out, "ecg", split, f"ecg_{w}.npy"))
+            assert seg.dtype == np.float32 and seg.shape[0] == 12 and np.isfinite(seg).all(), \
+                f"{out} ecg/{split}/ecg_{w}.npy: {seg.dtype} {seg.shape}"
+            if texts_of is not None:
+                with open(os.path.join(out, "text", split, f"text_{w}.json")) as f:
+                    text = json.load(f)
+                p = int(w.split("_")[0])
+                assert text == texts_of(split, p), f"{out} text/{split}/text_{w}.json: {text!r}"
+        total += len(want)
+    return total
+
+
+def check_skips(log, skips):
+    """The CLI's log names each split's skip count, and it is the expected
+    one."""
+    for split, n in skips.items():
+        line = f"Total instances skipped in {split} split: {n}\n"
+        assert line in log, f"skip count of {split}: expected {n}; the log says " + repr(
+            [x for x in log.splitlines() if f"in {split} split" in x])
+
+
+def check_rel(got, want, tol, what):
+    """max |got - want| / max |want| <= ``tol``, both finite; returns it."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, f"{what}: shape {got.shape}, expected {want.shape}"
+    assert np.isfinite(got).all(), f"{what}: non-finite values"
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    assert err <= tol, f"{what}: |d| / max|ref| = {err:.3e} > {tol:.0e}"
+    return err
+
+
+def check_token_cache(cache, want, what):
+    """The token cache's streams equal the host encoder's, record by record
+    and token by token."""
+    assert len(cache) == len(want), f"{what}: {len(cache)} streams, the host {len(want)}"
+    for r, (got, w) in enumerate(zip(cache, want)):
+        if got != w:
+            bad = next((k for k, (a, b) in enumerate(zip(got, w)) if a != b), min(len(got), len(w)))
+            raise AssertionError(f"{what}: record {r} differs from the host encoder at token "
+                                 f"{bad} ({len(got)} tokens, the host {len(w)})")
+
+
+def scipy_chain(x):
+    """The float64 reference on (B, 12, n) float64 arrays: scipy's filtfilt
+    chain (tests/test_dsp.py's oracle), the wavelet denoise in float64 (the
+    conv-path transforms, numpy's median and soft threshold), scipy's cubic
+    interp1d; returns (filtered, denoised, resampled)."""
+    import numpy as np
+    import torch
+    from scipy import interpolate
+    from scipy import signal as sps
+
+    from ecg_byte_tpu_torch.ops.wavelet import daubechies, dec_lengths, wavedec, waverec
+
+    y = x
+    for f0 in (50.0, 60.0):
+        b, a = sps.iirnotch(f0, 30.0, 500.0)
+        y = sps.filtfilt(b, a, y, axis=-1)
+    b, a = sps.butter(4, [0.5 / 250.0, 100.0 / 250.0], btype="band")
+    y = sps.filtfilt(b, a, y, axis=-1)
+    b, a = sps.butter(4, 0.05 / 250.0, btype="high")
+    filtered = sps.filtfilt(b, a, y, axis=-1)
+    n = x.shape[-1]
+    db6 = daubechies(6)
+    coeffs = [c.numpy() for c in wavedec(torch.from_numpy(np.ascontiguousarray(filtered)), db6, 4)]
+    med = np.median(np.abs(coeffs[1]), axis=-1, keepdims=True)
+    threshold = np.where(med == 0, 0.0, med / 0.6745)
+    kept = [coeffs[0]]
+    for d in coeffs[1:]:
+        th = np.sign(d) * np.maximum(np.abs(d) - threshold, 0.0)
+        kept.append(np.where(np.isfinite(th) & (np.abs(d) > 1e-10), th, 0.0))
+    denoised = waverec([torch.from_numpy(c) for c in kept], db6, dec_lengths(n, db6.dec_len, 4))
+    denoised = denoised.numpy()
+    t = np.linspace(0, n / 500.0, n, endpoint=True)
+    f = interpolate.interp1d(t, denoised, kind="cubic", axis=-1, bounds_error=False,
+                             fill_value="extrapolate")
+    return filtered, denoised, f(np.linspace(0, n / 500.0, n // 2, endpoint=True))
+
+
+def check_median(got, values, what):
+    """The threshold's median equals numpy's exactly: for an even length
+    the mean of the two middle values (``torch.median`` returns the lower
+    one)."""
+    import numpy as np
+
+    want = np.median(values, axis=-1, keepdims=True)
+    got = np.asarray(got)
+    assert got.shape == want.shape, f"{what}: shape {got.shape}, expected {want.shape}"
+    bad = np.flatnonzero(got != want)
+    assert bad.size == 0, (f"{what}: {bad.size} of {got.size} medians differ from numpy's, "
+                           f"first {got.flat[bad[0]]!r} against {want.flat[bad[0]]!r}")
+
+
+def _run_cli(module, args, cwd, env):
+    """``python -m <module> <args>``; returns (host seconds, its output)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, f"{module} {args}: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}"
+    return wall, r.stdout
+
+
+def preprocess_phase(root, dev="cuda", records=RAW_RECORDS, ptb_records=PTB_RECORDS):
+    """Phase 15: raw WFDB records through the port's preprocessing on the
+    card to the token cache.  Returns the launch counts of its main path
+    and its numbers.  (``dev="cpu"`` and fewer records rehearse it on the
+    CPU, with ``time_in_turns`` and ``torch.cuda`` patched.)"""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.cli import train_tokenizer
+    from ecg_byte_tpu_torch.data import DataConfig, ECGTokenDataset
+    from ecg_byte_tpu_torch.data.preprocess import PreprocessArgs, load_instance_signal
+    from ecg_byte_tpu_torch.data.text_tokenizer import ByteTextTokenizer, register_ecg_tokens
+    from ecg_byte_tpu_torch.ops import dsp, wavelet
+    from ecg_byte_tpu_torch.tokenizer import load_vocab_and_merges
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    phase("15. preprocess: raw WFDB records -> cli.preprocess_ecg (mimic, ptb) -> "
+          "cli.sample_ecg -> cli.train_tokenizer -> the device token cache")
+    torch.cuda.empty_cache()
+    dev = torch.device(dev)
+    cli_device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    t_phase = time.perf_counter()
+    raw = os.path.join(root, "raw")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env[dsp.CACHE_ENV] = os.path.join(root, "op_cache")
+    os.environ[dsp.CACHE_ENV] = env[dsp.CACHE_ENV]  # cold: this phase builds the operators
+    t0 = time.perf_counter()
+    instances_json = write_raw_mimic(raw, records)
+    ptb_folder = os.path.join(raw, "ptb")
+    write_raw_ptb(ptb_folder, ptb_records)
+    print(f"{records} MIMIC-IV-ECG-shaped records (12 x 5,000 at 500 Hz, format 16, "
+          f"{records * 5000 * 12 * 2 / 1e6:.1f} MB; bad on purpose: {RAW_BAD}) and a PTB-XL "
+          f"folder of {ptb_records} written in {time.perf_counter() - t0:.1f} s")
+
+    # the operators, built cold: scipy's filtfilt and interp1d through
+    # identities, the wavelet matrices in float64, their products on the card
+    build = {}
+    for name, fn in (("filtfilt (scipy)", lambda: dsp.filtfilt_matrix(5000, 500.0)),
+                     ("interp1d (scipy)", lambda: dsp.resample_matrix(5000, 500.0, 250.0)),
+                     ("wavelet (float64 conv)", lambda: wavelet._wavelet_matrices(5000, 4, 6)),
+                     ("float64 products on the card",
+                      lambda: dsp.preprocess_operators(5000, 500.0, 250.0, device=dev))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        build[name] = time.perf_counter() - t0
+    dec_op, rec_op, seg = dsp.preprocess_operators(5000, 500.0, 250.0, device=dev)
+    print(f"operators built in {sum(build.values()):.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in build.items())
+          + f"): dec {tuple(dec_op.shape)}, rec {tuple(rec_op.shape)} float32, "
+            f"{(dec_op.numel() + rec_op.numel()) * 4 / 1e6:.1f} MB on the card")
+
+    # one batch of 64 valid records, as the CLI stacks them
+    with open(instances_json) as f:
+        instances = json.load(f)
+    pargs = PreprocessArgs(data="mimic", data_root=raw, device=str(dev))
+    batch = []
+    for inst in instances:
+        sig, _ = load_instance_signal(inst, pargs)
+        if sig is not None:
+            batch.append(sig)
+        if len(batch) == PREPROCESS_BATCH:
+            break
+    x = torch.from_numpy(np.stack(batch).astype(np.float32)).to(dev).transpose(1, 2)
+    x = dsp.reorder_leads(x).contiguous()  # (64, 12, 5000), as the pipeline reorders
+    card = dsp.preprocess_records(x)
+    cpu = dsp.preprocess_records(x.cpu())
+    torch.cuda.synchronize()
+    e_cpu = check_rel(card.cpu(), cpu, CARD_CPU_TOL, "preprocess_records card vs CPU")
+    # the median that sets the threshold, on the card, at the even length
+    # of this n's cD4 band and at one less
+    cd = dsp.apply_operator(x, dec_op)[..., seg[0]: seg[0] + seg[1]].abs()
+    for band in (cd, cd[..., :-1]):
+        check_median(wavelet.median(band).cpu(), band.cpu().numpy(),
+                     f"median of |cD4| over {band.shape[-1]} values")
+    del cd
+    filtered, denoised, resampled = scipy_chain(x.cpu().double().numpy())
+    e_filter = check_rel(dsp.advanced_ecg_filter(x).cpu(), filtered, FILTER_TOL,
+                         "advanced_ecg_filter vs scipy filtfilt")
+    e_resample = check_rel(dsp.nsample_ecg(torch.from_numpy(denoised).float().to(dev), 500.0,
+                                           250.0).cpu(), resampled,
+                           RESAMPLE_TOL, "nsample_ecg vs scipy interp1d")
+    e_chain = check_rel(card.cpu(), resampled, FILTER_TOL,
+                        "preprocess_records vs scipy filtfilt + float64 denoise + interp1d")
+    print(f"preprocess_records on the card, {len(batch)} records: |d| / max|ref| against "
+          f"float64 scipy {e_chain:.2e} (tol {FILTER_TOL:.0e}); filter {e_filter:.2e} "
+          f"(tol {FILTER_TOL:.0e}), resample {e_resample:.2e} (tol {RESAMPLE_TOL:.0e}); against "
+          f"the port's CPU path {e_cpu:.2e} (tol {CARD_CPU_TOL:.0e}); the median of |cD4| "
+          f"({seg[1]} and {seg[1] - 1} values) equal to numpy's")
+    n, m, total = 5000, 2500, sum(seg)
+    rows = len(batch) * 12
+    flops = 2 * rows * (total * n + m * total)
+    nbytes = 4 * (rows * n + total * n + m * total + rows * m)
+    t_ops, t_bytes = flops / PEAK_FLOPS_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    ms, products_ms = time_in_turns([lambda: dsp.preprocess_records(x),
+                                  lambda: dsp.apply_operator(dsp.apply_operator(x, dec_op),
+                                                             rec_op)], 10)
+    graph_ms = time_graphed([lambda: dsp.preprocess_records(x)], calls=5)[0]
+    print(f"device {ms:.3f} ms per {len(batch)}-record batch (CUDA events over eager calls; "
+          f"{graph_ms:.3f} in a CUDA graph; the two products alone {products_ms:.3f}); bound "
+          f"{max(t_ops, t_bytes):.3f} ms by "
+          f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e9:.1f} GFLOP at "
+          f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s FP32, {nbytes / 1e6:.1f} MB)")
+    del x, card, cpu
+
+    zero_launches()
+    splits, skips = expected_mimic(records)
+    walls = {}
+    for seg_len in PREPROCESS_SEG_LENS:
+        walls[seg_len], log = _run_cli(
+            "ecg_byte_tpu_torch.cli.preprocess_ecg",
+            ["--data", "mimic", "--instances_json", instances_json, "--data_root", raw,
+             "--seg_len", str(seg_len)] + cli_device, root, env)
+        check_skips(log, skips)
+        kept = {s: [p for p, i in enumerate(idx) if i not in RAW_BAD] for s, idx in splits.items()}
+        files = check_tree(
+            os.path.join(raw, f"mimic_{seg_len}"), kept, 2500 // seg_len,
+            lambda p, j: f"{p}_{j}",
+            lambda s, p: instances[splits[s][p]]["conversations"])
+        print(f"cli.preprocess_ecg --data mimic --seg_len {seg_len}: {walls[seg_len]:.1f} s, "
+              f"{records / walls[seg_len]:.1f} records/s (host clock, the whole CLI); splits "
+              f"{ {s: len(i) for s, i in splits.items()} }, skipped {skips}, {files} segments")
+    stats_path = os.path.join(raw, "mimic_dataset_stats.npy")
+    stats = np.load(stats_path, allow_pickle=True).item()
+    assert stats["skipped_instances"] == skips["train"], stats
+    assert np.isfinite([stats[k] for k in ("global_min", "global_max", "percentile_1",
+                                           "percentile_99")]).all(), stats
+    assert stats["global_min"] < stats["percentile_1"] < stats["percentile_99"] < \
+        stats["global_max"], stats
+    # the CLI's arrays against the CPU path on a few train records
+    pos = [p for p, i in enumerate(splits["train"]) if i not in RAW_BAD][:4]
+    sigs = np.stack([load_instance_signal(instances[splits["train"][p]], pargs)[0] for p in pos])
+    want = dsp.segment_ecg(dsp.preprocess_records(
+        torch.from_numpy(sigs.astype(np.float32)).transpose(1, 2), do_reorder=True), 500)
+    got = np.stack([[np.load(os.path.join(raw, "mimic_500", "ecg", "train", f"ecg_{p}_{j}.npy"))
+                     for j in range(5)] for p in pos])
+    e_saved = check_rel(got, want, CARD_CPU_TOL, "saved segments vs the CPU path")
+    print(f"stats {stats}; saved segments of {len(pos)} records vs the CPU path {e_saved:.2e}")
+
+    walls["ptb"], log = _run_cli(
+        "ecg_byte_tpu_torch.cli.preprocess_ecg",
+        ["--data", "ptb", "--ptb_folder", ptb_folder, "--data_root", raw, "--seg_len", "500"]
+        + cli_device, root, env)
+    ptb_splits, classes = expected_ptb(ptb_records)
+    files = check_tree(os.path.join(raw, "ptb_500"),
+                       {s: list(range(len(r) * 5)) for s, r in ptb_splits.items()}, 1,
+                       lambda p, j: f"{p}_{p}", lambda s, p: ptb_report(ptb_splits[s][p // 5][0]))
+    with open(os.path.join(raw, "ptb_500", "mlb.pkl"), "rb") as f:
+        mlb = pickle.load(f)
+    assert list(mlb.classes_) == classes, (list(mlb.classes_), classes)
+    rows = [row for s in ptb_splits.values() for _, row in s]
+    y = mlb.transform(rows)
+    assert [[c for c, on in zip(classes, r) if on] for r in y.tolist()] == rows, "mlb rows"
+    cached = np.load(os.path.join(ptb_folder, "raw500.npy"), allow_pickle=True)
+    assert cached.shape == (ptb_records, 2500, 12) and cached.dtype == np.float32, cached.shape
+    print(f"cli.preprocess_ecg --data ptb --seg_len 500: {walls['ptb']:.1f} s, "
+          f"{ptb_records / walls['ptb']:.1f} records/s; splits "
+          f"{ {s: len(r) for s, r in ptb_splits.items()} } records, {files} segments, classes "
+          f"{classes}, raw500.npy {cached.shape}")
+
+    train_dir = os.path.join(raw, "mimic_2500", "ecg", "train")
+    walls["sample"], log = _run_cli(
+        "ecg_byte_tpu_torch.cli.sample_ecg",
+        ["--ecg_dir", train_dir, "--max_clusters", str(SAMPLE_CLUSTERS), "--data_root", raw]
+        + cli_device, root, env)
+    chosen = [line for line in log.splitlines() if "chosen" in line or "clusters" in line]
+    n_files = len(os.listdir(train_dir))
+    listed = os.path.join(raw, f"sampled_ecg_files_{n_files}.txt")
+    with open(listed) as f:
+        sampled = f.read().split("\n")
+    assert sorted(sampled) == sorted(os.path.join(train_dir, x) for x in os.listdir(train_dir)), \
+        "the sampled list is not every train file once"
+    print(f"cli.sample_ecg --max_clusters {SAMPLE_CLUSTERS}: {walls['sample']:.1f} s for "
+          f"{n_files} files ({'; '.join(chosen)})")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        tok_path = train_tokenizer.main([
+            "--train", "--num_merges", str(PREPROCESS_MERGES), "--sampled_files", listed,
+            "--percentiles", stats_path, "--out_dir", raw])
+    walls["tokenizer"] = time.perf_counter() - t0
+    vocab, merges = load_vocab_and_merges(tok_path)
+    print(f"cli.train_tokenizer {PREPROCESS_MERGES} merges on the sampled list: "
+          f"{walls['tokenizer']:.1f} s")
+
+    data = os.path.join(raw, "mimic_500")
+    sigs, texts = align_signal_text_files(f"{data}/ecg/train", f"{data}/text/train")
+    tok = ByteTextTokenizer()
+    register_ecg_tokens(tok, vocab)
+    t0 = time.perf_counter()
+    ds = ECGTokenDataset(sigs, texts, vocab, merges, tokenizer=tok,
+                         args=DataConfig(dataset="mimic_500", percentiles=stats_path),
+                         cache_tokens=True, device=dev)
+    torch.cuda.synchronize()
+    walls["cache"] = time.perf_counter() - t0
+    counts = launches()
+    batches = -(-len(sigs) // CACHE_BATCH)
+    check_launch_counts(counts, {"bpe_match": batches, "bpe_chain": batches}, "token cache")
+    signals = np.stack([np.load(p) for p in sigs]).astype(np.float32)
+    check_token_cache(ds._token_cache,
+                      host_streams(signals, stats["percentile_1"], stats["percentile_99"], merges),
+                      "token cache of mimic_500 train")
+    print(f"token cache of mimic_500 train on the card: {len(sigs)} records in {batches} batches "
+          f"in {walls['cache']:.1f} s, equal to the host encoder's streams "
+          f"({sum(map(len, ds._token_cache))} tokens); launches {counts}")
+    numbers = {"operator_build_s": sum(build.values()), "device_ms_per_batch": ms,
+               "graph_ms_per_batch": graph_ms,
+               "bound_ms": max(t_ops, t_bytes), "err_vs_scipy": e_chain,
+               "records_per_s_2500": records / walls[2500],
+               "records_per_s_500": records / walls[500], "sample_s": walls["sample"],
+               "tokenizer_s": walls["tokenizer"], "cache_s": walls["cache"]}
+    print(f"phase 15: {json.dumps(numbers)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"preprocess": counts}, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2638,8 +3184,10 @@ def main() -> int:
         train_paths_phase(long_root, long_vocab, long_merges, LONG_TRAIN_CHECK)
         hf_counts, hf = hf_phase(root, vocab, merges)
         by_path.update(hf_counts)
+        pre_counts, pre = preprocess_phase(root)
+        by_path.update(pre_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
-                "ml_dtypes"):
+                "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb"):
         assert mod not in sys.modules, f"{mod} was imported"
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
@@ -2664,6 +3212,10 @@ def main() -> int:
           f"{hf['ms_per_step']:.2f} ms, {hf['tokens_per_s']:.0f} tokens/s; prefill "
           f"{hf['prefill_ms']:.2f} ms, decode {hf['ms_per_token']:.3f} ms/token (host clock); "
           f"BERTScore {hf['scorer_ms_per_pair']:.2f} ms a pair")
+    print(f"preprocess: {pre['device_ms_per_batch']:.3f} ms a {PREPROCESS_BATCH}-record batch on the "
+          f"device (bound {pre['bound_ms']:.3f}); cli.preprocess_ecg {pre['records_per_s_2500']:.1f} "
+          f"records/s at seg_len 2500 (host clock); operators built in "
+          f"{pre['operator_build_s']:.1f} s; cli.sample_ecg {pre['sample_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,14 +1,17 @@
 """ECG-Byte on PyTorch and CUDA: the serving and LoRA training paths of
-``ecg_byte_tpu``, with the device BPE encoder of the training token cache
-and the tokenizer CLI, ported to an NVIDIA H100.
+``ecg_byte_tpu``, with the device BPE encoder of the training token cache,
+the tokenizer CLI and the preprocessing from raw WFDB records (the DSP
+chain and the morphology clustering on the device), ported to an NVIDIA
+H100.
 
 Module paths and function names mirror the JAX package, so every function
 here has a counterpart of the same name under ``ecg_byte_tpu``.  The JAX
 package stays the reference that the tests hold this one against.  This
 package imports ``torch`` and nothing of ``jax`` or ``ecg_byte_tpu``: what
 it needs of the JAX package's JAX-free modules (the BPE tokenizer and its
-C++ core, the metrics, the file utilities, the synthetic-data generator) it
-keeps as its own copies.
+C++ core, the metrics, the file utilities, the synthetic-data generator,
+the WFDB reader) it keeps as its own copies, and it needs no scikit-learn,
+pandas, pywt or wfdb (``utils/sk.py``).
 
 The kernels the TPU ran in Pallas are written by hand for Hopper:
 

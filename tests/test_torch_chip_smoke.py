@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s checks of the attention backward kernels, of both
-attention forwards, of both RMSNorm kernels, of the int8 weight product and of
-the device BPE encoder's token streams, on the CPU:
+attention forwards, of both RMSNorm kernels, of the int8 weight product, of
+the device BPE encoder's token streams and of phase 15's preprocessing (the
+chain against float64 scipy, the threshold's median, skip counts, the
+written tree, the token cache), on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
@@ -824,3 +826,115 @@ def test_round_trip_check_refuses_a_lossy_tokenizer():
 
     with pytest.raises(AssertionError, match="decode\\(encode"):
         chip_smoke.check_round_trip(Lossy(), texts)
+
+
+# ------------------------------------------------------- phase 15: preprocess
+
+
+@pytest.fixture(scope="module")
+def preprocessed():
+    """Two records of 12 x 1,000 through the port's chain on the CPU, the
+    float64 reference of phase 15 and the |cD4| band of the first product
+    (72 values at this n, an even length)."""
+    from ecg_byte_tpu_torch.ops import dsp
+
+    rng = np.random.default_rng(0)
+    x = np.stack([chip_smoke.raw_ecg(rng, n=1000).T for _ in range(2)]).astype(np.float32)
+    got = dsp.preprocess_records(torch.from_numpy(x))
+    filtered = dsp.advanced_ecg_filter(torch.from_numpy(x))
+    dec, _, seg = dsp.preprocess_operators(1000, 500.0, 250.0)
+    cd = dsp.apply_operator(torch.from_numpy(x), dec)[..., seg[0]: seg[0] + seg[1]].abs()
+    return x, got, filtered, cd, chip_smoke.scipy_chain(x.astype(np.float64))
+
+
+def test_preprocess_checks_pass_the_plain_chain(preprocessed):
+    """The CPU path passes phase 15's checks: the whole chain and the filter
+    within FILTER_TOL of float64 scipy, the resample within RESAMPLE_TOL,
+    the median of |cD4| numpy's exactly at 72 and 71 values."""
+    from ecg_byte_tpu_torch.ops import dsp, wavelet
+
+    x, got, filtered, cd, (want_filtered, denoised, resampled) = preprocessed
+    assert chip_smoke.check_rel(got, resampled, chip_smoke.FILTER_TOL, "chain") < 1e-4
+    chip_smoke.check_rel(filtered, want_filtered, chip_smoke.FILTER_TOL, "filter")
+    chip_smoke.check_rel(dsp.nsample_ecg(torch.from_numpy(denoised).float(), 500.0, 250.0),
+                         resampled, chip_smoke.RESAMPLE_TOL, "resample")
+    for band in (cd, cd[..., :-1]):
+        chip_smoke.check_median(wavelet.median(band), band.numpy(), "median")
+
+
+def test_preprocess_check_refuses_a_filter_past_its_bound(preprocessed):
+    """A filter output 3e-4 of max|ref| off at one sample is refused."""
+    _, _, filtered, _, (want_filtered, _, _) = preprocessed
+    bad = filtered.clone()
+    bad[1, 4, 500] += 3e-4 * float(np.abs(want_filtered).max())
+    with pytest.raises(AssertionError, match="filter: .* > 2e-04"):
+        chip_smoke.check_rel(bad, want_filtered, chip_smoke.FILTER_TOL, "filter")
+
+
+def test_preprocess_checks_refuse_a_lower_median(preprocessed, monkeypatch):
+    """``torch.median``'s lower middle value in place of the mean of the two
+    is refused by the median check, and moves the whole chain past its
+    bound against the float64 reference (whose median is numpy's)."""
+    from ecg_byte_tpu_torch.ops import dsp, wavelet
+
+    x, _, _, cd, (_, _, resampled) = preprocessed
+    monkeypatch.setattr(wavelet, "median", lambda t: t.median(-1, keepdim=True).values)
+    with pytest.raises(AssertionError, match="medians differ from numpy's"):
+        chip_smoke.check_median(wavelet.median(cd), cd.numpy(), "median of |cD4|")
+    with pytest.raises(AssertionError, match="chain: .* > 2e-04"):
+        chip_smoke.check_rel(dsp.preprocess_records(torch.from_numpy(x)), resampled,
+                             chip_smoke.FILTER_TOL, "chain")
+
+
+def test_skip_check_passes_and_refuses_a_count_off_by_one():
+    log = ("Total instances skipped in train split: 4\n"
+           "Total instances skipped in val split: 0\n"
+           "Total instances skipped in test split: 0\n")
+    chip_smoke.check_skips(log, {"train": 4, "val": 0, "test": 0})
+    for wrong in ({"train": 3, "val": 0, "test": 0}, {"train": 4, "val": 1, "test": 0}):
+        with pytest.raises(AssertionError, match="skip count of"):
+            chip_smoke.check_skips(log, wrong)
+
+
+def test_expected_splits_are_the_clis():
+    """Phase 15's expected splits (their definition, written out) are the
+    port's ``train_test_split`` and skip the bad records where they fall."""
+    from ecg_byte_tpu_torch.utils.sk import train_test_split
+
+    splits, skips = chip_smoke.expected_mimic()
+    train, rest = train_test_split(list(range(chip_smoke.RAW_RECORDS)), 0.3, 42)
+    val, test = train_test_split(rest, 0.6, 42)
+    assert splits == {"train": train, "val": val, "test": test}
+    assert [len(s) for s in splits.values()] == [358, 61, 93] and sum(skips.values()) == 4
+
+
+def test_tree_check_passes_and_refuses_a_missing_segment(tmp_path):
+    for kind, ext in (("ecg", "npy"), ("text", "json")):
+        os.makedirs(tmp_path / kind / "train")
+        for p in (0, 2):
+            for j in range(2):
+                path = tmp_path / kind / "train" / f"{kind}_{p}_{j}.{ext}"
+                if ext == "npy":
+                    np.save(path, np.zeros((12, 8), np.float32))
+                else:
+                    path.write_text(f'"record {p}"')
+    texts = lambda split, p: f"record {p}"  # noqa: E731
+    names = lambda p, j: f"{p}_{j}"  # noqa: E731
+    assert chip_smoke.check_tree(str(tmp_path), {"train": [0, 2]}, 2, names, texts) == 4
+    os.remove(tmp_path / "ecg" / "train" / "ecg_2_1.npy")
+    with pytest.raises(AssertionError, match="missing \\['ecg_2_1.npy'\\]"):
+        chip_smoke.check_tree(str(tmp_path), {"train": [0, 2]}, 2, names, texts)
+
+
+def test_token_cache_check_refuses_a_stream_one_token_off():
+    gen = np.random.default_rng(1)
+    want = [gen.integers(0, 600, size=n).tolist() for n in (40, 57, 33)]
+    chip_smoke.check_token_cache([list(w) for w in want], want, "cache")
+    changed = [list(w) for w in want]
+    changed[1][20] += 1
+    with pytest.raises(AssertionError, match="record 1 differs from the host encoder at token 20"):
+        chip_smoke.check_token_cache(changed, want, "cache")
+    short = [list(w) for w in want]
+    short[2].pop()
+    with pytest.raises(AssertionError, match="record 2 differs .* at token 32 \\(32 tokens, the host 33\\)"):
+        chip_smoke.check_token_cache(short, want, "cache")

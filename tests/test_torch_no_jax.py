@@ -1,12 +1,15 @@
 """The port stands alone: in a process where importing ``jax``, anything of
 ``ecg_byte_tpu``, ``safetensors``, ``tokenizers``, ``transformers``,
-``regex`` or ``ml_dtypes`` fails, every module of ``ecg_byte_tpu_torch`` and
-``chip_smoke`` imports, ``chip_smoke``'s data helper builds the synthetic
-dataset and tokenizer on the CPU, a tiny-llama decodes and takes a LoRA
-train step, and the HF path runs: the tiny size-exact Llama-3.2-1B
-directory is written, loaded with its tokenizer and the ECG tokens
-registered, and a random BERT written by ``chip_smoke`` scores BERTScore.
-No source line imports JAX or the JAX package."""
+``regex``, ``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt`` or ``wfdb``
+fails, every module of ``ecg_byte_tpu_torch`` and ``chip_smoke`` imports,
+``chip_smoke``'s data helper builds the synthetic dataset and tokenizer on
+the CPU, a tiny-llama decodes and takes a LoRA train step, the HF path
+runs (the tiny size-exact Llama-3.2-1B directory is written, loaded with
+its tokenizer and the ECG tokens registered, and a random BERT written by
+``chip_smoke`` scores BERTScore), and the preprocessing runs: raw PTB-XL
+records through ``cli.preprocess_ecg`` and the segments through
+``cli.sample_ecg``.  No source line imports JAX or the JAX package, nor
+scikit-learn, pandas, pywt or wfdb."""
 
 import os
 import re
@@ -20,7 +23,7 @@ import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["ecg_byte_tpu"] = None  # and so does any `import ecg_byte_tpu...`
 BLOCKED = ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
-           "ml_dtypes")
+           "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb")
 for mod in BLOCKED:
     sys.modules[mod] = None
 import torch
@@ -56,6 +59,16 @@ with tempfile.TemporaryDirectory() as root:
     scores, mode = metrics.bertscore_with_mode(["The heart rate is slow."],
                                                ["The heart rate is fast."], device=cpu)
     assert mode == "local-bert" and 0.0 < scores["hf-f1"][0] <= 1.0, (mode, scores)
+    from ecg_byte_tpu_torch.cli import preprocess_ecg, sample_ecg
+    ptb = os.path.join(root, "ptb")
+    chip_smoke.write_raw_ptb(ptb, n=10)
+    preprocess_ecg.main(["--data", "ptb", "--ptb_folder", ptb, "--data_root", root,
+                         "--seg_len", "1250", "--device", "cpu"])
+    segments = os.path.join(root, "ptb_1250", "ecg", "train")
+    assert len(os.listdir(segments)) == 2 * 5  # folds 1-7: records 0-6, 0 and 5 unlabelled
+    listed = sample_ecg.main(["--ecg_dir", segments, "--max_clusters", "3", "--data_root", root,
+                              "--device", "cpu"])
+    assert open(listed).read().count(".npy") == 10
 params, config, tok = build_model("tiny-llama", vocab, cpu)
 out = greedy_generate(params, config, torch.tensor([[tok.bos_token_id, 65, 66, 67]]), max_new_tokens=4)
 assert out.shape == (1, 4)
@@ -109,3 +122,15 @@ def test_no_hf_package_import_statements():
     found = {os.path.relpath(f, REPO): pattern.findall(open(f).read()) for f in files}
     found = {f: [m[1] for m in ms] for f, ms in found.items() if ms}
     assert found == {"ecg_byte_tpu_torch/data/text_tokenizer.py": ["transformers"]}
+
+
+def test_no_sklearn_pandas_pywt_wfdb_import_statements():
+    """No source line of the port or chip_smoke imports scikit-learn, pandas,
+    pywt or wfdb (the card's machine has none of them)."""
+    pattern = re.compile(r"^\s*(import|from) (sklearn|pandas|pywt|wfdb)(\.|\s)", re.M)
+    assert pattern.search("    from sklearn.cluster import KMeans\n")
+    assert not pattern.search("from ecg_byte_tpu_torch.data import wfdb_io\nimport pandas_x\n")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "ecg_byte_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert not [f for f in files if pattern.search(open(f).read())]
