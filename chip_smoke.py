@@ -118,14 +118,28 @@ Phases, each printing its own lines, in the order they run:
     stats, and the device token cache of ``mimic_500``'s train split, its
     streams equal to the host encoder's (check_token_cache) and its BPE
     launches counted into rows ``bpe_match`` and ``bpe_chain``.
+16. Two-stage: ``cli.pretrain --model resnet`` trains ResNet-101 with the
+    MERL head and the hash text encoder at batch 128 x (12, 2,500) on
+    ``ptb_2500`` (no kernel of the port: the conv is cuDNN's), then
+    ``cli.finetune --model resnet_model --llm llama-3.2-1b`` trains LoRA
+    and the projection on its frozen backbone at B4 x 1024 (pad_to_max
+    1022) and serves the checkpoint (``--inference --toy``) with the bf16
+    cache and with ``--int8_decode``; exact launch counts of every kernel
+    (rows ``two_stage_train``, ``two_stage_serve``); each step timed alone
+    (CUDA events); the fusion train step held to the plain path as phase 7
+    holds the main path's (hold_train_paths, the LoRA and projection
+    gradients), and its serving, bf16 and int8, as phase 9 holds the main
+    path's (hold_logits, teacher-forced logits); ``cli.pretrain
+    --model clip_vit`` and a ``cli.finetune --model clip_vit_model`` at the
+    published widths (ViT-B/16, CLIP with a ViT-B/32 image tower).
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  Neither JAX nor ``ecg_byte_tpu`` is imported, nor any of
 ``safetensors``, ``tokenizers``, ``transformers``, ``regex``,
-``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt`` and ``wfdb`` (the end
-asserts it).
+``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt``, ``wfdb``, ``PIL`` and
+``optax`` (the end asserts it).
 """
 
 from __future__ import annotations
@@ -2092,10 +2106,6 @@ def paths_phase(root, vocab, merges, path):
             pos = pos + 1
         return torch.stack(out)  # (1 + steps, 1, V)
 
-    def rel(a, b):
-        """max|a - b| / max|b| at each step."""
-        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).cpu()
-
     # f32 activations: the bf16 leaves in f32, the int8 weights kept int8
     # (a blanket .float() would turn them into a bf16-path weight)
     f32 = lambda t: t.float() if t.dtype == torch.bfloat16 else t  # noqa: E731
@@ -2109,13 +2119,7 @@ def paths_phase(root, vocab, merges, path):
     assert all(mid[k] > before[k] for k in kernels), "the kernel run launched no kernel"
     assert all(mid[k] == before[k] for k in SOURCES if k not in kernels), (before, mid)
     assert after == mid, "the plain runs launched a kernel"
-    assert all(torch.isfinite(x).all() for x in (kern, plain, ref))
-    d_kp, d_pr, d_kr = rel(kern, plain), rel(plain, ref), rel(kern, ref)
-    print(f"prompt {n} tokens bucketed to {s}; max|dlogits|/max|logits| over "
-          f"{d_kp.numel()} steps, worst / mean:")
-    print(f"  kernel path vs plain path    {d_kp.max().item():.3e} / {d_kp.mean().item():.3e}")
-    print(f"  plain path vs f32 reference  {d_pr.max().item():.3e} / {d_pr.mean().item():.3e}")
-    print(f"  kernel path vs f32 reference {d_kr.max().item():.3e} / {d_kr.mean().item():.3e}")
+    print(f"prompt {n} tokens bucketed to {s}")
     by_wrapper = {}  # the int8 products share one wrapper, and so one swap
     for name in kernels:
         by_wrapper.setdefault(_counters()[name][0], []).append(name)
@@ -2123,16 +2127,40 @@ def paths_phase(root, vocab, merges, path):
         with plain_path([k for k in kernels if k not in names]):
             only = run(params, config)
         print(f"  only {' and '.join(names)} as kernel, vs plain path: worst "
-              f"{rel(only, plain).max().item():.3e}")
+              f"{step_errors(only, plain).max().item():.3e}")
+    hold_logits(kern, plain, ref)
+    decode_device_time(run, params, config, s, "int8" if path.int8 else "bf16")
+
+
+def step_errors(a, b):
+    """max|a - b| / max|b| at each step of (steps, B, V) logits."""
+    return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).cpu()
+
+
+def hold_logits(kern, plain, ref):
+    """Teacher-forced logits (steps, B, V) with the kernels, with the plain
+    versions and in f32 activations (the plain versions on the same
+    weights and cache types): the kernel path no further from f32 than
+    1.25x the plain path, and no further from the plain path than 2x the
+    plain path's own error.  Any bf16 rounding difference, even RMSNorm's
+    rare 1-ulp ones, grows through 16 random layers to about the bf16
+    path's own error against f32; the bounds are therefore relative to
+    that error.  Greedy argmax agreement is printed, not held: near-ties
+    under random weights may flip."""
+    import torch
+
+    assert all(torch.isfinite(x).all() for x in (kern, plain, ref))
+    d_kp, d_pr, d_kr = step_errors(kern, plain), step_errors(plain, ref), step_errors(kern, ref)
+    print(f"max|dlogits|/max|logits| over {d_kp.numel()} steps of {kern.shape[1]} row(s), "
+          "worst / mean:")
+    print(f"  kernel path vs plain path    {d_kp.max().item():.3e} / {d_kp.mean().item():.3e}")
+    print(f"  plain path vs f32 reference  {d_pr.max().item():.3e} / {d_pr.mean().item():.3e}")
+    print(f"  kernel path vs f32 reference {d_kr.max().item():.3e} / {d_kr.mean().item():.3e}")
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
-    print(f"greedy argmax of kernel and plain paths agrees at {agree} of {d_kp.numel()} "
-          "positions (near-ties under random weights may flip; not asserted)")
-    # Any bf16 rounding difference, even RMSNorm's rare 1-ulp ones, grows
-    # through 16 random layers to about the bf16 path's own error against
-    # f32; the bound is therefore relative to that error.
+    print(f"greedy argmax of kernel and plain paths agrees at {agree} of "
+          f"{kern.shape[0] * kern.shape[1]} positions (not held)")
     assert d_kr.max() <= 1.25 * d_pr.max(), "kernel path further from f32 than the plain path"
     assert d_kp.max() <= 2 * d_pr.max(), "kernel and plain paths differ beyond the bf16 error"
-    decode_device_time(run, params, config, s, "int8" if path.int8 else "bf16")
 
 
 def append_then_kernel(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=None, splits=None,
@@ -2272,8 +2300,8 @@ def train_paths_phase(root, vocab, merges, check):
             ce_lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
             ce_all = lse - logits.gather(1, nxt[:, None])[:, 0]
             del logits
-        grads = {nk: torch.cat([layer[nk[0]][nk[1]].grad.float().flatten()
-                                for layer in lora["layers"]]) for nk in names}
+        grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
+                                             for layer in lora["layers"]]) for n, k in names}
         return (loss.item(), ce_lab[labels != -100], ce_all[batch["attn_mask"][0, 1:].bool()],
                 grads)
 
@@ -2291,11 +2319,20 @@ def train_paths_phase(root, vocab, merges, check):
     assert all(mid[k] > before[k] for k in check.kernels), (before, mid)
     assert all(mid[k] == before[k] for k in SOURCES if k not in check.kernels), (before, mid)
     assert after == mid, "the plain runs launched a kernel"
+    print(f"{check.items} items at B1 x {s}, each with its own LoRA B; errors against f32:")
+    hold_train_paths(kern, plain, ref)
+
+
+def hold_train_paths(kern, plain, ref):
+    """The rules of :func:`train_paths_phase` on its runs: each a list over
+    items of (loss, cross entropies at the labelled and at the valid
+    positions, {gradient group: flat f32 gradient}), with the kernels, the
+    plain versions and in f32."""
+    import torch
 
     def rel(a, b):
         return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
-    print(f"{check.items} items at B1 x {s}, each with its own LoRA B; errors against f32:")
     ratios, too_far = [], []
     for i, (k, p, r) in enumerate(zip(kern, plain, ref)):
         dk, dp = abs(k[0] - r[0]), abs(p[0] - r[0])
@@ -2321,20 +2358,20 @@ def train_paths_phase(root, vocab, merges, check):
     for what, j in (("labelled", 1), ("valid", 2)):
         r = pooled(ref, j)
         ce[what] = (r.numel(), rel(pooled(kern, j), r), rel(pooled(plain, j), r))
-    grads = {nk: (rel(torch.cat([x[3][nk] for x in kern]), torch.cat([x[3][nk] for x in ref])),
-                  rel(torch.cat([x[3][nk] for x in plain]), torch.cat([x[3][nk] for x in ref])))
-             for nk in names}
+    grads = {g: (rel(torch.cat([x[3][g] for x in kern]), torch.cat([x[3][g] for x in ref])),
+                 rel(torch.cat([x[3][g] for x in plain]), torch.cat([x[3][g] for x in ref])))
+             for g in kern[0][3]}
     print("all items together, |d|/|ref| vs f32 (kernel / plain):")
     for what, (n, ek, ep) in ce.items():
         print(f"  cross entropy at {n} {what} positions: {ek:.3e} / {ep:.3e}")
-    for nk, (ek, ep) in grads.items():
-        print(f"  LoRA {nk[0]}.{nk[1]}: {ek:.3e} / {ep:.3e}")
+    for name, (ek, ep) in grads.items():
+        print(f"  {name}: {ek:.3e} / {ep:.3e}")
     # the rule of phase 5: the kernel path no further from f32 than 1.25x
     # the plain path's own bf16 error
     assert not too_far, f"items {too_far}: loss further from f32 than its bound"
     for what, (_, ek, ep) in ce.items():
         assert ek <= 1.25 * ep, f"cross entropy at the {what} positions: {ek:.3e} vs plain {ep:.3e}"
-    bad = [f"{nk[0]}.{nk[1]}" for nk, (ek, ep) in grads.items() if ek > 1.25 * ep]
+    bad = [name for name, (ek, ep) in grads.items() if ek > 1.25 * ep]
     assert not bad, f"gradient groups further from f32 than 1.25x the plain path: {bad}"
 
 
@@ -3145,6 +3182,495 @@ def preprocess_phase(root, dev="cuda", records=RAW_RECORDS, ptb_records=PTB_RECO
     return {"preprocess": counts}, numbers
 
 
+# ------------------------------------------------------- phase 16: two-stage
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoStage:
+    """The sizes of phase 16: full width on the card (the defaults), tiny for
+    a rehearsal on the CPU."""
+
+    llm: str = MODEL
+    pretrain_data: str = BIG["name"]  # 256 records of 12 x 2,500
+    pretrain_batch: int = 128  # bench.py's bench_pretrain: 128 x (12, 2500)
+    finetune_batch: int = 4
+    pad_to_max: int = 1022  # ECGCLIPFinetune packs pad_to_max + 2 = 1024 positions
+    vision_batch: int = 8
+    items: int = 4  # training items of the kernel-vs-plain train-step check
+    new_tokens: int = 32  # tokens of the kernel-vs-plain streams check
+    tiny: bool = False  # --tiny backbones (the rehearsal's)
+
+
+TWO_STAGE = TwoStage()
+# cli.finetune's max_new_tokens: its serving cache holds the spliced prompt
+# and this many tokens
+SERVE_NEW_TOKENS = 128
+
+
+def _two_stage_items(root, tok, args, idx, split="train"):
+    """Items ``idx`` of ``ECGCLIPFinetune`` on ``ptb_500``, collated."""
+    from ecg_byte_tpu_torch.data import collate
+    from ecg_byte_tpu_torch.data.two_stage import ECGCLIPFinetune
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    data = os.path.join(root, "data")
+    sigs, texts = align_signal_text_files(f"{data}/ptb_500/ecg/{split}",
+                                          f"{data}/ptb_500/text/{split}")
+    ds = ECGCLIPFinetune(sigs, texts, tokenizer=tok, args=args)
+    return collate([ds[i] for i in idx], pad_id=tok.convert_tokens_to_ids(tok.pad_token))
+
+
+def _fusion_model(ts, dev):
+    """The frozen part of the stage-2 model as ``cli.finetune`` builds it,
+    weights fresh: (LLM params, config, tokenizer, <signal> id, ResNet
+    encoders)."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli import common, pretrain
+    from ecg_byte_tpu_torch.models import resnet1d
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    params, config, tok = common.build_model(ts.llm, {}, dev)
+    tok.add_tokens(["<signal>"], special_tokens=True)
+    params, config = T.resize_embeddings(params, config, len(tok))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    resnet = resnet1d.init_resnet(gen, pretrain.backbone_configs(ts.tiny, 224)[2])
+    return params, config, tok, tok.convert_tokens_to_ids("<signal>"), {"resnet": resnet}
+
+
+def _fusion_trainable(config, encoders, seed, dev):
+    """A fresh fusion projection and LoRA adapters with B != 0 (so dA != 0),
+    drawn from ``seed``."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fusion = F.init_fusion(gen, "resnet_model", config.hidden_size,
+                           resnet_channels=encoders["resnet"][2]["out_channels"])
+    lora = lora_lib.init_lora(config, gen, dev)
+    for layer in lora["layers"]:
+        for ab in layer.values():
+            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
+                ab["b"].dtype)
+    return fusion, lora
+
+
+def _finetune_args(ts, **kw):
+    from ecg_byte_tpu_torch.data.two_stage import TwoStageConfig
+
+    return TwoStageConfig(dataset="ptb_500", model="resnet_model", pad_to_max=ts.pad_to_max,
+                          **kw)
+
+
+def fusion_train_check(root, ts, dev):
+    """The fusion train step at B1 x (pad_to_max + 2), kernels vs plain, held
+    as phase 7 holds the main path's (:func:`hold_train_paths`): each of
+    ``ts.items`` items with its own LoRA and projection draw; the cross
+    entropy at the labelled and the valid positions, every LoRA and fusion
+    gradient group, and each item's loss bounded by plain's per-token
+    error.  A valid position here is one whose own row is valid too: an
+    item is ~70 tokens after ~950 left pads, so the last pad's row, which
+    attends no key and whose output no check holds, would weigh in the
+    norm as one of ~70.  (Its next token is the first valid one, so a
+    position with a valid next token only would count it.)  Only the two
+    resident attention and both RMSNorm kernels launch."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.pretrain import to_device
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    params, config, tok, sig_id, encoders = _fusion_model(ts, dev)
+    s = ts.pad_to_max + 2
+    batch = to_device(_two_stage_items(root, tok, _finetune_args(ts), range(ts.items)), dev)
+    assert batch["tokenized_signal"].shape == (ts.items, s), batch["tokenized_signal"].shape
+    items = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(ts.items)]
+    trees = [_fusion_trainable(config, encoders, 2 + i, dev) for i in range(ts.items)]
+
+    def run(params, config, fusion, lora, item):
+        fusion, lora = (_map_tree(lambda t: t.detach().clone().requires_grad_(True), x)
+                        for x in (fusion, lora))
+        sig = F.encoder_embedding("resnet_model", fusion, item, **encoders)
+        ids = item["tokenized_signal"]
+        adapted = F.adapt_sequence(sig, params["embed"][ids], ids, item["attn_mask"],
+                                   item["quantized_signal_ids_input"], item["position_ids"],
+                                   sig_id=sig_id)
+        hidden = T.forward(params, config, None, adapted["attn_mask"], adapted["position_ids"],
+                           inputs_embeds=adapted["combined_embeds"], lora=lora,
+                           return_hidden=True)
+        loss = T.lm_loss_from_hidden(params, config, hidden, adapted["labels"])
+        loss.backward()
+        with torch.no_grad():
+            logits = T._unembed(params, config, hidden)[0, :-1]
+            lse = torch.logsumexp(logits, -1)
+            labels, nxt = adapted["labels"][0, 1:], ids[0, 1:]
+            # positions whose own row and next token are valid (a left pad's
+            # row attends no key: no kernel output there is held)
+            mask = adapted["attn_mask"][0].bool()
+            valid = mask[:-1] & mask[1:]
+            ce_lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
+            ce_all = lse - logits.gather(1, nxt[:, None])[:, 0]
+        grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
+                                             for layer in lora["layers"]])
+                 for n in lora["layers"][0] for k in ("a", "b")}
+        grads.update({f"fusion {k}": fusion["image_projection"][k].grad.flatten()
+                      for k in ("weight", "bias")})
+        return loss.item(), ce_lab[labels != -100], ce_all[valid], grads
+
+    before = launches()
+    kern = [run(params, config, *tree, item) for tree, item in zip(trees, items)]
+    mid = launches()
+    with plain_path():
+        plain = [run(params, config, *tree, item) for tree, item in zip(trees, items)]
+        f32 = lambda t: t.float() if t.dtype == torch.bfloat16 else t  # noqa: E731
+        params32, config32 = _map_tree(f32, params), config.replace(dtype="float32")
+        ref = [run(params32, config32, fusion, _map_tree(f32, lora), item)
+               for (fusion, lora), item in zip(trees, items)]
+        del params32
+    after = launches()
+    kernels = ("prefill_attention", "prefill_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+    if dev.type == "cuda":  # the plain versions count nothing
+        assert all(mid[k] > before[k] for k in kernels), (before, mid)
+    assert all(mid[k] == before[k] for k in SOURCES if k not in kernels), (before, mid)
+    assert after == mid, "the plain runs launched a kernel"
+    print(f"fusion train step: {ts.items} items at B1 x {s}, each with its own LoRA B and "
+          "projection; errors against f32:")
+    hold_train_paths(kern, plain, ref)
+
+
+def _fusion_logits(params, config, lora, fusion, encoders, batch, sig_id, forced,
+                   cache_dtype=None):
+    """Teacher-forced logits of the stage-2 serving path as
+    ``fusion_generate`` runs it: the prefill on the spliced prompt, then a
+    decode step per token of ``forced`` (B, n) but the last, into a cache
+    of ``cache_dtype`` sized as ``cli.finetune``'s; (n, B, V), step t's
+    row predicts token t."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    ids = batch["tokenized_signal2"]
+    sig = F.encoder_embedding("resnet_model", fusion, batch, **encoders)
+    adapted = F.adapt_sequence(sig, params["embed"][ids], ids, batch["attn_mask2"].to(torch.int32),
+                               sig_id=sig_id)
+    mask = adapted["attn_mask"]
+    (b, s), n = mask.shape, forced.shape[1]
+    cache = T.init_kv_cache(config, b, s + SERVE_NEW_TOKENS, mask.device, dtype=cache_dtype)
+    logits, cache, pos = T.prefill(params, config, None, mask, cache, lora=lora,
+                                   inputs_embeds=adapted["combined_embeds"])
+    out = [logits]
+    cache_mask = torch.cat(
+        [mask, torch.zeros(b, SERVE_NEW_TOKENS, dtype=torch.int32, device=mask.device)], 1)
+    pos = pos.to(torch.int32)
+    for t in range(n - 1):
+        cache_mask[:, s + t] = 1
+        logits, cache = T.decode_step(params, config, forced[:, t], pos, s + t, cache, cache_mask,
+                                      lora=lora)
+        out.append(logits)
+        pos = pos + 1
+    return torch.stack(out)
+
+
+def fusion_serve_check(root, ts, dev):
+    """Phase 9's check on the stage-2 serving path, once with the bf16
+    cache and LoRA attached and once as ``--int8_decode`` serves (LoRA
+    merged, the LLM quantized, the int8 cache): two test prompts, each at
+    B1 padded as the CLI pads it (``pad_prompt``), in a cache sized as the
+    CLI's; ``fusion_generate``'s greedy stream of ``ts.new_tokens`` tokens
+    with the kernels and with the plain versions (where they part is
+    printed, not held), then the plain stream teacher-forced with the
+    kernels, with the plain versions and in f32 activations (the same
+    int8 weights and cache for the int8 tree), held by
+    :func:`hold_logits`; each kernel run launches its path's kernels and
+    no other, the plain runs none."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.finetune import pad_prompt
+    from ecg_byte_tpu_torch.cli.pretrain import to_device
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+    from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
+
+    params, config, tok, sig_id, encoders = _fusion_model(ts, dev)
+    fusion, lora = _fusion_trainable(config, encoders, 1, dev)
+    pad_id = tok.convert_tokens_to_ids(tok.pad_token)
+    args = _finetune_args(ts, inference=True)
+    batches = [to_device(pad_prompt(_two_stage_items(root, tok, args, [i], "test"), pad_id), dev)
+               for i in range(2)]
+    f32 = lambda t: t.float() if t.dtype == torch.bfloat16 else t  # noqa: E731
+    for key in ("bf16", "int8"):
+        int8 = key == "int8"
+        if int8:
+            params, lora = quantize_lm_int8(lora_lib.merge_lora(params, lora, config), config), None
+            kernels = ("prefill_attention", "int8_linear_tc", "kv_quant", "decode_attention_int8",
+                       "int8_linear", "rmsnorm")
+        else:
+            kernels = ("prefill_attention", "decode_attention", "rmsnorm")
+        params32 = _map_tree(f32, params)
+        lora32 = None if lora is None else _map_tree(f32, lora)
+        config32 = config.replace(dtype="float32")
+        gen_kw = dict(lora=lora, encoders=encoders, max_new_tokens=ts.new_tokens, eos_token_id=-1,
+                      pad_token_id=pad_id, int8_kv=int8)
+        kern, plain, ref, parted = [], [], [], {}
+        for i, batch in enumerate(batches):
+            run = functools.partial(_fusion_logits, fusion=fusion, encoders=encoders, batch=batch,
+                                    sig_id=sig_id, cache_dtype=torch.int8 if int8 else None)
+            with torch.inference_mode():
+                stream = F.fusion_generate(params, config, fusion, "resnet_model", batch, sig_id,
+                                           **gen_kw)
+                with plain_path():
+                    want = F.fusion_generate(params, config, fusion, "resnet_model", batch,
+                                             sig_id, **gen_kw)
+                diff = (stream[0] != want[0]).nonzero()
+                if len(diff):
+                    parted[i] = int(diff[0])
+                before = launches()
+                kern.append(run(params, config, lora, forced=want))
+                mid = launches()
+                with plain_path():
+                    plain.append(run(params, config, lora, forced=want))
+                    ref.append(run(params32, config32, lora32, forced=want))
+                after = launches()
+            if dev.type == "cuda":  # the plain versions count nothing
+                assert all(mid[k] > before[k] for k in kernels), (key, before, mid)
+            assert all(mid[k] == before[k] for k in SOURCES if k not in kernels), (key, before, mid)
+            assert after == mid, f"{key}: the plain runs launched a kernel"
+        del params32, lora32
+        print(f"stage-2 serving {key}, {len(batches)} prompts at B1 (spliced "
+              f"{batches[0]['tokenized_signal2'].shape[1] + 1} positions, cache "
+              f"+{SERVE_NEW_TOKENS}), {ts.new_tokens} tokens: fusion_generate's streams with the "
+              f"kernels and the plain versions {f'part at steps {parted}' if parted else 'equal'} "
+              "(not held); the plain stream teacher-forced:")
+        hold_logits(torch.cat(kern, 1), torch.cat(plain, 1), torch.cat(ref, 1))
+
+
+def two_stage_phase(root, ts=TWO_STAGE, dev="cuda"):
+    """Phase 16: the two-stage baselines through the port's CLIs.  Stage 1,
+    ``cli.pretrain --model resnet`` (ResNet-101, MERL head, hash text
+    encoder) at batch 128 x (12, 2,500); stage 2, ``cli.finetune --model
+    resnet_model --llm llama-3.2-1b`` on its checkpoint at B4 x 1024, then
+    its ``--inference --toy`` with the bf16 and with the int8 cache (exact
+    launch counts of every kernel); the fusion train step and streams held
+    to the plain path; each step timed alone; CLIP and ViT (``clip_vit``)
+    pretrained and one ``clip_vit_model`` finetune at the published widths.
+    Returns the launch counts of the two LLM paths and the numbers.
+    (``dev="cpu"`` with ``TwoStage(tiny=True, ...)`` rehearses it on the
+    CPU, with ``check_launch_counts``, ``time_in_turns`` and
+    ``torch.cuda`` patched.)"""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.cli import common, finetune, pretrain
+    from ecg_byte_tpu_torch.cli.pretrain import to_device
+    from ecg_byte_tpu_torch.data import ByteTextTokenizer, collate
+    from ecg_byte_tpu_torch.data.two_stage import ECGCLIPPretrain, TwoStageConfig
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models.lora import leaves
+    from ecg_byte_tpu_torch.train.scheduler import clip_by_global_norm_, make_optimizer
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    phase(f"16. two-stage: cli.pretrain --model resnet (B{ts.pretrain_batch} x (12, L)), "
+          f"cli.finetune --model resnet_model --llm {ts.llm} (B{ts.finetune_batch} x "
+          f"{ts.pad_to_max + 2}), its serving (bf16, int8); cli.pretrain --model clip_vit and "
+          "cli.finetune --model clip_vit_model")
+    torch.cuda.empty_cache()
+    dev = torch.device(dev)
+    t_phase = time.perf_counter()
+    extra = ([] if dev.type == "cuda" else ["--device", "cpu"]) + (
+        ["--tiny", "--image_size", "32"] if ts.tiny else [])
+    L = common._PRESETS[ts.llm]().num_layers
+    data = os.path.join(root, "data")
+
+    def records(name, split):
+        return len(align_signal_text_files(f"{data}/{name}/ecg/{split}",
+                                           f"{data}/{name}/text/{split}")[0])
+
+    def steps_of(n, batch):  # --dev: 2 epochs of at most 10 batches
+        return 2 * min(10, -(-n // batch))
+
+    def run_cli(cli, args):
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.chdir(root):
+            out = cli.main(args + extra)
+        torch.cuda.synchronize()
+        return out, launches(), time.perf_counter() - t0
+
+    def train_counts(steps, evals):
+        # per train step each layer's attention forward and backward, 2L + 1
+        # norms forward and backward (layer 0's input, the spliced embeds,
+        # takes a gradient here); per eval step the forwards
+        return {"prefill_attention": L * (steps + evals), "prefill_attention_bwd": L * steps,
+                "rmsnorm": (2 * L + 1) * (steps + evals), "rmsnorm_bwd": (2 * L + 1) * steps}
+
+    numbers = {}
+    # stage 1: the conv is cuDNN's (XLA's in the JAX package): no kernel of the port
+    pre_args = ["--model", "resnet", "--dataset", ts.pretrain_data, "--batch_size",
+                str(ts.pretrain_batch), "--dev"]
+    pre, counts, wall = run_cli(pretrain, pre_args)
+    check_launch_counts(counts, {}, "stage-1 pretraining")
+    n_pre = records(ts.pretrain_data, "train")
+    assert pre["steps"] == steps_of(n_pre, ts.pretrain_batch), pre
+    assert all(np.isfinite(pre["train_loss"])), pre
+    print(f"stage 1: {pre['steps']} steps on {n_pre} records of {ts.pretrain_data}; train loss "
+          f"per epoch {pre['train_loss']}; {pre['seconds'] / pre['steps'] * 1e3:.1f} ms a step "
+          f"with its data (host clock); phase wall {wall:.1f} s")
+    # the pretrain step alone at its batch: CUDA events, after a warm-up
+    args = pretrain.get_args(pre_args + extra)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sigs, texts = align_signal_text_files(f"{data}/{ts.pretrain_data}/ecg/train",
+                                          f"{data}/{ts.pretrain_data}/text/train")
+    length = np.load(sigs[0]).shape[-1]
+    trainable, bn, loss_fn, hidden = pretrain.build_backbone(args, gen, length)
+    ds = ECGCLIPPretrain(sigs[:ts.pretrain_batch], texts[:ts.pretrain_batch],
+                         tokenizer=ByteTextTokenizer(),
+                         args=TwoStageConfig(model="resnet", dataset=ts.pretrain_data))
+    batch = collate([ds[i] for i in range(len(ds))])
+    batch["text_emb"] = loss_fn.text_encoder(batch.pop("resnet_input_ids"),
+                                             batch.pop("resnet_att_mask")).float()
+    batch = to_device(batch, dev)
+    for t in leaves(trainable):
+        t.requires_grad_(True)
+    opt, sched = make_optimizer(hidden, 500).build(leaves(trainable))
+    state = {"bn": bn}
+
+    def pretrain_step():
+        opt.zero_grad(set_to_none=True)
+        loss, state["bn"] = loss_fn(trainable, state["bn"], batch, gen)
+        loss.backward()
+        clip_by_global_norm_([t.grad for t in leaves(trainable)], 1.0)
+        opt.step()
+        sched.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    numbers["pretrain_ms"] = time_in_turns([pretrain_step], 3)[0]
+    numbers["pretrain_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    b, _, siglen = batch["norm_signal"].shape
+    print(f"pretrain step B{b} x (12, {siglen}), {loss_fn.text_encoder.__class__.__name__}: "
+          f"{numbers['pretrain_ms']:.2f} ms = {b / numbers['pretrain_ms'] * 1e3:.0f} samples/s "
+          f"(CUDA events); peak device memory {numbers['pretrain_peak_gib']:.2f} GiB")
+    del trainable, bn, opt, batch, state, loss_fn
+    torch.cuda.empty_cache()
+
+    # stage 2: the fusion LLM trains on the frozen ResNet-101 of stage 1
+    ft_args = ["--model", "resnet_model", "--llm", ts.llm, "--dataset", "ptb_500",
+               "--batch_size", str(ts.finetune_batch), "--pad_to_max", str(ts.pad_to_max),
+               "--dev", "--first_check", os.path.basename(pre["directory"])]
+    result, counts, wall = run_cli(finetune, ft_args)
+    ft = result["training"]
+    n_train, n_val = records("ptb_500", "train"), records("ptb_500", "val")
+    evals = steps_of(n_val, ts.finetune_batch)
+    assert ft["steps"] == steps_of(n_train, ts.finetune_batch), ft
+    check_launch_counts(counts, train_counts(ft["steps"], evals), "stage-2 training")
+    assert all(np.isfinite(ft["train_loss"] + ft["val_loss"])), ft
+    by_path = {"two_stage_train": counts}
+    print(f"stage 2: {ft['steps']} train steps, {evals} eval steps; launches {counts}; train "
+          f"loss {ft['train_loss']}, val loss {ft['val_loss']}; phase wall {wall:.1f} s")
+
+    # the fusion train step alone at B x (pad_to_max + 2), as the CLI takes it
+    params, config, tok, sig_id, encoders = _fusion_model(ts, dev)
+    fusion, lora = _fusion_trainable(config, encoders, 0, dev)
+    for t in leaves([params, encoders]):
+        t.requires_grad_(False)
+    trainable = {"lora": lora, "fusion": fusion}
+    for t in leaves(trainable):
+        t.requires_grad_(True)
+    opt, sched = make_optimizer(config.hidden_size, 500).build(leaves(trainable))
+    batch = to_device(_two_stage_items(root, tok, _finetune_args(ts), range(ts.finetune_batch)), dev)
+    dropout = torch.Generator().manual_seed(0)
+
+    def finetune_step():
+        opt.zero_grad(set_to_none=True)
+        loss = F.fusion_lm_loss(params, config, fusion, "resnet_model", batch, sig_id,
+                                encoders=encoders, lora=lora, dropout_generator=dropout)
+        loss.backward()
+        clip_by_global_norm_([t.grad for t in leaves(trainable)], 1.0)
+        opt.step()
+        sched.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    numbers["finetune_ms"] = time_in_turns([finetune_step], 5)[0]
+    numbers["finetune_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    b, s = batch["tokenized_signal"].shape
+    numbers["finetune_tokens_per_s"] = b * s / numbers["finetune_ms"] * 1e3
+    print(f"fusion train step B{b} x {s} (frozen ResNet forward, {ts.llm} with LoRA): "
+          f"{numbers['finetune_ms']:.2f} ms = {numbers['finetune_tokens_per_s']:.0f} tokens/s "
+          f"(CUDA events); peak device memory {numbers['finetune_peak_gib']:.2f} GiB")
+    del params, encoders, fusion, lora, trainable, opt, batch
+    torch.cuda.empty_cache()
+
+    # serving the stage-2 checkpoint, bf16 cache then int8 weights and cache
+    serve = dict.fromkeys(SOURCES, 0)
+    n_test = max(1, int(records("ptb_500", "test") * 0.25))  # --toy
+    for int8 in (False, True):
+        result, counts, wall = run_cli(finetune, ft_args + [
+            "--inference", "--toy", "--checkpoint", os.path.basename(ft["directory"])]
+            + (["--int8_decode"] if int8 else []))
+        recs = result["records"]
+        prefills, dsteps = len(recs), sum(r["decode_steps"] for r in recs)
+        assert prefills == 5 * n_test, prefills
+        per_forward = prefills + dsteps
+        if int8:
+            # per prefill the 7 projections of every layer on the tensor
+            # cores and one KV append a layer; per step the projections on
+            # the GEMV kernel; per forward the head on the GEMV kernel
+            want = {"prefill_attention": L * prefills, "int8_linear_tc": 7 * L * prefills,
+                    "kv_quant": L * prefills, "decode_attention_int8": L * dsteps,
+                    "int8_linear": 7 * L * dsteps + per_forward,
+                    "rmsnorm": (2 * L + 1) * per_forward}
+        else:
+            want = {"prefill_attention": L * prefills, "decode_attention": L * dsteps,
+                    "rmsnorm": (2 * L + 1) * per_forward}
+        check_launch_counts(counts, want, f"stage-2 serving {'int8' if int8 else 'bf16'}")
+        for r in recs:
+            toks = r["tokens"]
+            assert toks.shape == (1, 128) and toks.min() >= 0, toks.shape
+            assert r["prompt_len"] % 64 == 0, r["prompt_len"]  # the spliced prompt
+        key = "int8" if int8 else "bf16"
+        numbers[f"serve_{key}_ms_per_token"] = 1e3 * sum(r["decode_s"] for r in recs) / dsteps
+        numbers[f"serve_{key}_prefill_ms"] = 1e3 * sum(r["prefill_s"] for r in recs) / prefills
+        print(f"serving {key}: {prefills} prefills (spliced prompts of "
+              f"{sorted({r['prompt_len'] for r in recs})} positions), {dsteps} decode steps; "
+              f"launches {counts}; prefill {numbers[f'serve_{key}_prefill_ms']:.2f} ms, decode "
+              f"{numbers[f'serve_{key}_ms_per_token']:.3f} ms/token (host clock around "
+              f"synchronize); phase wall {wall:.1f} s")
+        for name, n in counts.items():
+            serve[name] += n
+    by_path["two_stage_serve"] = serve
+
+    fusion_train_check(root, ts, dev)
+    fusion_serve_check(root, ts, dev)
+
+    # CLIP and ViT at the published widths: stage 1 (no kernel of the
+    # port: f32 towers, the text tower's attention the plain version as
+    # the JAX package's use_flash=False), then a fusion finetune on them
+    cv_args = ["--model", "clip_vit", "--dataset", "ptb_500", "--batch_size",
+               str(ts.vision_batch), "--dev"]
+    cv, counts, wall = run_cli(pretrain, cv_args)
+    check_launch_counts(counts, {}, "CLIP + ViT pretraining")
+    assert all(np.isfinite(cv["train_loss"])), cv
+    numbers["clip_vit_pretrain_ms_per_step"] = cv["seconds"] / cv["steps"] * 1e3
+    print(f"clip_vit pretraining: {cv['steps']} steps at batch {ts.vision_batch}, train loss "
+          f"{cv['train_loss']}; {numbers['clip_vit_pretrain_ms_per_step']:.1f} ms a step with "
+          f"its data (host clock); phase wall {wall:.1f} s")
+    cvf_args = ["--model", "clip_vit_model", "--llm", ts.llm, "--dataset", "ptb_500", "--toy",
+                "--batch_size", "6", "--pad_to_max", str(ts.pad_to_max), "--dev",
+                "--first_check", os.path.basename(cv["directory"])]
+    result, counts, wall = run_cli(finetune, cvf_args)
+    cvf = result["training"]
+    check_launch_counts(counts, train_counts(cvf["steps"], 2), "clip_vit_model training")
+    assert cvf["steps"] == 2 and all(np.isfinite(cvf["train_loss"] + cvf["val_loss"])), cvf
+    for name, n in counts.items():
+        by_path["two_stage_train"][name] += n
+    print(f"clip_vit_model finetuning: {cvf['steps']} train steps, 2 eval steps; train loss "
+          f"{cvf['train_loss']}; phase wall {wall:.1f} s")
+    print(f"phase 16: {json.dumps(numbers)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return by_path, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3186,8 +3712,10 @@ def main() -> int:
         by_path.update(hf_counts)
         pre_counts, pre = preprocess_phase(root)
         by_path.update(pre_counts)
+        two_counts, two = two_stage_phase(root)
+        by_path.update(two_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
-                "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb"):
+                "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax"):
         assert mod not in sys.modules, f"{mod} was imported"
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
@@ -3216,6 +3744,10 @@ def main() -> int:
           f"device (bound {pre['bound_ms']:.3f}); cli.preprocess_ecg {pre['records_per_s_2500']:.1f} "
           f"records/s at seg_len 2500 (host clock); operators built in "
           f"{pre['operator_build_s']:.1f} s; cli.sample_ecg {pre['sample_s']:.1f} s")
+    print(f"two-stage: pretrain step {two['pretrain_ms']:.2f} ms at B{TWO_STAGE.pretrain_batch} x "
+          f"(12, 2500); fusion train step {two['finetune_ms']:.2f} ms at B{TWO_STAGE.finetune_batch}"
+          f" x {TWO_STAGE.pad_to_max + 2} (CUDA events); decode {two['serve_bf16_ms_per_token']:.3f}"
+          f" ms/token bf16, {two['serve_int8_ms_per_token']:.3f} int8 (host clock)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

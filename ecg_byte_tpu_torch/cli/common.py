@@ -39,6 +39,21 @@ _PRESETS = {
 }
 
 
+# options the port does not have yet -> the ROADMAP.md item that ports them
+NOT_PORTED = {
+    "dis": "multi-GPU (DDP), ROADMAP.md section 1, item 5",
+    "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
+               "the first benchmark PR)",
+}
+
+
+def refuse_unported(args) -> None:
+    """Exit naming the ROADMAP.md item of a flag the port does not have yet."""
+    for flag, where in NOT_PORTED.items():
+        if getattr(args, flag, None):
+            raise SystemExit(f"--{flag} is not ported yet: {where}")
+
+
 def set_seed(seed: int) -> None:
     """Seed Python, numpy and torch (reference main.py:92-95)."""
     random.seed(seed)

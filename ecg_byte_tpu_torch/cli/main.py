@@ -46,7 +46,13 @@ import time
 import numpy as np
 import torch
 
-from ecg_byte_tpu_torch.cli.common import build_model, make_log_fn, make_run_dir, set_seed
+from ecg_byte_tpu_torch.cli.common import (
+    build_model,
+    make_log_fn,
+    make_run_dir,
+    refuse_unported,
+    set_seed,
+)
 from ecg_byte_tpu_torch.data import DataConfig, DataLoader, ECGTokenDataset
 from ecg_byte_tpu_torch.device import resolve_device
 from ecg_byte_tpu_torch.infer import greedy_generate
@@ -71,13 +77,6 @@ from ecg_byte_tpu_torch.utils.file_utils import (
 )
 from ecg_byte_tpu_torch.utils.metrics import early_stopping, run_statistical_analysis
 from ecg_byte_tpu_torch.utils.viz_utils import plot_train_val_loss
-
-# options the port does not have yet -> the ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "dis": "multi-GPU (DDP), ROADMAP.md section 1, item 5",
-    "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
-               "the first benchmark PR)",
-}
 
 
 def get_args(argv=None):
@@ -136,12 +135,6 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    for flag, where in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported yet: {where}")
-
-
 def _install_sigterm_handler():
     """Turn SIGTERM into an exception, so the crash save in ``finally`` runs
     on a preemption too."""
@@ -174,7 +167,7 @@ def main(argv=None):
     returns the serving summary, the per-record timings and generated token
     ids, and the statistical analysis."""
     args = get_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -8,6 +8,8 @@ every row has emitted eos.  Step ``step`` writes cache slot
 ``s_prompt + step - 1`` and marks it valid before attending.  ``lora``
 serves with the adapters attached; ``int8_kv`` keeps the cache in int8
 (``--int8_decode``, with an int8 weight tree from ``models/quantized.py``).
+``inputs_embeds`` is the two-stage path: the prompt goes in as spliced
+embeddings and the continuation as token ids.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from ecg_byte_tpu_torch.models.config import TransformerConfig
 def greedy_generate(
     params,
     config: TransformerConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor],
     attn_mask: Optional[torch.Tensor] = None,
     *,
+    inputs_embeds: Optional[torch.Tensor] = None,
     max_new_tokens: int = 128,
     eos_token_id: int = -1,
     pad_token_id: int = 0,
@@ -38,8 +41,11 @@ def greedy_generate(
     """Greedy-decode continuations of left-padded prompts.
 
     Args:
-      input_ids: (B, S) prompt token ids.
+      input_ids: (B, S) prompt token ids, ignored when ``inputs_embeds``
+        is given.
       attn_mask: (B, S) validity mask (1 = valid), default all valid.
+      inputs_embeds: (B, S, D) prompt embeddings (the two-stage path): the
+        prefill consumes them and each decode step a token id.
       lora: adapters (``models/lora.py``) applied beside the base weights.
       int8_kv: the int8 KV cache (per-row bf16 scales) instead of the
         model dtype's.
@@ -51,14 +57,18 @@ def greedy_generate(
       (B, max_new_tokens) int32: only the new tokens, padded with
       ``pad_token_id`` after each row's eos.
     """
-    device = input_ids.device
+    if inputs_embeds is not None:
+        input_ids = None
+    ref = input_ids if inputs_embeds is None else inputs_embeds[..., 0]
+    device = ref.device
     if attn_mask is None:
-        attn_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=device)
+        attn_mask = torch.ones(ref.shape, dtype=torch.int32, device=device)
     b, s_prompt = attn_mask.shape
     t0 = time.perf_counter()
     cache = T.init_kv_cache(config, b, s_prompt + max_new_tokens, device,
                             dtype=torch.int8 if int8_kv else None)
-    logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache, lora=lora)
+    logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache, lora=lora,
+                                        inputs_embeds=inputs_embeds)
     cur = torch.argmax(logits, -1).to(torch.int32)
     done = cur == eos_token_id
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32, device=device)

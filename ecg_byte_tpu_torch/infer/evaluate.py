@@ -61,14 +61,17 @@ def tester(
     generate_fn: Callable[[Dict], object],
     dataloader,
     *,
+    two_stage: bool = False,
     dev: bool = False,
     device: Optional[object] = None,
 ):
     """Evaluate generation over a loader of inference batches.
 
     ``generate_fn(batch)`` returns one string, or a list with one string
-    per row, with the prompt already sliced off.  ``device`` is where
-    BERTScore's local BERT runs: the model's device.
+    per row, with the prompt already sliced off.  ``two_stage`` keeps what
+    follows the last ``"?"`` of each text, as the reference's two-stage
+    runner does.  ``device`` is where BERTScore's local BERT runs: the
+    model's device.
     """
     all_results, gt_answers, gen_answers, questions = [], [], [], []
     dev_count = 0
@@ -79,6 +82,8 @@ def tester(
         answers = batch["answer"]
         text = generate_fn(batch)
         texts = text if isinstance(text, list) else [text]
+        if two_stage:
+            texts = [t.split("?")[-1] for t in texts]
         for i, t in enumerate(texts):
             all_results.append(_score(answers[i], t, device))
             gt_answers.append(answers[i])

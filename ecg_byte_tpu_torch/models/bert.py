@@ -150,3 +150,21 @@ def load_hf_bert(model_dir: str, device=None) -> Tuple[Params, BertConfig]:
         "pooler_b": g("pooler.dense.bias"),
     }
     return params, config
+
+
+class BertTextEncoder:
+    """A frozen text encoder over a loaded BERT: ``(input_ids,
+    attention_mask) -> pooler_output (B, H)`` on the parameters' device.
+    ``tokenizer`` is the checkpoint's own WordPiece tokenizer (or None)."""
+
+    def __init__(self, params: Params, config: BertConfig, tokenizer=None):
+        self.params = params
+        self.config = config
+        self.tokenizer = tokenizer
+
+    @torch.no_grad()
+    def __call__(self, input_ids, attention_mask) -> torch.Tensor:
+        dev = self.params["word_embed"].device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        mask = torch.as_tensor(attention_mask, device=dev).to(torch.int32)
+        return bert_forward(self.params, self.config, ids, mask)[1]

@@ -9,7 +9,11 @@ PyTorch ``(out, in)`` weight.  An int8 serving tree
 ``kernel_scale`` (1, out), which become ``weight_q`` (out, in) and
 ``weight_scale`` (out,), and ``lm_head_q`` (D, V) with ``lm_head_scale``
 (1, V), which become (V, D) and (V,): the layout of
-``models/quantized.py``.  ``lora_from_jax`` does the same for a LoRA tree.
+``models/quantized.py``.  ``lora_from_jax`` does the same for a LoRA tree.  The two-stage trees
+carry across with ``resnet_from_jax`` (conv weights and BatchNorm keep
+their layout), ``merl_head_from_jax``, ``vit_from_jax``, ``clip_from_jax``
+(layer stacks unstacked, dense kernels transposed) and
+``fusion_from_jax`` (each ``{"w", "b"}`` to ``{"weight", "bias"}``).
 Values are copied exactly, bf16 and int8 included.
 """
 
@@ -82,3 +86,62 @@ def lora_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> Di
             for name, ab in tree["layers"].items()
         })
     return {"layers": layers}
+
+
+def _tree(tree, device):
+    """Every numpy leaf of a nested dict as a tensor, layouts unchanged."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def resnet_from_jax(params, state, device):
+    """JAX ResNet (params, BN state) -> the port's: the same names and
+    layouts (conv weights (out, in, k))."""
+    return _tree(params, device), _tree(state, device)
+
+
+def merl_head_from_jax(head, device):
+    """JAX MERL head -> the port's: dense kernels (in, out) -> (out, in)."""
+    pool = head["att_pool"]
+    dense = ("in_proj", "out_proj", "c_proj")
+    out = {k: _transposed(v, device) if k in ("linear1", "linear2", "proj_t_w1", "proj_t_w2")
+           else _tensor(v, device) for k, v in head.items() if k != "att_pool"}
+    out["att_pool"] = {k: _transposed(v, device) if k in dense else _tensor(v, device)
+                       for k, v in pool.items()}
+    return out
+
+
+_STACK_DENSE = ("qkv", "out", "fc1", "fc2")
+
+
+def _stack_from_jax(stack, device):
+    n = np.asarray(stack["ln1"]).shape[0]
+    return [{k: (_transposed if k in _STACK_DENSE else _tensor)(np.asarray(v)[i], device)
+             for k, v in stack.items()} for i in range(n)]
+
+
+def vit_from_jax(tree, device):
+    """JAX ViT -> the port's: the layer stack unstacked, dense (in, out)
+    kernels transposed; the patch conv keeps its (out, C, P, P) layout."""
+    out = {k: _tensor(v, device) for k, v in tree.items() if k not in ("encoder", "decoder")}
+    out["encoder"] = _stack_from_jax(tree["encoder"], device)
+    out["decoder"] = _transposed(tree["decoder"], device)
+    return out
+
+
+def clip_from_jax(tree, device):
+    """JAX CLIP -> the port's (both towers as in :func:`vit_from_jax`)."""
+    projections = ("visual_projection", "text_projection")
+    out = {k: _transposed(v, device) if k in projections else _tensor(v, device)
+           for k, v in tree.items() if k not in ("vision", "text_encoder")}
+    out["vision"] = vit_from_jax(tree["vision"], device)
+    out["text_encoder"] = _stack_from_jax(tree["text_encoder"], device)
+    return out
+
+
+def fusion_from_jax(tree, device):
+    """JAX fusion projections ``{"w": (in, out), "b"}`` -> ``{"weight":
+    (out, in), "bias"}``."""
+    return {name: {"weight": _transposed(p["w"], device), "bias": _tensor(p["b"], device)}
+            for name, p in tree.items()}

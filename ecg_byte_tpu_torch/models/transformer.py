@@ -300,6 +300,20 @@ def _embed(params, config: TransformerConfig, input_ids, positions):
     return h
 
 
+def _inputs_to_hidden(params, config: TransformerConfig, input_ids, positions, inputs_embeds):
+    """The embedding lookup, or ``inputs_embeds`` cast to the model dtype in
+    its place (the two-stage fusion path); the scale and learned positions
+    apply to either."""
+    if inputs_embeds is None:
+        return _embed(params, config, input_ids, positions)
+    h = inputs_embeds.to(_dtype(config))
+    if config.embed_scale:
+        h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
+    if config.learned_pos_embeddings:
+        h = h + params["pos_embed"][positions]
+    return h
+
+
 def _unembed(params, config: TransformerConfig, h):
     hn = _norm(h, params["final_norm"], params.get("final_norm_bias"), config)
     if "lm_head_q" in params:  # int8 serving copy
@@ -333,11 +347,12 @@ def make_position_ids(attn_mask: torch.Tensor) -> torch.Tensor:
 def forward(
     params: Params,
     config: TransformerConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor],
     attn_mask: Optional[torch.Tensor] = None,
     position_ids: Optional[torch.Tensor] = None,
     *,
     lora: Optional[Params] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
     dropout_generator: Optional[torch.Generator] = None,
     return_hidden: bool = False,
     remat: str = "none",
@@ -347,6 +362,8 @@ def forward(
     ``attn_mask``: (B, S) 1/0 validity (left pads are 0).
     ``position_ids``: (B, S); defaults to the cumsum convention.
     ``lora``: adapters (``models/lora.py``) overlaid on the projections.
+    ``inputs_embeds``: (B, S, D) in place of the embedding lookup (the
+    two-stage fusion path); ``input_ids`` may then be None.
     ``dropout_generator``: a CPU ``torch.Generator``; with ``lora`` and a
     non-zero ``config.lora_dropout`` it turns LoRA dropout on.  It draws one
     seed per layer on the host (no device sync), and each layer draws its
@@ -362,11 +379,12 @@ def forward(
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     if attn_mask is None:
-        attn_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=input_ids.device)
+        ref = input_ids if inputs_embeds is None else inputs_embeds[..., 0]
+        attn_mask = torch.ones(ref.shape, dtype=torch.int32, device=ref.device)
     attn_mask = attn_mask.to(torch.int32).contiguous()
     if position_ids is None:
         position_ids = make_position_ids(attn_mask)
-    h = _embed(params, c, input_ids, position_ids)
+    h = _inputs_to_hidden(params, c, input_ids, position_ids, inputs_embeds)
     rope = _rope_for(c, position_ids)
 
     def attn_fn(q, k, v):
@@ -456,6 +474,43 @@ def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch
     return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1))
 
 
+def _ce_tile(h2, head_tile, safe, lo, m_run, l_run, lab_run):
+    """One vocabulary tile of :func:`chunked_lm_loss`: the running max,
+    sum of exponentials and label logit after columns [lo, lo + tile)."""
+    logits = F.linear(h2, head_tile).float()  # (M, tile)
+    m_new = torch.maximum(m_run, logits.amax(dim=-1))
+    l_new = l_run * torch.exp(m_run - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+    local = safe - lo
+    in_tile = (local >= 0) & (local < head_tile.shape[0])
+    picked = logits.gather(1, local.clamp(0, head_tile.shape[0] - 1)[:, None])[:, 0]
+    return m_new, l_new, torch.where(in_tile, picked, lab_run)
+
+
+def chunked_lm_loss(params: Params, config: TransformerConfig, hidden: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 8192) -> torch.Tensor:
+    """The HF CausalLM loss of ``causal_lm_loss(_unembed(hidden), labels)``
+    without the (B, S, V) logits: vocabulary tiles of ``chunk`` columns, a
+    running logsumexp, and the label logit picked in its tile.  Each tile
+    is replayed in the backward (``torch.utils.checkpoint``), so peak
+    memory is O(B * S * chunk).  Equal to the dense loss up to f32
+    logsumexp rounding."""
+    c = config
+    hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
+    head = params["embed"] if c.tie_word_embeddings else params["lm_head"]  # (V, D)
+    h2 = hn[:, :-1].reshape(-1, hn.shape[-1])
+    shift = labels[:, 1:].reshape(-1)
+    valid = shift != -100
+    safe = torch.where(valid, shift, 0).long()
+    m = torch.full((h2.shape[0],), -math.inf, device=h2.device)
+    l_run = torch.zeros(h2.shape[0], device=h2.device)
+    lab = torch.zeros(h2.shape[0], device=h2.device)
+    for lo in range(0, head.shape[0], chunk):
+        m, l_run, lab = torch.utils.checkpoint.checkpoint(
+            _ce_tile, h2, head[lo:lo + chunk], safe, lo, m, l_run, lab, use_reentrant=False)
+    nll = m + torch.log(l_run) - lab
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
 # ---------------------------------------------------------------------------
 # KV-cache decode
 
@@ -497,15 +552,18 @@ def _append_kv(cache: Params, i: int, k, v) -> None:
 def prefill(
     params: Params,
     config: TransformerConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor],
     attn_mask: torch.Tensor,
     cache: Params,
     position_ids: Optional[torch.Tensor] = None,
     *,
     lora: Optional[Params] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
 ):
     """Run the prompt, filling cache slots [0, S) in place; ``lora``:
-    adapters applied beside the base weights (no dropout).
+    adapters applied beside the base weights (no dropout);
+    ``inputs_embeds``: the prompt as (B, S, D) embeddings, as in
+    :func:`forward`.
 
     Returns (last-position logits (B, V) f32, cache, next_positions (B,)).
     """
@@ -513,7 +571,7 @@ def prefill(
     attn_mask = attn_mask.to(torch.int32).contiguous()
     if position_ids is None:
         position_ids = make_position_ids(attn_mask)
-    h = _embed(params, c, input_ids, position_ids)
+    h = _inputs_to_hidden(params, c, input_ids, position_ids, inputs_embeds)
     rope = _rope_for(c, position_ids)
     layers = params["layers"]
     for i, (layer_p, lora_p) in enumerate(zip(layers, _layer_loras(lora, len(layers)))):

@@ -89,21 +89,25 @@ def on_device(name: str, key: tuple, build, device) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def full_f32_matmul():
-    """Run float32 matrix products in full float32 inside the block, whatever
-    the process set, and restore its setting after.  The process's own API
-    is kept: the legacy ``allow_tf32``, unless reading it raises because the
+def full_f32_matmul(backend: str = "matmul"):
+    """Run float32 matrix products (``backend="matmul"``) or cuDNN
+    convolutions (``"conv"``) in full float32 inside the block, whatever the
+    process set, and restore its setting after.  The process's own API is
+    kept: the legacy ``allow_tf32``, unless reading it raises because the
     newer ``fp32_precision`` was set (torch refuses a mix of the two)."""
-    m = torch.backends.cuda.matmul
+    legacy, newer = {
+        "matmul": (torch.backends.cuda.matmul, torch.backends.cuda.matmul),
+        "conv": (torch.backends.cudnn, torch.backends.cudnn.conv),
+    }[backend]
     try:
-        attr, value, saved = "allow_tf32", False, m.allow_tf32
+        owner, attr, value, saved = legacy, "allow_tf32", False, legacy.allow_tf32
     except RuntimeError:
-        attr, value, saved = "fp32_precision", "ieee", m.fp32_precision
-    setattr(m, attr, value)
+        owner, attr, value, saved = newer, "fp32_precision", "ieee", newer.fp32_precision
+    setattr(owner, attr, value)
     try:
         yield
     finally:
-        setattr(m, attr, saved)
+        setattr(owner, attr, saved)
 
 
 @functools.lru_cache(maxsize=8)

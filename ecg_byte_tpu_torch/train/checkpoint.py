@@ -14,7 +14,8 @@ LR scheduler's state dicts and ``step``.  A ``mutable_only`` payload leaves
 the frozen base out (a LoRA crash save is {trainable, optimizer, scheduler,
 step}, a few hundred MB at full width); :func:`load_checkpoint` grafts the
 base back from its template.  Serving reads the same format through :func:`load_weights`, which needs no
-optimizer.
+optimizer.  The two-stage CLIs save a plain tree of tensors in the same
+file format (:func:`save_tree`, :func:`load_tree`).
 
 Loading copies the saved values into the template's own tensors, so the
 optimizer keeps pointing at the tensors it updates.
@@ -181,3 +182,15 @@ def load_weights(directory: str, role: str, params, *, peft: bool) -> Tuple[Any,
     if not ckpt["mutable_only"]:
         _copy_into(params, state["base"], f"{role}.base")
     return params, state["trainable"]
+
+
+def save_tree(directory: str, role: str, tree, *, epoch: int = 0) -> str:
+    """Save a nested dict/list of tensors (a two-stage model's trainable
+    part, its BatchNorm state) as ``{directory}/{role}.pt``."""
+    return _save(directory, role, tree, epoch, mutable_only=False)
+
+
+def load_tree(directory: str, role: str, device):
+    """The tree :func:`save_tree` wrote, on ``device``; returns (tree, epoch)."""
+    ckpt = torch.load(checkpoint_path(directory, role), map_location=device, weights_only=True)
+    return ckpt["state"], int(ckpt["epoch"])

@@ -2,7 +2,8 @@
 attention forwards, of both RMSNorm kernels, of the int8 weight product, of
 the device BPE encoder's token streams and of phase 15's preprocessing (the
 chain against float64 scipy, the threshold's median, skip counts, the
-written tree, the token cache), on the CPU:
+written tree, the token cache) and of phases 9 and 16's teacher-forced
+logits, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
@@ -938,3 +939,39 @@ def test_token_cache_check_refuses_a_stream_one_token_off():
     short[2].pop()
     with pytest.raises(AssertionError, match="record 2 differs .* at token 32 \\(32 tokens, the host 33\\)"):
         chip_smoke.check_token_cache(short, want, "cache")
+
+
+def _logits(steps=6, b=2, v=50, seed=0):
+    """f32 logits (steps, B, V) and a bf16 path's: the f32 ones rounded to
+    bf16 and back, the plain path's error against them."""
+    gen = torch.Generator().manual_seed(seed)
+    ref = 4 * torch.randn(steps, b, v, generator=gen)
+    return ref, ref.to(torch.bfloat16).float()
+
+
+def test_logits_check_passes_a_kernel_within_the_bf16_error():
+    """Phases 9 and 16's check of teacher-forced logits: the plain path
+    itself, and a kernel path rounded another way (half a bf16 step of
+    noise on the f32 logits), pass."""
+    ref, plain = _logits()
+    chip_smoke.hold_logits(plain.clone(), plain, ref)
+    noise = (plain - ref).abs() * torch.rand(ref.shape, generator=torch.Generator().manual_seed(1))
+    chip_smoke.hold_logits(ref + noise, plain, ref)
+
+
+@pytest.mark.parametrize("fault", ["far", "opposite"])
+def test_logits_check_refuses_faults(fault):
+    """A kernel path 3x the plain path's error from f32 at one step, or
+    within 1.2x of it but on the other side of f32 (2.2x from the plain
+    path), is a kernel fault."""
+    ref, plain = _logits()
+    err = plain - ref
+    if fault == "far":
+        kern = plain.clone()
+        kern[3] = ref[3] + 3 * err[3]
+        match = "kernel path further from f32"
+    else:
+        kern = ref - 1.2 * err
+        match = "differ beyond the bf16 error"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.hold_logits(kern, plain, ref)

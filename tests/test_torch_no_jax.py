@@ -1,15 +1,18 @@
 """The port stands alone: in a process where importing ``jax``, anything of
 ``ecg_byte_tpu``, ``safetensors``, ``tokenizers``, ``transformers``,
-``regex``, ``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt`` or ``wfdb``
-fails, every module of ``ecg_byte_tpu_torch`` and ``chip_smoke`` imports,
+``regex``, ``ml_dtypes``, ``sklearn``, ``pandas``, ``pywt``, ``wfdb``,
+``PIL`` or ``optax`` fails, every module of ``ecg_byte_tpu_torch`` and
+``chip_smoke`` imports,
 ``chip_smoke``'s data helper builds the synthetic dataset and tokenizer on
 the CPU, a tiny-llama decodes and takes a LoRA train step, the HF path
 runs (the tiny size-exact Llama-3.2-1B directory is written, loaded with
 its tokenizer and the ECG tokens registered, and a random BERT written by
 ``chip_smoke`` scores BERTScore), and the preprocessing runs: raw PTB-XL
 records through ``cli.preprocess_ecg`` and the segments through
-``cli.sample_ecg``.  No source line imports JAX or the JAX package, nor
-scikit-learn, pandas, pywt or wfdb."""
+``cli.sample_ecg``; and the two-stage CLIs: ``cli.pretrain --model
+resnet --tiny``, ``cli.finetune`` on its checkpoint and ``--inference``,
+and the CLIP and ViT image pipelines.  No source line imports JAX or the
+JAX package, nor scikit-learn, pandas, pywt, wfdb, Pillow or optax."""
 
 import os
 import re
@@ -23,7 +26,7 @@ import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["ecg_byte_tpu"] = None  # and so does any `import ecg_byte_tpu...`
 BLOCKED = ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
-           "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb")
+           "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax")
 for mod in BLOCKED:
     sys.modules[mod] = None
 import torch
@@ -69,6 +72,24 @@ with tempfile.TemporaryDirectory() as root:
     listed = sample_ecg.main(["--ecg_dir", segments, "--max_clusters", "3", "--data_root", root,
                               "--device", "cpu"])
     assert open(listed).read().count(".npy") == 10
+    from ecg_byte_tpu_torch.cli import finetune, pretrain
+    from ecg_byte_tpu_torch.data import two_stage
+    import numpy as np
+    sig = np.random.default_rng(0).normal(size=(12, 500)).astype(np.float32)
+    assert two_stage.clip_process_image(sig).shape == two_stage.vit_process_image(sig).shape
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        summary = pretrain.main(["--device", "cpu", "--model", "resnet", "--dataset", "ptb_500",
+                                 "--tiny", "--dev", "--epochs", "1", "--batch_size", "4"])
+        stage1 = os.path.basename(summary["directory"])
+        args = ["--device", "cpu", "--model", "resnet_model", "--dataset", "ptb_500", "--tiny",
+                "--dev", "--batch_size", "2", "--pad_to_max", "60", "--first_check", stage1]
+        stage2 = os.path.basename(finetune.main(args)["training"]["directory"])
+        served = finetune.main(args + ["--inference", "--checkpoint", stage2])
+        assert served["records"][0]["tokens"].shape == (1, 128)
+    finally:
+        os.chdir(cwd)
 params, config, tok = build_model("tiny-llama", vocab, cpu)
 out = greedy_generate(params, config, torch.tensor([[tok.bos_token_id, 65, 66, 67]]), max_new_tokens=4)
 assert out.shape == (1, 4)
@@ -126,8 +147,10 @@ def test_no_hf_package_import_statements():
 
 def test_no_sklearn_pandas_pywt_wfdb_import_statements():
     """No source line of the port or chip_smoke imports scikit-learn, pandas,
-    pywt or wfdb (the card's machine has none of them)."""
-    pattern = re.compile(r"^\s*(import|from) (sklearn|pandas|pywt|wfdb)(\.|\s)", re.M)
+    pywt, wfdb, Pillow or optax (the card's machine has none of the first
+    five; optax is JAX's)."""
+    pattern = re.compile(r"^\s*(import|from) (sklearn|pandas|pywt|wfdb|PIL|optax)(\.|\s)", re.M)
+    assert pattern.search("    from PIL import Image\n") and pattern.search("import optax\n")
     assert pattern.search("    from sklearn.cluster import KMeans\n")
     assert not pattern.search("from ecg_byte_tpu_torch.data import wfdb_io\nimport pandas_x\n")
     files = [os.path.join(REPO, "chip_smoke.py")]

@@ -22,6 +22,7 @@ from ecg_byte_tpu_torch.infer import greedy_generate
 from ecg_byte_tpu_torch.models import tiny_test_config
 from ecg_byte_tpu_torch.models import transformer as T
 from ecg_byte_tpu_torch.models.convert import params_from_jax
+from ecg_byte_tpu_torch.models.lora import leaves as lora_leaves
 
 ARCHS = ["llama", "gpt2", "gemma"]
 ATOL = 1e-4
@@ -196,3 +197,98 @@ def test_norm_weight_as_stored_is_bit_equal_to_f32_cast(arch):
     assert len(grads) == len(grads_f32) > 0
     for a, b in zip(grads, grads_f32):
         assert a is not None and torch.equal(a, b)
+
+
+# Twins of tests/test_transformer.py's masking, loss and inputs_embeds
+# checks, each on the same weights and inputs as the JAX function.
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_left_pad_invariance(arch):
+    """The valid positions' logits do not depend on the left pads' ids, as
+    in JAX, and equal JAX's (ATOL)."""
+    jparams, jc, params, pc = _models(arch, seed=8)
+    ids, mask = _prompt(b=2, s=12, left_pad=4, seed=9)
+    ids, mask = ids[1:], mask[1:]  # the row with 4 left pads
+    scrambled = ids.copy()
+    scrambled[:, :4] = (scrambled[:, :4] + 7) % 512
+    got = [T.forward(params, pc, _t(x).long(), _t(mask)).numpy() for x in (ids, scrambled)]
+    want = np.asarray(JT.forward(jparams, jc, jnp.asarray(scrambled), jnp.asarray(mask)))
+    np.testing.assert_allclose(got[0][:, 4:], got[1][:, 4:], atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got[1][:, 4:], want[:, 4:], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_ignore_index(arch):
+    """-100 labels drop out of the loss: all ignored gives exactly 0, as in
+    JAX; the masked loss equals JAX's within 1e-5 relative."""
+    jparams, jc, params, pc = _models(arch, seed=10)
+    ids, mask = _prompt(seed=11)
+    logits = T.forward(params, pc, _t(ids).long(), _t(mask))
+    jlogits = JT.forward(jparams, jc, jnp.asarray(ids), jnp.asarray(mask))
+    ignored = np.full(ids.shape, -100)
+    assert T.causal_lm_loss(logits, _t(ignored)).item() == 0.0
+    assert float(JT.causal_lm_loss(jlogits, jnp.asarray(ignored))) == 0.0
+    labels = np.where(mask == 1, ids, -100)
+    got = T.causal_lm_loss(logits, _t(labels).long()).item()
+    want = float(JT.causal_lm_loss(jlogits, jnp.asarray(labels)))
+    assert 0.0 < got < 3 * np.log(512)
+    assert abs(got - want) <= 1e-5 * want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_inputs_embeds_path(arch):
+    """forward and prefill on the looked-up embeddings (``input_ids``
+    None) equal the id path bit for bit, and JAX's embeds path (ATOL)."""
+    jparams, jc, params, pc = _models(arch, seed=12)
+    ids, mask = _prompt(seed=13)
+    embeds = params["embed"][_t(ids).long()]
+    via_ids = T.forward(params, pc, _t(ids).long(), _t(mask))
+    via_embeds = T.forward(params, pc, None, _t(mask), inputs_embeds=embeds)
+    assert torch.equal(via_ids, via_embeds)
+    want = np.asarray(JT.forward(jparams, jc, None, jnp.asarray(mask),
+                                 inputs_embeds=jnp.take(jparams["embed"], jnp.asarray(ids), 0)))
+    np.testing.assert_allclose(via_embeds.numpy(), want, atol=ATOL, rtol=0)
+    b, s = ids.shape
+    runs = []
+    for kw in ({"input_ids": _t(ids).long()}, {"input_ids": None, "inputs_embeds": embeds}):
+        cache = T.init_kv_cache(pc, b, s, CPU)
+        ids_arg = kw.pop("input_ids")
+        logits, cache, pos = T.prefill(params, pc, ids_arg, _t(mask), cache, **kw)
+        runs.append((logits, cache["k"], pos))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_chunked_lm_loss_matches_dense():
+    """The vocabulary-tiled loss equals the dense one (rtol 2e-5) and JAX's
+    chunked loss, with gradients of every parameter within 2e-2 (the JAX
+    test's tolerances), at a vocabulary that leaves a ragged last tile."""
+    jc = jax_config.tiny_test_config("llama", vocab_size=300)
+    tree = jax.tree.map(np.asarray, JT.init_params(jc, jax.random.PRNGKey(0)))
+    pc = tiny_test_config("llama", vocab_size=300)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 300, (2, 24)).astype(np.int32)
+    labels = np.where(rng.random((2, 24)) < 0.3, -100, ids)
+
+    def run(chunked):
+        params = params_from_jax(tree, pc, CPU)
+        leaves = lora_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        h = T.forward(params, pc, _t(ids).long(), return_hidden=True)
+        if chunked:
+            loss = T.chunked_lm_loss(params, pc, h, _t(labels).long(), chunk=128)
+        else:
+            loss = T.causal_lm_loss(T._unembed(params, pc, h), _t(labels).long())
+        loss.backward()
+        return loss.item(), [t.grad for t in leaves]
+
+    (ld, gd), (lc, gc) = run(False), run(True)
+    np.testing.assert_allclose(lc, ld, rtol=2e-5)
+    want = float(JT.chunked_lm_loss(
+        jax.tree.map(jnp.asarray, tree), jc,
+        JT.forward(jax.tree.map(jnp.asarray, tree), jc, jnp.asarray(ids), return_hidden=True),
+        jnp.asarray(labels), chunk=128))
+    np.testing.assert_allclose(lc, want, rtol=2e-5)
+    for a, b in zip(gd, gc):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=2e-2, rtol=2e-2)

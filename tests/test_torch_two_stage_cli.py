@@ -1,0 +1,193 @@
+"""The port's two-stage CLIs against the JAX package's, end to end on the
+CPU: ``cli.pretrain --model resnet --tiny`` (stage 1), then
+``cli.finetune --model resnet_model`` on its checkpoint (stage 2: train,
+``--inference`` with the adapters attached and with ``--int8_decode``).
+
+Each package runs in its own subprocess (one process per package runs
+all four commands), with every random init of the port replaced by the
+JAX package's own draws carried across by ``models/convert`` (the ResNet,
+the MERL head, the LLM, LoRA and the fusion projection), and with dropout
+off in both (the port's masks come from a ``torch.Generator``).  Each
+package reads its own stage-1 checkpoint.
+
+Held: the pretrain and finetune losses of every epoch within 1e-4
+relative (f32 through 2 epochs of Adam), the token streams of every
+``fusion_generate`` call identical, both serving modes, and the texts the
+two CLIs score identical where both keep them.  ``--dis`` and a run without ``--device`` on a
+machine with no card are refused.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STAGE1 = "resnet_ptb_500_0.0001_0.9_0.99_1e-08_0.01_500_4_2"
+STAGE2 = "resnet_model_tiny-llama_ptb_500_0.0001_500_2_2_120_False"
+PRETRAIN = ["--model", "resnet", "--dataset", "ptb_500", "--batch_size", "4", "--dev", "--tiny",
+            "--image_size", "32", "--seed", "0"]
+FINETUNE = ["--model", "resnet_model", "--llm", "tiny-llama", "--dataset", "ptb_500",
+            "--batch_size", "2", "--dev", "--tiny", "--image_size", "32", "--pad_to_max", "120",
+            "--percentiles", "data/stats.npy", "--first_check", STAGE1, "--seed", "0"]
+SERVE = FINETUNE + ["--inference", "--checkpoint", STAGE2]
+
+# Runs the pretrain and finetune CLIs of package argv[1] for each (cli,
+# argv) of the JSON list argv[2], with the port's random inits replaced by
+# the JAX package's draws and dropout off, and writes every
+# fusion_generate token stream to tokens.json.
+_SPY = r"""
+import importlib, json, sys
+import numpy as np
+pkg, runs = sys.argv[1], json.loads(sys.argv[2])
+SEED = 0
+mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+enc, fus, lora = mod("models.encoders"), mod("models.fusion"), mod("models.lora")
+clis = {"pretrain": mod("cli.pretrain"), "finetune": mod("cli.finetune")}
+real_merl, real_generate, real_build = (enc.merl_pretrain_loss, fus.fusion_generate,
+                                        clis["finetune"].build_model)
+
+def merl(*args, **kw):
+    kw.pop("dropout_rng", None)
+    kw.pop("dropout_generator", None)
+    return real_merl(*args, **kw)
+
+streams = []
+
+def generate(*args, **kw):
+    out = real_generate(*args, **kw)
+    streams.append(np.asarray(out.cpu() if hasattr(out, "cpu") else out).tolist())
+    return out
+
+def build(*args, **kw):
+    params, config, tok = real_build(*args, **kw)
+    config = config.replace(lora_dropout=0.0)
+    if pkg == "ecg_byte_tpu_torch":  # the JAX package's weights, carried across
+        jparams, jconfig, _ = jcommon.build_model(args[0], args[1])
+        state["jconfig"] = jconfig.replace(lora_dropout=0.0)
+        params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), config, args[2])
+    return params, config, tok
+
+enc.merl_pretrain_loss, fus.fusion_generate, clis["finetune"].build_model = merl, generate, build
+if pkg == "ecg_byte_tpu_torch":
+    import jax
+    from ecg_byte_tpu.cli import common as jcommon
+    from ecg_byte_tpu.models import encoders as JE, fusion as JF, lora as JL, resnet1d as JR
+    convert = mod("models.convert")
+    resnet1d = mod("models.resnet1d")
+    state = {}
+    keys = jax.random.split(jax.random.PRNGKey(SEED), 4)  # the JAX pretrain's
+
+    def init_resnet(gen, variant="resnet101", in_channels=12, device=None):
+        p, s, meta = JR.init_resnet(keys[0], variant, in_channels)
+        p, s = convert.resnet_from_jax(jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, s),
+                                       gen.device)
+        return p, s, meta
+
+    def init_merl_head(gen, **kw):
+        head = JE.init_merl_head(keys[1], **kw)
+        return convert.merl_head_from_jax(jax.tree.map(np.asarray, head), gen.device)
+
+    def init_lora(config, gen, device):
+        tree = JL.init_lora(state["jconfig"], jax.random.PRNGKey(SEED + 1))
+        return convert.lora_from_jax(jax.tree.map(np.asarray, tree), config, device)
+
+    def init_fusion(gen, kind, hidden, **kw):
+        tree = JF.init_fusion(jax.random.PRNGKey(SEED + 2), kind, hidden, **kw)
+        return convert.fusion_from_jax(jax.tree.map(np.asarray, tree), gen.device)
+
+    resnet1d.init_resnet, enc.init_merl_head = init_resnet, init_merl_head
+    lora.init_lora, fus.init_fusion = init_lora, init_fusion
+for cli, argv in runs:
+    sys.argv = [cli] + argv
+    clis[cli].main()
+with open("tokens.json", "w") as f:
+    json.dump(streams, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("two_stage_data")
+    rng = np.random.default_rng(0)
+    for split, n in [("train", 6), ("val", 2), ("test", 2)]:
+        for kind in ("ecg", "text"):
+            os.makedirs(root / f"ptb_500/{kind}/{split}")
+        for i in range(n):
+            sig = (np.cumsum(rng.normal(size=(12, 64)), -1) * 0.05).astype(np.float32)
+            np.save(root / f"ptb_500/ecg/{split}/ecg_{i}_0.npy", sig)
+            with open(root / f"ptb_500/text/{split}/text_{i}_0.json", "w") as f:
+                json.dump("Normal sinus rhythm.", f)
+    sigs = np.stack([np.load(root / f"ptb_500/ecg/train/ecg_{i}_0.npy") for i in range(6)])
+    np.save(root / "stats.npy", {"percentile_1": float(np.percentile(sigs, 1)),
+                                 "percentile_99": float(np.percentile(sigs, 99))})
+    return root
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    env.pop("ECG_BYTE_BERTSCORE_MODEL", None)
+    env.pop("ECG_BYTE_RESNET_BF16", None)
+    return env
+
+
+def _losses(log, what):
+    lines = log.splitlines()
+    return [float(lines[i + 1].split(": ")[1]) for i, ln in enumerate(lines)
+            if ln.startswith(f"{what} - Epoch")]
+
+
+def test_two_stage_clis_match_jax(data, tmp_path):
+    procs = {}
+    for pkg, extra in (("ecg_byte_tpu", []), ("ecg_byte_tpu_torch", ["--device", "cpu"])):
+        cwd = tmp_path / pkg
+        cwd.mkdir()
+        os.symlink(data, cwd / "data")
+        runs = [("pretrain", PRETRAIN + extra), ("finetune", FINETUNE + extra),
+                ("finetune", SERVE + extra), ("finetune", SERVE + ["--int8_decode"] + extra)]
+        with open(cwd / "cli.log", "w") as log:
+            procs[pkg] = (subprocess.Popen(
+                [sys.executable, "-c", _SPY, pkg, json.dumps(runs)], cwd=cwd, env=_env(),
+                stdout=log, stderr=subprocess.STDOUT), cwd)
+    out = {}
+    for pkg, (proc, cwd) in procs.items():
+        proc.wait(timeout=600)
+        log = (cwd / "cli.log").read_text()
+        assert proc.returncode == 0, log[-6000:]
+        assert log.count("Inference Complete") == 2
+        assert (cwd / "runs/0" / STAGE2).is_dir(), os.listdir(cwd / "runs/0")
+        texts = []
+        for seed in (0, 42, 123, 456, 789):
+            with open(cwd / "runs/0" / STAGE2 / f"seed_{seed}_results_ptb_500.json") as f:
+                texts.append(json.load(f)["qa_results"]["gen_answers"])
+        out[pkg] = (_losses(log, "Training"), _losses(log, "Validating"),
+                    json.loads((cwd / "tokens.json").read_text()), texts)
+    (jt, jv, jtok, jtext), (pt, pv, ptok, ptext) = out["ecg_byte_tpu"], out["ecg_byte_tpu_torch"]
+    assert len(jt) == len(pt) == 4 and len(jv) == len(pv) == 2  # 2 pretrain + 2 finetune epochs
+    np.testing.assert_allclose(pt, jt, rtol=1e-4)
+    np.testing.assert_allclose(pv, jv, rtol=1e-4)
+    assert len(jtok) == len(ptok) == 2 * 5 * 2  # 2 serving runs x 5 seeds x 2 test records
+    assert ptok == jtok
+    # the JAX runner drops a sample whose scoring raised (BLEU of an empty
+    # text); the port scores it zero and keeps its text (ROADMAP.md,
+    # deliberate differences), so the texts are compared where JAX kept them
+    assert all(len(p) == 2 for p in ptext)
+    assert all(j == p for j, p in zip(jtext, ptext) if j)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--device", "cpu", "--dis"], "ROADMAP.md section 1, item 5"),
+    ([], "no CUDA device"),  # no --device and no card: no CPU fallback
+], ids=["dis", "no-device"])
+@pytest.mark.parametrize("cli", ["pretrain", "finetune"])
+def test_two_stage_clis_refuse(data, tmp_path, cli, extra, message):
+    os.symlink(data, tmp_path / "data")
+    argv = PRETRAIN if cli == "pretrain" else FINETUNE
+    r = subprocess.run([sys.executable, "-m", f"ecg_byte_tpu_torch.cli.{cli}", *argv, *extra],
+                       cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and message in r.stderr
