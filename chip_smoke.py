@@ -132,6 +132,26 @@ Phases, each printing its own lines, in the order they run:
     path's (hold_logits, teacher-forced logits); ``cli.pretrain
     --model clip_vit`` and a ``cli.finetune --model clip_vit_model`` at the
     published widths (ViT-B/16, CLIP with a ViT-B/32 image tower).
+17. ``--dis``: ``cli.main --dis --gpus 0,0`` (two ranks on the card,
+    gloo; Llama-3.2-1B with LoRA at a global B4 x 1024, 2 a rank, ``--toy``
+    so the second batch of an epoch is one row a rank and the one
+    validation record is rank 0's alone) and ``--gpus 0`` (one rank, NCCL,
+    this process from torchrun's environment),
+    ``cli.pretrain --model resnet --dis`` (ResNet-101 + MERL at a global
+    B128 x (12, 2,500)) and ``cli.finetune --dis`` on its checkpoint: each
+    rank's exact launch counts (check_dis_ranks, rank_steps: a rank
+    without rows runs no forward), the same losses on every rank and every
+    checkpoint written by rank 0 alone.  A two-rank harness
+    (``parallel.spawn``, ddp_rank) runs the main path's train step on one
+    global batch: held with the one-process step (kernels) and the f32
+    step by hold_train_paths' rule, the two ranks in the kernel path's
+    place; and the pretrain step, held by check_dis_step to the
+    one-process step (the loss and the BatchNorm update within
+    DDP_F32_TOL: f32 convs with TF32 off on both sides) and to an f64 step
+    (each gradient group within DDP_GRAD_RATIO times the one-process
+    step's distance from it).  Then each path's step (main, pretrain,
+    fusion) and its gradient all-reduce timed with CUDA events, at W = 2
+    and (the main path) at W = 1 over NCCL.
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
@@ -161,7 +181,7 @@ NUM_MERGES = 400  # with 500-sample leads: 0.9-1.0k signal tokens, buckets of 10
 SEG_LEN = 500
 N_TRAIN = 24  # --dev --batch_size 4: 2 epochs of 6 steps
 N_VAL = 2
-N_TEST = 10  # --dev decodes 10 records per seed
+N_TEST = 2  # --dev decodes 2 records per seed
 TEACHER_FORCED = 32
 TRAIN_ARGS = ["--peft", "--dev", "--batch_size", "4", "--pad_to_max", "1020"]
 # the device BPE encoder's second shape: 256 records of 12 x 2,500, the JAX
@@ -807,34 +827,11 @@ def _chain_plain(match_len, match_tok, max_len):
 
 @functools.lru_cache(maxsize=1)
 def _counters():
-    from ecg_byte_tpu_torch.ops import (
-        attention_decode,
-        attention_resident,
-        bpe_match,
-        flash_attention,
-        int8_linear,
-        kv_quant,
-        rmsnorm,
-    )
+    """kernel -> (its wrapper, the wrapper's count), the wrappers themselves,
+    taken before any plain_path() swap (``ops.counted_wrappers``)."""
+    from ecg_byte_tpu_torch.ops import counted_wrappers
 
-    # kernel -> (its wrapper, the wrapper's count), the wrappers themselves,
-    # taken before any plain_path() swap; one wrapper launches both
-    # instantiations of the decode kernel and counts each
-    return {
-        "prefill_attention": (attention_resident.resident_attention, "launches"),
-        "prefill_attention_bwd": (attention_resident.resident_attention_bwd, "launches"),
-        "flash_attention": (flash_attention.flash_attention_fwd, "launches"),
-        "flash_attention_bwd": (flash_attention.flash_attention_bwd, "launches"),
-        "decode_attention": (attention_decode.decode_attention_fused, "launches"),
-        "rmsnorm": (rmsnorm.rmsnorm, "launches"),
-        "rmsnorm_bwd": (rmsnorm.rmsnorm_bwd, "launches"),
-        "bpe_match": (bpe_match.longest_match, "launches"),
-        "bpe_chain": (bpe_match.greedy_chain, "launches"),
-        "decode_attention_int8": (attention_decode.decode_attention_fused, "int8_launches"),
-        "int8_linear": (int8_linear.int8_linear, "launches"),
-        "int8_linear_tc": (int8_linear.int8_linear, "tc_launches"),
-        "kv_quant": (kv_quant.append_kv, "launches"),
-    }
+    return {name: (fn, attr) for name, fn, attr in counted_wrappers()}
 
 
 def launches():
@@ -3671,6 +3668,519 @@ def two_stage_phase(root, ts=TWO_STAGE, dev="cuda"):
     return by_path, numbers
 
 
+# ---------------------------------------------------------- phase 17: --dis
+
+
+@dataclasses.dataclass(frozen=True)
+class Ddp:
+    """The sizes of phase 17: full width on the card (the defaults), tiny for
+    a rehearsal on the CPU."""
+
+    llm: str = MODEL
+    batch: int = 4  # the global batch: 2 a rank, the reference's batch per GPU
+    pad_to_max: int = 1020  # S 1024, as phase 6
+    pretrain_data: str = BIG["name"]
+    pretrain_batch: int = 128  # phase 16's: 64 a rank
+    finetune_pad_to_max: int = 1022
+    tiny: bool = False
+
+
+DDP = Ddp()
+DDP_WORLD = 2
+# the two-rank pretrain step against the one-process one: f32 convolutions
+# with TF32 off on both sides, so the forward (the loss, the BatchNorm
+# state's update) differs by f32 reduction order alone; the gradients are
+# held against an f64 step (check_dis_step): each group within
+# DDP_GRAD_RATIO times the one-process step's distance from it, plus
+# DDP_F32_TOL.  The two f32 distances are two draws of the same amplified
+# rounding (ratios 0.84-1.20 over six groups on an NVIDIA H100 80GB HBM3,
+# PERF.md section 6); a gradient averaged over the ranks (1/W) is ~20x off
+DDP_F32_TOL = 1e-4
+DDP_GRAD_RATIO = 1.5
+
+
+def rank_steps(n, batch, world, rank, epochs=2):
+    """Steps of a --dev run in which ``rank`` holds rows of the global batch:
+    ``n`` records, global batch ``batch``, at most 10 steps an epoch."""
+    steps = [len(range(rank, min(batch, n - k * batch), world)) > 0
+             for k in range(-(-n // batch))]
+    return epochs * sum(steps[:10])
+
+
+def dis_train_counts(layers, steps, evals, embeds_grad=False):
+    """One rank's launches: per train step each layer's attention forward and
+    backward, 2L + 1 norms forward and 2L backward (2L + 1 where layer 0's
+    input takes a gradient, the spliced embeddings); per eval step the
+    forwards."""
+    return {"prefill_attention": layers * (steps + evals), "prefill_attention_bwd": layers * steps,
+            "rmsnorm": (2 * layers + 1) * (steps + evals),
+            "rmsnorm_bwd": (2 * layers + int(embeds_grad)) * steps}
+
+
+def check_dis_ranks(out, expected, what):
+    """Every rank of a --dis run: its exact launch counts, the same losses
+    and steps as rank 0, and the checkpoints written by rank 0 alone, the
+    crash save last.  ``expected``: each rank's launch counts."""
+    ranks = out["ranks"]
+    assert [r["rank"] for r in ranks] == list(range(len(expected))), what
+    summary = [r.get("training", r) for r in ranks]
+    for r, want in zip(ranks, expected):
+        check_launch_counts(r["launches"], want, f"{what}, rank {r['rank']}")
+    for key in ("steps", "train_loss", "val_loss"):
+        assert all(s.get(key) == summary[0].get(key) for s in summary), f"{what}: {key} differ"
+    import numpy as np
+
+    assert all(np.isfinite(summary[0]["train_loss"] + summary[0].get("val_loss", []))), what
+    written = ranks[0]["written"]
+    assert written and all(not r["written"] for r in ranks[1:]), f"{what}: written {written}"
+    assert all(role.startswith("best_model") for role in written[:-1]), written
+
+
+def _ddp_lm_model(root, vocab, merges, ddp, dev):
+    """The main path's random model (seed 0), LoRA adapters with B != 0, and
+    the step check's global batch (``ddp.batch`` training items)."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.common import build_model
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+    from ecg_byte_tpu_torch.train.step import _batch_tensors
+
+    params, config, tok = build_model(ddp.llm, vocab, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lora = lora_lib.init_lora(config, gen, dev)
+    for layer in lora["layers"]:  # B != 0, so that dA != 0
+        for ab in layer.values():
+            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
+                ab["b"].dtype)
+    batch = _batch_tensors(_training_items(root, vocab, merges, tok, ddp.batch, ddp.pad_to_max),
+                           dev)
+    return params, config, lora, batch
+
+
+def ddp_lm_run(params, config, lora, batch, rows=None):
+    """The port's train step (``train.step.compute_gradients``) on the global
+    ``batch``, LoRA dropout on, its masks drawn for the global batch: (loss,
+    the cross entropies at the labelled and at the valid positions of each
+    row held, {LoRA group: gradient}).  With ``rows`` this rank's rows and
+    the gradients summed over the ranks."""
+    import torch
+
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import compute_gradients, create_train_state
+
+    dev = batch["input_ids"].device
+    lora = _map_tree(lambda t: t.detach().clone(), lora)
+    state = create_train_state(config, make_optimizer(config.hidden_size, 500),
+                               torch.Generator(device=dev), peft=True, params=params, lora=lora)
+    local = batch if rows is None else shard_rows(batch, rows)
+    loss = compute_gradients(config, state, local, torch.Generator().manual_seed(0), rows=rows,
+                             n_valid=int((batch["labels"][:, 1:] != -100).sum()))
+    names = [(n, k) for n in lora["layers"][0] for k in ("a", "b")]
+    grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
+                                         for layer in lora["layers"]]).cpu() for n, k in names}
+    ce_lab, ce_all = [], []
+    with torch.no_grad():
+        hidden = T.forward(params, config, local["input_ids"], local["attn_mask"],
+                           local["position_ids"], lora=lora, return_hidden=True)
+        for i in range(hidden.shape[0]):
+            logits = T._unembed(params, config, hidden[i:i + 1])[0, :-1]
+            lse = torch.logsumexp(logits, -1)
+            labels, nxt = local["labels"][i, 1:], local["input_ids"][i, 1:]
+            lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
+            every = lse - logits.gather(1, nxt[:, None])[:, 0]
+            ce_lab.append(lab[labels != -100].cpu())
+            ce_all.append(every[local["attn_mask"][i, 1:].bool()].cpu())
+            del logits
+    return loss.item(), ce_lab, ce_all, grads
+
+
+def _ddp_merl_model(root, ddp, dev):
+    """``cli.pretrain --model resnet``'s backbone, head and loss (seed 0)
+    and the step check's global batch: the first ``ddp.pretrain_batch``
+    records of ``ddp.pretrain_data`` with their hash text embeddings."""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.cli import pretrain
+    from ecg_byte_tpu_torch.data import ByteTextTokenizer, collate
+    from ecg_byte_tpu_torch.data.two_stage import ECGCLIPPretrain, TwoStageConfig
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    data = os.path.join(root, "data")
+    args = pretrain.get_args(["--model", "resnet", "--dataset", ddp.pretrain_data]
+                             + (["--tiny", "--image_size", "32"] if ddp.tiny else []))
+    sigs, texts = align_signal_text_files(f"{data}/{ddp.pretrain_data}/ecg/train",
+                                          f"{data}/{ddp.pretrain_data}/text/train")
+    trainable, bn, loss_fn, _ = pretrain.build_backbone(
+        args, torch.Generator(device=dev).manual_seed(0), np.load(sigs[0]).shape[-1])
+    n = ddp.pretrain_batch
+    ds = ECGCLIPPretrain(sigs[:n], texts[:n], tokenizer=ByteTextTokenizer(),
+                         args=TwoStageConfig(model="resnet", dataset=ddp.pretrain_data))
+    batch = collate([ds[i] for i in range(n)])
+    batch["text_emb"] = loss_fn.text_encoder(batch.pop("resnet_input_ids"),
+                                             batch.pop("resnet_att_mask")).float()
+    return trainable, bn, loss_fn, pretrain.to_device(batch, dev)
+
+
+def ddp_merl_run(trainable, bn, loss_fn, batch, rows=None):
+    """The pretrain step's forward and backward (``cli.pretrain``'s loss:
+    ResNet, MERL head, view dropout on) on the global ``batch``: (loss,
+    {group: gradient}, the BatchNorm state's update).  With ``rows`` this
+    rank's rows, BatchNorm and the contrastive losses over the global batch
+    and the gradients summed over the ranks."""
+    import torch
+
+    from ecg_byte_tpu_torch.models.lora import leaves
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+    from ecg_byte_tpu_torch.train.step import gradients
+
+    dev = batch["norm_signal"].device
+    trainable = _map_tree(lambda t: t.detach().clone().requires_grad_(True), trainable)
+    local = batch if rows is None else shard_rows(batch, rows)
+    out = {}
+
+    def step_loss():
+        loss, out["bn"] = loss_fn(trainable, bn, local, torch.Generator(device=dev).manual_seed(1),
+                                  rows)
+        return loss
+
+    loss = gradients(leaves(trainable), step_loss)
+    groups = {"head": leaves(trainable["head"])}
+    for name, p in trainable["resnet"].items():
+        groups.setdefault(f"resnet {name[:2]}", []).extend(leaves(p))
+    grads = {k: torch.cat([t.grad.flatten() for t in v]).cpu() for k, v in groups.items()}
+    update = torch.cat([(a - b).flatten() for a, b in zip(leaves(out["bn"]), leaves(bn))]).cpu()
+    return loss.item(), grads, update
+
+
+def _f64(model):
+    """:func:`_ddp_merl_model`'s tuple in float64."""
+    import torch
+
+    trainable, bn, loss_fn, batch = model
+    f64 = lambda t: t.double()  # noqa: E731
+    return (_map_tree(f64, trainable), _map_tree(f64, bn), loss_fn,
+            {k: v.double() if v.is_floating_point() else v for k, v in batch.items()})
+
+
+def check_dis_step(got, want, ref, tol=DDP_F32_TOL):
+    """A two-rank pretrain step (:func:`ddp_merl_run`) against the
+    one-process step on the same global batch, in f32 (``want``) and in f64
+    (``ref``).  The forward's results, the loss and the BatchNorm update
+    (max |d| / max |one|), within ``tol`` of the one-process step's: f32
+    reduction order alone.  Each gradient group no further from f64 (|d| /
+    |f64|) than ``DDP_GRAD_RATIO`` times the one-process step's own
+    distance, plus ``tol``: the backward through ResNet-101's BatchNorm
+    layers turns f32 rounding into gradients percents apart (PERF.md,
+    section 6).  Returns the errors."""
+    import torch
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a.double() - b.double())
+                / torch.linalg.vector_norm(b.double())).item()
+
+    (loss, grads, update), (w_loss, w_grads, w_update) = got, want
+    errs = {"loss": abs(loss - w_loss) / abs(w_loss),
+            "BatchNorm update": ((update - w_update).abs().max()
+                                 / w_update.abs().max()).item()}
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    for k, r in ref[1].items():
+        got_err, own = rel(grads[k], r), rel(w_grads[k], r)
+        errs[f"gradient {k} vs f64 (one process)"] = (got_err, own)
+        if not got_err <= DDP_GRAD_RATIO * own + tol:
+            bad[f"gradient {k}"] = (got_err, own)
+    assert not bad, f"two ranks against one process, beyond the bounds: {bad}"
+    return errs
+
+
+def _timed(step, reduce, n):
+    """(ms per call of ``step``, ms per call of ``reduce``) with CUDA events:
+    ``n`` calls of each after one warm-up call of ``step``."""
+    import torch
+
+    step()
+    out = []
+    for fn in (step, reduce):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / n)
+    return tuple(out)
+
+
+def ddp_rank(root, vocab, merges, ddp, check, dev="cuda"):
+    """One rank of phase 17's harness: with ``check``, the main path's and
+    the pretrain step's forward and backward on one global batch, each
+    rank holding its rows; then, on the card, the ms of a whole train step
+    and of its gradient all-reduce (CUDA events) on the main path, and
+    with ``check`` on the pretrain and the fusion paths too (``dev="cpu"``:
+    the checks alone, for a rehearsal)."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli import pretrain
+    from ecg_byte_tpu_torch.models import fusion as F
+    from ecg_byte_tpu_torch.models.lora import leaves
+    from ecg_byte_tpu_torch.parallel import Rows, distributed
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import apply_step, create_train_state, make_train_step
+
+    timed = dev == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if timed else torch.device(dev)
+    world, rank = distributed.world(), distributed.rank()
+    out, times = {"times": {}}, {}
+    params, config, lora, batch = _ddp_lm_model(root, vocab, merges, ddp, dev)
+    rows = Rows.stride(len(batch["input_ids"]), world, rank)
+    if check:
+        out["lm"] = ddp_lm_run(params, config, lora, batch, rows)
+        trainable, bn, loss_fn, mbatch = _ddp_merl_model(root, ddp, dev)
+        out["merl"] = ddp_merl_run(trainable, bn, loss_fn, mbatch,
+                                   Rows.stride(len(mbatch["norm_signal"]), world, rank))
+        del trainable, bn, loss_fn, mbatch
+    if not timed:
+        return out
+
+    def reduce(tree):
+        return lambda: distributed.reduce_gradients_(leaves(tree), torch.zeros((), device=dev))
+
+    opt = make_optimizer(config.hidden_size, 500)
+    state = create_train_state(config, opt, torch.Generator(device=dev), peft=True, params=params,
+                               lora=lora)
+    step, gen = make_train_step(config, opt), torch.Generator().manual_seed(0)
+    local, n_valid = shard_rows(batch, rows), int((batch["labels"][:, 1:] != -100).sum())
+    times["lm"] = _timed(lambda: step(state, local, gen, rows, n_valid), reduce(state.trainable),
+                         3)
+    del params, lora, batch, state
+    torch.cuda.empty_cache()
+    if check:
+        trainable, bn, loss_fn, batch = _ddp_merl_model(root, ddp, dev)
+        rows = Rows.stride(len(batch["norm_signal"]), world, rank)
+        for t in leaves(trainable):
+            t.requires_grad_(True)
+        opt, sched = make_optimizer(256, 500).build(leaves(trainable))
+        local, state = shard_rows(batch, rows), {"bn": bn}
+        drop = torch.Generator(device=dev).manual_seed(1)
+
+        def step_loss():
+            loss, state["bn"] = loss_fn(trainable, state["bn"], local, drop, rows)
+            return loss
+
+        def pretrain_step():  # cli.pretrain's step
+            apply_step(leaves(trainable), step_loss, opt, sched, 1.0)
+
+        times["merl"] = _timed(pretrain_step, reduce(trainable), 1)
+        del trainable, bn, loss_fn, batch, opt, local, state
+        torch.cuda.empty_cache()
+        ts = dataclasses.replace(TWO_STAGE, llm=ddp.llm, tiny=ddp.tiny,
+                                 pad_to_max=ddp.finetune_pad_to_max)
+        params, config, tok, sig_id, encoders = _fusion_model(ts, dev)
+        fusion, lora = _fusion_trainable(config, encoders, 0, dev)
+        for t in leaves([params, encoders]):
+            t.requires_grad_(False)
+        trainable = {"lora": lora, "fusion": fusion}
+        for t in leaves(trainable):
+            t.requires_grad_(True)
+        opt, sched = make_optimizer(config.hidden_size, 500).build(leaves(trainable))
+        batch = _two_stage_items(root, tok, _finetune_args(ts), range(ddp.batch))
+        rows = Rows.stride(len(batch["tokenized_signal"]), world, rank)
+        count = F.label_count(batch["tokenized_signal"], batch["quantized_signal_ids_input"],
+                              sig_id)
+        local = pretrain.to_device(shard_rows(batch, rows), dev)
+
+        def fusion_step():  # cli.finetune's step
+            apply_step(leaves(trainable), lambda: F.fusion_lm_loss(
+                params, config, fusion, "resnet_model", local, sig_id, encoders=encoders,
+                lora=lora, dropout_generator=gen, rows=rows, count=count), opt, sched, 1.0)
+
+        times["fusion"] = _timed(fusion_step, reduce(trainable), 3)
+    out["times"] = times
+    return out
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """The environment torchrun gives the one rank of a one-process run (a
+    free port on localhost), set for the block."""
+    from ecg_byte_tpu_torch.cli.dist import _free_port
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def ddp_phase(root, vocab, merges, ddp=DDP, dev="cuda"):
+    """Phase 17: ``--dis`` through the port's three training CLIs on the
+    card: ``cli.main`` at W = 2 (both ranks on one card, gloo) and at W = 1
+    (NCCL), ``cli.pretrain --model resnet`` and ``cli.finetune --model
+    resnet_model`` at W = 2, each with exact launch counts per rank and
+    checkpoints written by rank 0 alone (the W = 1 run in this process,
+    from torchrun's environment); a two-rank harness whose main-path step
+    is held to the one-process step and to f32 by :func:`hold_train_paths`
+    and whose pretrain step is held to the one-process step in f32 and f64
+    by :func:`check_dis_step`; the ms of each path's step and of its
+    gradient all-reduce.  Returns the launch counts by path and the
+    numbers.  (``dev="cpu"`` with ``Ddp(llm="tiny-llama", ...,
+    tiny=True)`` rehearses it on the CPU, with ``N_TRAIN``, ``N_VAL``,
+    ``_cli_args``, ``check_launch_counts`` and ``hold_train_paths``
+    patched.)"""
+    import torch
+
+    from ecg_byte_tpu_torch.cli import finetune, pretrain
+    from ecg_byte_tpu_torch.cli import main as cli_main
+    from ecg_byte_tpu_torch.cli.common import _PRESETS
+    from ecg_byte_tpu_torch.parallel import distributed
+    from ecg_byte_tpu_torch.parallel.spawn import spawn
+
+    phase(f"17. --dis: cli.main at W = {DDP_WORLD} (one card, gloo) and W = 1 (NCCL), "
+          f"B{ddp.batch} x {ddp.pad_to_max + 4} global; cli.pretrain --model resnet at B"
+          f"{ddp.pretrain_batch}; cli.finetune --model resnet_model; the step held to one process")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cpu = dev == "cpu"
+    extra = ["--device", "cpu"] if cpu else []
+    tiny = ["--tiny", "--image_size", "32"] if ddp.tiny else []
+    L = _PRESETS[ddp.llm]().num_layers
+    two = ["--dis", "--gpus", ",".join(["0"] * DDP_WORLD), "--ports", "0"]
+    n_train, n_val = (max(1, int(n * 0.25)) for n in (N_TRAIN, N_VAL))  # --toy
+    numbers, by_path = {}, {}
+
+    def run(cli, args):
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.chdir(root):
+            out = cli.main(args + extra)
+        assert launches() == dict.fromkeys(SOURCES, 0), "this process launched a kernel"
+        return out, time.perf_counter() - t0
+
+    def lm_counts(world, rank, embeds_grad=False):
+        return dis_train_counts(L, rank_steps(n_train, ddp.batch, world, rank),
+                                rank_steps(n_val, ddp.batch, world, rank), embeds_grad)
+
+    def report(what, out, wall):
+        s = out.get("training", out)
+        numbers[f"{what}_ms_per_step_host"] = s["seconds"] / s["steps"] * 1e3
+        print(f"{what}: {s['steps']} steps, train loss {s['train_loss']}, val loss "
+              f"{s.get('val_loss')}; launches {[r['launches'] for r in out['ranks']]}; written "
+              f"{[r['written'] for r in out['ranks']]}; {numbers[f'{what}_ms_per_step_host']:.1f}"
+              f" ms a step with its data and evaluation (host clock); wall {wall:.1f} s")
+
+    main_args = _cli_args() + ["--model", ddp.llm, "--peft", "--dev", "--toy", "--batch_size",
+                               str(ddp.batch), "--pad_to_max", str(ddp.pad_to_max)]
+    out, wall = run(cli_main, main_args + two)
+    assert [r["backend"] for r in out["ranks"]] == ["gloo"] * DDP_WORLD, out["ranks"]
+    want = [{**lm_counts(DDP_WORLD, r), "bpe_match": 2, "bpe_chain": 2} for r in range(DDP_WORLD)]
+    check_dis_ranks(out, want, f"cli.main --dis, W = {DDP_WORLD}")
+    report(f"cli.main W={DDP_WORLD}", out, wall)
+    by_path["ddp_main"] = {k: sum(r["launches"][k] for r in out["ranks"]) for k in SOURCES}
+
+    # one rank over NCCL, this process the rank as torchrun starts one
+    zero_launches()
+    t0 = time.perf_counter()
+    with torchrun_env(), contextlib.chdir(root):
+        out = cli_main.main(main_args + ["--dis", "--gpus", "0"] + extra)
+    wall = time.perf_counter() - t0
+    assert out["ranks"][0]["backend"] == ("gloo" if cpu else "nccl"), out["ranks"][0]["backend"]
+    check_dis_ranks(out, [{**lm_counts(1, 0), "bpe_match": 2, "bpe_chain": 2}],
+                    "cli.main --dis, W = 1 (torchrun's environment)")
+    report("cli.main W=1", out, wall)
+    for k in SOURCES:
+        by_path["ddp_main"][k] += out["ranks"][0]["launches"][k]
+
+    t0 = time.perf_counter()
+    harness = spawn(ddp_rank, (root, vocab, merges, ddp, True, dev), world=DDP_WORLD,
+                    devices=None if cpu else [0] * DDP_WORLD, timeout_s=900)
+    with torchrun_env():
+        if not cpu:
+            torch.cuda.set_device(0)
+        distributed.init(0, 1, "gloo" if cpu else "nccl", "env://")
+        try:
+            nccl = [ddp_rank(root, vocab, merges, ddp, False, dev)]
+        finally:
+            distributed.shutdown()
+    print(f"harness: {DDP_WORLD} ranks (gloo) and 1 rank (NCCL, this process) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for path in ("lm", "merl", "fusion"):
+        for what, runs in ((f"W={DDP_WORLD} gloo", harness), ("W=1 NCCL", nccl)):
+            for r, res in enumerate(runs):
+                if path not in res["times"]:
+                    continue
+                step_ms, reduce_ms = res["times"][path]
+                numbers[f"{path}_{what}_rank{r}_ms"] = step_ms
+                numbers[f"{path}_{what}_rank{r}_allreduce_ms"] = reduce_ms
+                print(f"{path} train step, {what}, rank {r}: {step_ms:.2f} ms (CUDA events), "
+                      f"its gradient all-reduce {reduce_ms:.2f} ms = "
+                      f"{100 * reduce_ms / step_ms:.1f}% of a step")
+
+    # the main path's step: W = 2 against one process (kernels) and f32
+    params, config, lora, batch = _ddp_lm_model(root, vocab, merges, ddp, torch.device(dev))
+    one = ddp_lm_run(params, config, lora, batch)
+    with plain_path():
+        f32 = lambda t: t.float()  # noqa: E731
+        ref = ddp_lm_run(_map_tree(f32, params), config.replace(dtype="float32"),
+                         _map_tree(f32, lora), batch)
+    del params, lora
+    w2 = [res["lm"] for res in harness]
+    rows = range(len(batch["input_ids"]))
+    # global row g is rank g % W's row g // W
+    kern = (w2[0][0], *(torch.cat([w2[g % DDP_WORLD][j][g // DDP_WORLD] for g in rows])
+                        for j in (1, 2)), w2[0][3])
+    assert all(w[0] == w2[0][0] for w in w2), [w[0] for w in w2]
+    flat = [(x[0], torch.cat(x[1]), torch.cat(x[2]), x[3]) for x in (one, ref)]
+    print(f"main-path step, B{len(rows)}: W = {DDP_WORLD} loss {kern[0]:.6f}, one process "
+          f"{one[0]:.6f}, f32 {ref[0]:.6f}; W = {DDP_WORLD} against one process: " + ", ".join(
+              f"{k} {(torch.linalg.vector_norm(kern[3][k] - one[3][k]) / torch.linalg.vector_norm(one[3][k])).item():.2e}"
+              for k in one[3]))
+    print(f"errors against f32 (W = {DDP_WORLD} in the kernel path's place / one process):")
+    hold_train_paths([kern], [flat[0]], [flat[1]])
+
+    # the pretrain step: W = 2 against one process in f32 and in f64
+    model = _ddp_merl_model(root, ddp, torch.device(dev))
+    one = ddp_merl_run(*model)
+    torch.cuda.empty_cache()
+    ref = ddp_merl_run(*_f64(model))
+    del model
+    torch.cuda.empty_cache()
+    for r, res in enumerate(harness):
+        errs = check_dis_step(res["merl"], one, ref)
+        print(f"pretrain step, rank {r} of {DDP_WORLD} against one process: " + ", ".join(
+            f"{k} {e:.2e}" if isinstance(e, float) else f"{k} {e[0]:.3e} ({e[1]:.3e})"
+            for k, e in errs.items()) + f" (bounds: {DDP_F32_TOL}; {DDP_GRAD_RATIO}x + "
+            f"{DDP_F32_TOL})")
+
+    pre_args = ["--model", "resnet", "--dataset", ddp.pretrain_data, "--batch_size",
+                str(ddp.pretrain_batch), "--dev"] + tiny
+    out, wall = run(pretrain, pre_args + two)
+    check_dis_ranks(out, [{}] * DDP_WORLD, f"cli.pretrain --dis, W = {DDP_WORLD}")
+    report(f"cli.pretrain W={DDP_WORLD}", out, wall)
+
+    ft_args = ["--model", "resnet_model", "--llm", ddp.llm, "--dataset", "ptb_500", "--toy",
+               "--batch_size", str(ddp.batch), "--pad_to_max", str(ddp.finetune_pad_to_max),
+               "--dev", "--first_check", os.path.basename(out["directory"])] + tiny
+    out, wall = run(finetune, ft_args + two)
+    check_dis_ranks(out, [lm_counts(DDP_WORLD, r, embeds_grad=True) for r in range(DDP_WORLD)],
+                    f"cli.finetune --dis, W = {DDP_WORLD}")
+    report(f"cli.finetune W={DDP_WORLD}", out, wall)
+    by_path["ddp_finetune"] = {k: sum(r["launches"][k] for r in out["ranks"]) for k in SOURCES}
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {json.dumps(numbers)}; phase wall {numbers['wall_s']:.1f} s")
+    return by_path, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3714,6 +4224,8 @@ def main() -> int:
         by_path.update(pre_counts)
         two_counts, two = two_stage_phase(root)
         by_path.update(two_counts)
+        ddp_counts, ddp = ddp_phase(root, vocab, merges)
+        by_path.update(ddp_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
                 "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax"):
         assert mod not in sys.modules, f"{mod} was imported"
@@ -3748,6 +4260,10 @@ def main() -> int:
           f"(12, 2500); fusion train step {two['finetune_ms']:.2f} ms at B{TWO_STAGE.finetune_batch}"
           f" x {TWO_STAGE.pad_to_max + 2} (CUDA events); decode {two['serve_bf16_ms_per_token']:.3f}"
           f" ms/token bf16, {two['serve_int8_ms_per_token']:.3f} int8 (host clock)")
+    print(f"--dis: main-path step {ddp['lm_W=2 gloo_rank0_ms']:.2f} ms a rank at W = 2 on one "
+          f"card (all-reduce {ddp['lm_W=2 gloo_rank0_allreduce_ms']:.2f} ms), "
+          f"{ddp['lm_W=1 NCCL_rank0_ms']:.2f} ms at W = 1 over NCCL (all-reduce "
+          f"{ddp['lm_W=1 NCCL_rank0_allreduce_ms']:.2f} ms); phase 17 {ddp['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

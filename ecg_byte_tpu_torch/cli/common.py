@@ -21,6 +21,7 @@ from ecg_byte_tpu_torch.models import (
     tiny_test_config,
 )
 from ecg_byte_tpu_torch.models import transformer as T
+from ecg_byte_tpu_torch.parallel import distributed
 
 _PRESETS = {
     "meta-llama/Llama-3.2-1B": llama_3_2_1b,
@@ -41,16 +42,25 @@ _PRESETS = {
 
 # options the port does not have yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "dis": "multi-GPU (DDP), ROADMAP.md section 1, item 5",
     "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
                "the first benchmark PR)",
+    "tp": "tensor parallelism (the JAX mesh's tp axis) under --dis, ROADMAP.md section 1, "
+          "item 8",
+    "fsdp": "ZeRO-3 sharding (the JAX mesh's fsdp axis) under --dis, ROADMAP.md section 1, "
+            "item 8",
 }
+# mesh sizes: 1 is data parallelism alone, and without --dis the JAX CLI
+# leaves them unused (a one-device mesh)
+_MESH_AXES = ("tp", "fsdp")
 
 
 def refuse_unported(args) -> None:
     """Exit naming the ROADMAP.md item of a flag the port does not have yet."""
     for flag, where in NOT_PORTED.items():
-        if getattr(args, flag, None):
+        value = getattr(args, flag, None)
+        if flag in _MESH_AXES:
+            value = getattr(args, "dis", False) and value is not None and value > 1
+        if value:
             raise SystemExit(f"--{flag} is not ported yet: {where}")
 
 
@@ -101,9 +111,10 @@ def build_model(
 
 
 def make_log_fn(args):
-    """wandb logger gated on ``--log`` (project 'bpe-trans'); None when off
-    or when wandb is missing or cannot start offline."""
-    if not getattr(args, "log", False):
+    """wandb logger gated on ``--log`` (project 'bpe-trans'); None when off,
+    on a ``--dis`` rank other than 0, or when wandb is missing or cannot
+    start offline."""
+    if not getattr(args, "log", False) or not distributed.is_primary():
         return None
     try:
         import wandb

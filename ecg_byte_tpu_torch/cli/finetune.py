@@ -13,8 +13,9 @@ and quantized with ``--int8_decode`` (int8 weights and KV cache), and
 scores it over 5 seeds with ``tester(two_stage=True)``.
 
 ``--device`` defaults to the CUDA card and raises without one; ``--device
-cpu`` runs the plain path.  ``--dis`` exits naming the ROADMAP.md item
-that ports it.
+cpu`` runs the plain path.  ``--dis`` trains data-parallel as ``cli.main``
+does (``cli/dist.py``; ``--batch_size`` is the global batch); serving
+ignores it.
 
 Example:
   python -m ecg_byte_tpu_torch.cli.finetune --model resnet_model --llm llama-3.2-1b \
@@ -31,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ecg_byte_tpu_torch.cli import dist
 from ecg_byte_tpu_torch.cli.common import build_model, make_log_fn, refuse_unported, set_seed
 from ecg_byte_tpu_torch.cli.pretrain import backbone_configs, to_device
 from ecg_byte_tpu_torch.data.loader import DataLoader
@@ -42,9 +44,11 @@ from ecg_byte_tpu_torch.models import lora as lora_lib
 from ecg_byte_tpu_torch.models import resnet1d, vision
 from ecg_byte_tpu_torch.models import transformer as T
 from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
+from ecg_byte_tpu_torch.parallel import batches, distributed
 from ecg_byte_tpu_torch.tokenizer import load_vocab_and_merges
 from ecg_byte_tpu_torch.train.checkpoint import load_tree, save_tree
-from ecg_byte_tpu_torch.train.scheduler import clip_by_global_norm_, make_optimizer
+from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+from ecg_byte_tpu_torch.train.step import apply_step
 from ecg_byte_tpu_torch.utils.file_utils import (
     align_signal_text_files,
     ensure_directory_exists,
@@ -81,6 +85,9 @@ def get_args(argv=None):
                         help='the stage-1 run dir under runs/<seed>/ (cli.pretrain)')
     parser.add_argument('--log', action='store_true')
     parser.add_argument('--dis', action='store_true')
+    parser.add_argument('--gpus', type=str, default='0',
+                        help='--dis without torchrun: one rank per device listed')
+    parser.add_argument('--ports', type=str, default='12357')
     parser.add_argument('--int8_decode', action='store_true',
                         help='serve an int8 copy of the merged LLM with an int8 KV cache')
     parser.add_argument('--toy', action='store_true')
@@ -149,10 +156,19 @@ def pad_prompt(batch, pad_id: int):
 
 
 def main(argv=None):
-    """Run the CLI; training returns its summary, inference the serving
-    records and the statistical analysis."""
+    """Run the CLI; training returns its summary (under ``--dis`` rank 0's,
+    with every rank's in ``"ranks"``: ``cli/dist.launch``), inference the
+    serving records and the statistical analysis."""
     args = get_args(argv)
     refuse_unported(args)
+    if args.dis and not args.inference:
+        return dist.launch(run, args)
+    return run(args)
+
+
+def run(args):
+    """The CLI on parsed arguments, in this process (one rank under
+    ``--dis``)."""
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -264,42 +280,50 @@ def _train(args, device, llm, tokenizer, ids, encoders, trainable, data_cfg, dir
     if args.toy:
         train_signals, train_texts = sample_N_percent_from_lists(train_signals, train_texts, 0.25)
         val_signals, val_texts = sample_N_percent_from_lists(val_signals, val_texts, 0.25)
-    train_loader = DataLoader(ECGCLIPFinetune(train_signals, train_texts, tokenizer=tokenizer,
-                                              args=data_cfg),
-                              batch_size=args.batch_size, shuffle=True, seed=args.seed,
-                              pad_id=pad_id)
-    val_loader = DataLoader(ECGCLIPFinetune(val_signals, val_texts, tokenizer=tokenizer,
-                                            args=data_cfg),
-                            batch_size=args.batch_size, shuffle=False, pad_id=pad_id)
+    # under --dis each rank's loader takes its rows of every global batch
+    train_loader = batches.make_loader(
+        ECGCLIPFinetune(train_signals, train_texts, tokenizer=tokenizer, args=data_cfg),
+        args.batch_size, shuffle=True, seed=args.seed, pad_id=pad_id)
+    val_loader = batches.make_loader(
+        ECGCLIPFinetune(val_signals, val_texts, tokenizer=tokenizer, args=data_cfg),
+        args.batch_size, shuffle=False, pad_id=pad_id)
     spec = make_optimizer(llm_config.hidden_size, args.warmup, beta1=args.beta1,
                           beta2=args.beta2, eps=args.eps, weight_decay=args.weight_decay)
     optimizer, scheduler = spec.build(lora_lib.leaves(trainable))
+    distributed.broadcast_(lora_lib.leaves(trainable))  # every rank from rank 0's
     # LoRA dropout draws its per-layer seeds from this host generator
     dropout = torch.Generator().manual_seed(args.seed + 3)
 
-    def loss_fn(batch, generator):
+    def measure(batch):
+        ids = batch["tokenized_signal"]
+        return (fus.label_count(ids, batch["quantized_signal_ids_input"], sig_id),
+                int(np.asarray(ids).size))
+
+    def loss_fn(step, generator):
+        """This rank's loss (its share of the global mean under --dis), or
+        zero without rows (the dropout seeds drawn as the others draw them)."""
+        if len(step.batch["tokenized_signal"]) == 0:
+            T.dropout_seeds(llm_config, llm_config.num_layers, trainable["lora"], generator)
+            return None
         return fus.fusion_lm_loss(llm_params, llm_config, trainable["fusion"], args.model,
-                                  to_device(batch, device), sig_id, lora=trainable["lora"],
-                                  dropout_generator=generator, encoders=encoders)
+                                  to_device(step.batch, device), sig_id, lora=trainable["lora"],
+                                  dropout_generator=generator, encoders=encoders,
+                                  rows=step.rows, count=step.n_valid)
 
     ensure_directory_exists(directory_path)
     log_fn = make_log_fn(args)
     train_loss, val_loss, steps = [], [], 0
+    failed = False
     t0 = time.perf_counter()
     try:
         for epoch in range(args.epochs):
             train_loader.set_epoch(epoch)
             total, n = 0.0, 0
-            for batch in train_loader:
-                if batch is None:
+            for step in batches.steps(train_loader, measure):
+                if step is None:
                     continue
-                optimizer.zero_grad(set_to_none=True)
-                loss = loss_fn(batch, dropout)
-                loss.backward()
-                clip_by_global_norm_([t.grad for t in lora_lib.leaves(trainable)
-                                      if t.grad is not None], spec.clip_norm)
-                optimizer.step()
-                scheduler.step()
+                loss = apply_step(lora_lib.leaves(trainable), lambda: loss_fn(step, dropout),
+                                  optimizer, scheduler, spec.clip_norm)
                 total += loss.item()
                 n += 1
                 if args.dev and n >= 10:
@@ -311,10 +335,13 @@ def _train(args, device, llm, tokenizer, ids, encoders, trainable, data_cfg, dir
             print(f"Training - Epoch: {epoch+1}\nTrain Loss: {train_loss[-1]}")
             total, n = 0.0, 0
             with torch.no_grad():
-                for batch in val_loader:
-                    if batch is None:
+                for step in batches.steps(val_loader, measure):
+                    if step is None:
                         continue
-                    total += loss_fn(batch, None).item()
+                    loss = loss_fn(step, None)
+                    if loss is None:
+                        loss = torch.zeros((), device=device)
+                    total += distributed.sum_over_ranks(loss).item()
                     n += 1
                     if args.dev and n >= 10:
                         break
@@ -322,14 +349,22 @@ def _train(args, device, llm, tokenizer, ids, encoders, trainable, data_cfg, dir
             if log_fn:
                 log_fn({"val_epoch_loss": val_loss[-1], "epoch": epoch})
             print(f"Validating - Epoch: {epoch+1}\nVal Loss: {val_loss[-1]}")
-            if early_stopping(val_loss, patience=args.patience, delta=0.01):
+            # the losses are global, so the ranks agree; one all-reduced
+            # flag makes sure of it
+            if distributed.any_rank(early_stopping(val_loss, patience=args.patience,
+                                                   delta=0.01)):
                 print("Validation loss has stopped decreasing. Early stopping...")
                 break
-            if val_loss[-1] <= min(val_loss):
+            if distributed.any_rank(val_loss[-1] <= min(val_loss)):
                 save_tree(directory_path, "best_model", trainable, epoch=epoch)
                 print(f"Best model saved at epoch: {epoch+1}")
+    except BaseException:
+        failed = True
+        raise
     finally:
-        save_tree(directory_path, "crash_model", trainable, epoch=len(train_loss))
+        # a failed rank's peers may be gone: no barrier on the way out
+        save_tree(directory_path, "crash_model", trainable, epoch=len(train_loss),
+                  wait=not failed)
         print("Training Finished")
     summary = {"steps": steps, "seconds": time.perf_counter() - t0, "train_loss": train_loss,
                "val_loss": val_loss, "directory": os.path.normpath(directory_path)}

@@ -26,6 +26,13 @@ encodes each item on the host instead, with the same token streams.
 Serving encodes on the host, as the JAX CLI does.  Options the port does
 not have yet exit with the ``ROADMAP.md`` item that brings them.
 
+``--dis`` trains data-parallel (``cli/dist.py``): ``--batch_size`` is the
+global batch, each rank takes ``batch_size / world`` of its rows, and every
+step, loss, skip, early stop and checkpoint is the one process's on the
+same global batches.  Under ``torchrun`` each process is a rank; else one
+process per device of ``--gpus`` (``--gpus 0,0`` puts two ranks on one
+card, over gloo).  Serving ignores ``--dis``.
+
 Examples:
   python -m ecg_byte_tpu_torch.cli.main --model llama-3.2-1b --dataset ptb_500 \
       --tokenizer_check tokenizer_3500 --percentiles ./data/ptb_500_dataset_stats.npy \
@@ -33,6 +40,9 @@ Examples:
   python -m ecg_byte_tpu_torch.cli.main --inference --peft --model llama-3.2-1b \
       --dataset ptb_500 --tokenizer_check tokenizer_3500 \
       --percentiles ./data/ptb_500_dataset_stats.npy --checkpoint <cfg-dir-name>
+  python -m ecg_byte_tpu_torch.cli.main --dis --gpus 0,1,2,3 --model llama-3.2-1b \
+      --dataset ptb_500 --tokenizer_check tokenizer_3500 \
+      --percentiles ./data/ptb_500_dataset_stats.npy --peft --batch_size 8 --pad_to_max 1020
 """
 
 from __future__ import annotations
@@ -42,10 +52,12 @@ import json
 import os
 import signal
 import time
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ecg_byte_tpu_torch.cli import dist
 from ecg_byte_tpu_torch.cli.common import (
     build_model,
     make_log_fn,
@@ -57,8 +69,11 @@ from ecg_byte_tpu_torch.data import DataConfig, DataLoader, ECGTokenDataset
 from ecg_byte_tpu_torch.device import resolve_device
 from ecg_byte_tpu_torch.infer import greedy_generate
 from ecg_byte_tpu_torch.infer.evaluate import tester
+from ecg_byte_tpu_torch.models import lora as lora_lib
 from ecg_byte_tpu_torch.models.lora import count_params, merge_lora
 from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.batches import make_loader
 from ecg_byte_tpu_torch.tokenizer import load_vocab_and_merges
 from ecg_byte_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -163,11 +178,21 @@ def _summary(records) -> dict:
 
 
 def main(argv=None):
-    """Run the CLI.  Training returns ``{"training": summary}``; inference
-    returns the serving summary, the per-record timings and generated token
-    ids, and the statistical analysis."""
+    """Run the CLI.  Training returns ``{"training": summary}`` (under
+    ``--dis`` rank 0's, with every rank's result in ``"ranks"``: see
+    ``cli/dist.launch``); inference returns the serving summary, the
+    per-record timings and generated token ids, and the statistical
+    analysis."""
     args = get_args(argv)
     refuse_unported(args)
+    if args.dis and not args.inference:
+        return dist.launch(run, args)
+    return run(args)
+
+
+def run(args):
+    """The CLI on parsed arguments, in this process (one rank under
+    ``--dis``)."""
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -287,6 +312,13 @@ def _serve(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     return {"serving": summary, "records": records, "statistics": stats_results}
 
 
+def lm_measure(batch: Dict) -> Tuple[int, int]:
+    """A training batch's labelled next tokens (those
+    ``lm_loss_from_hidden`` counts) and its tokens."""
+    labels = np.asarray(batch["quantized_signal_ids_input"])
+    return int((labels[:, 1:] != -100).sum()), int(np.asarray(batch["tokenized_signal"]).size)
+
+
 def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     optimizer = make_optimizer(
         config.hidden_size, args.warmup, beta1=args.beta1, beta2=args.beta2,
@@ -296,6 +328,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     state = create_train_state(config, optimizer, lora_generator, peft=bool(args.peft),
                                params=params)
     del params
+    distributed.broadcast_(lora_lib.leaves(state.trainable))  # every rank from rank 0's
     print(f"Trainable parameters: {count_params(state.trainable)}")
     _install_sigterm_handler()
     directory_path = make_run_dir(args)
@@ -313,15 +346,16 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
         val_signals, val_texts = sample_N_percent_from_lists(val_signals, val_texts, 0.25)
     print(len(train_signals), len(val_signals))
     cache = not args.online_encode
-    training_loader = DataLoader(
+    # under --dis each rank's loader takes its rows of every global batch
+    training_loader = make_loader(
         ECGTokenDataset(train_signals, train_texts, vocab, merges, tokenizer=tokenizer,
                         args=data_cfg, cache_tokens=cache, device=device),
-        batch_size=args.batch_size, shuffle=True, seed=args.seed, pad_id=pad_id,
+        args.batch_size, shuffle=True, seed=args.seed, pad_id=pad_id,
     )
-    validation_loader = DataLoader(
+    validation_loader = make_loader(
         ECGTokenDataset(val_signals, val_texts, vocab, merges, tokenizer=tokenizer,
                         args=data_cfg, cache_tokens=cache, device=device),
-        batch_size=args.batch_size, shuffle=False, pad_id=pad_id,
+        args.batch_size, shuffle=False, pad_id=pad_id,
     )
     step_fn = make_train_step(config, optimizer, remat=args.remat)
     eval_fn = make_eval_step(config)
@@ -344,13 +378,15 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     # snapshot the index of the last epoch completed (start_epoch before
     # the first), and --resume starts after the recorded number, so it
     # skips an epoch where the reference does
-    last_completed = snapshot_state(state)
+    primary = distributed.is_primary()  # under --dis rank 0 alone writes
+    last_completed = snapshot_state(state) if primary else None
     last_completed_epoch = start_epoch
+    failed = False
     t0 = time.perf_counter()
     try:
         for epoch in range(start_epoch, args.epochs):
             state, train_dic = trainer(
-                state, step_fn, training_loader, rng, epoch=epoch,
+                state, step_fn, training_loader, rng, measure=lm_measure, epoch=epoch,
                 directory_path=directory_path, dev=args.dev, toy=args.toy,
                 log_fn=log_fn, desc=f"Training {args.model}",
             )
@@ -359,7 +395,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
             train_loss.append(train_dic["average_loss"])
             print(f"Training - Epoch: {epoch+1}\nTrain Loss: {train_dic['average_loss']}")
             val_dic = validater(
-                state, eval_fn, validation_loader, epoch=epoch, dev=args.dev,
+                state, eval_fn, validation_loader, measure=lm_measure, epoch=epoch, dev=args.dev,
                 log_fn=log_fn, desc=f"Validating {args.model}",
             )
             val_loss.append(val_dic["average_loss"])
@@ -367,29 +403,36 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
             if log_fn:
                 log_fn({"train_epoch_loss": train_dic["average_loss"],
                         "val_epoch_loss": val_dic["average_loss"], "epoch": epoch})
-            last_completed = snapshot_state(state)
+            if primary:
+                last_completed = snapshot_state(state)
             last_completed_epoch = epoch
-            if early_stopping(val_loss, patience=args.patience, delta=0.01):
+            # the losses are global, so the ranks agree; one all-reduced
+            # flag makes sure of it
+            if distributed.any_rank(early_stopping(val_loss, patience=args.patience,
+                                                   delta=0.01)):
                 print("Validation loss has stopped decreasing. Early stopping...")
                 break
-            if val_dic["average_loss"] <= min(val_loss):
+            if distributed.any_rank(val_dic["average_loss"] <= min(val_loss)):
                 save_checkpoint(directory_path, "best_model", state, epoch=epoch)
                 print(f"Best model saved at epoch: {epoch+1}")
             print("-----------------------------------------------------------")
     except (Exception, KeyboardInterrupt) as e:
+        failed = True
         print(f"An error occurred: {e}")
         raise
     finally:
+        # a failed rank's peers may be gone: no barrier on the way out
         source = save_crash_checkpoint(
             directory_path, state, last_completed,
-            epoch=len(train_loss), fallback_epoch=last_completed_epoch,
+            epoch=len(train_loss), fallback_epoch=last_completed_epoch, wait=not failed,
         )
-        if source == "snapshot":
+        if primary and source == "snapshot":
             print("The live state was cut mid-step; crash checkpoint saved from the "
                   f"epoch-{last_completed_epoch} snapshot")
-        elif source == "none":
+        elif primary and source == "none":
             print("WARNING: no savable state for the crash checkpoint")
-        plot_train_val_loss(train_loss, val_loss, directory_path)
+        if primary:
+            plot_train_val_loss(train_loss, val_loss, directory_path)
         print("Training Finished")
     summary = {
         "steps": steps, "seconds": time.perf_counter() - t0, "tokens": tokens,

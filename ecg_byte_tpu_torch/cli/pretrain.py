@@ -10,8 +10,10 @@ checkpoint, else the hash encoder) whose embeddings are computed on the
 run's device.  The optimizer is ``train/scheduler``'s.
 
 ``--device`` defaults to the CUDA card and raises without one; ``--device
-cpu`` runs the plain path.  ``--dis`` exits naming the ROADMAP.md item
-that ports it.
+cpu`` runs the plain path.  ``--dis`` trains data-parallel as ``cli.main``
+does (``cli/dist.py``; ``--batch_size`` is the global batch): BatchNorm
+takes the global batch's statistics and the contrastive losses see the
+global batch, so each step is one process's on the same global batch.
 
 Example:
   python -m ecg_byte_tpu_torch.cli.pretrain --model resnet --dataset ptb_500 \
@@ -28,16 +30,18 @@ import time
 import numpy as np
 import torch
 
+from ecg_byte_tpu_torch.cli import dist
 from ecg_byte_tpu_torch.cli.common import make_log_fn, refuse_unported, set_seed
-from ecg_byte_tpu_torch.data.loader import DataLoader
 from ecg_byte_tpu_torch.data.text_tokenizer import ByteTextTokenizer
 from ecg_byte_tpu_torch.data.two_stage import ECGCLIPPretrain, TwoStageConfig
 from ecg_byte_tpu_torch.device import resolve_device
 from ecg_byte_tpu_torch.models import encoders as enc
 from ecg_byte_tpu_torch.models import resnet1d, vision
 from ecg_byte_tpu_torch.models.lora import leaves
+from ecg_byte_tpu_torch.parallel import batches, distributed
 from ecg_byte_tpu_torch.train.checkpoint import save_tree
-from ecg_byte_tpu_torch.train.scheduler import clip_by_global_norm_, make_optimizer
+from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+from ecg_byte_tpu_torch.train.step import apply_step
 from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files, ensure_directory_exists
 
 
@@ -100,34 +104,35 @@ def backbone_configs(tiny: bool, image_size: int):
 def build_backbone(args, generator: torch.Generator, signal_len: int):
     """(trainable, static, loss_fn, hidden size for the Noam schedule).
 
-    ``loss_fn(trainable, static, batch, dropout_generator) -> (loss,
-    new_static)``; ``static`` is the ResNet's BatchNorm state (else {}).
-    For ``resnet`` the frozen text encoder is ``loss_fn.text_encoder``."""
+    ``loss_fn(trainable, static, batch, dropout_generator, rows=None) ->
+    (loss, new_static)``; ``static`` is the ResNet's BatchNorm state (else
+    {}); ``rows`` the rank's rows of the global batch (``--dis``).  For
+    ``resnet`` the frozen text encoder is ``loss_fn.text_encoder``."""
     device = generator.device
     vcfg, ccfg, variant = backbone_configs(args.tiny, args.image_size)
     if args.model == 'clip':
         params = vision.init_clip(generator, ccfg)
 
-        def loss_fn(p, static, batch, gen):
+        def loss_fn(p, static, batch, gen, rows=None):
             out = vision.clip_forward(p, ccfg, batch["clip_input_ids"], batch["clip_att_mask"],
-                                      batch["clip_pixel"], return_loss=True)
+                                      batch["clip_pixel"], return_loss=True, rows=rows)
             return out["loss"], static
 
         return params, {}, loss_fn, 768
     if args.model == 'vit':
         params = vision.init_vit(generator, vcfg)
 
-        def loss_fn(p, static, batch, gen):
+        def loss_fn(p, static, batch, gen, rows=None):
             return vision.vit_mim_loss(p, vcfg, batch["vit_pixel"], batch["mask"]), static
 
         return params, {}, loss_fn, vcfg.hidden_size
     if args.model == 'clip_vit':
         params = {"clip": vision.init_clip(generator, ccfg), "vit": vision.init_vit(generator, vcfg)}
 
-        def loss_fn(p, static, batch, gen):
+        def loss_fn(p, static, batch, gen, rows=None):
             clip = vision.clip_forward(p["clip"], ccfg, batch["clip_input_ids"],
                                        batch["clip_att_mask"], batch["clip_pixel"],
-                                       return_loss=True)
+                                       return_loss=True, rows=rows)
             mim = vision.vit_mim_loss(p["vit"], vcfg, batch["vit_pixel"], batch["mask"])
             return clip["loss"] + mim, static
 
@@ -142,16 +147,20 @@ def build_backbone(args, generator: torch.Generator, signal_len: int):
         text_encoder = enc.load_frozen_text_encoder(
             args.text_encoder, allow_hash_fallback=args.allow_hash_text_encoder, device=device)
 
-        def loss_fn(p, bn_state, batch, gen):
+        def loss_fn(p, bn_state, batch, gen, rows=None):
             feats, new_bn = resnet1d.resnet_forward(p["resnet"], bn_state, meta,
-                                                    batch["norm_signal"], train=True)
+                                                    batch["norm_signal"], train=True, rows=rows)
             loss, _ = enc.merl_pretrain_loss(p["head"], feats, batch["text_emb"],
-                                             dropout_generator=gen)
+                                             dropout_generator=gen, rows=rows)
             return loss, new_bn
 
         loss_fn.text_encoder = text_encoder
         return {"resnet": rp, "head": head}, rs, loss_fn, 256
     raise ValueError(args.model)
+
+
+def _no_tokens(batch):
+    return 0, 0
 
 
 def to_device(batch, device):
@@ -170,9 +179,18 @@ def to_device(batch, device):
 
 
 def main(argv=None):
-    """Run the CLI; returns the training summary."""
+    """Run the CLI; returns the training summary (under ``--dis`` rank 0's,
+    with every rank's in ``"ranks"``: ``cli/dist.launch``)."""
     args = get_args(argv)
     refuse_unported(args)
+    if args.dis:
+        return dist.launch(run, args)
+    return run(args)
+
+
+def run(args):
+    """The CLI on parsed arguments, in this process (one rank under
+    ``--dis``)."""
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -200,11 +218,12 @@ def main(argv=None):
     data_cfg = TwoStageConfig(dataset=args.dataset, model=args.model, percentiles=args.percentiles,
                               num_patches=(args.image_size // patch) ** 2,
                               image_size=args.image_size, seed=args.seed)
-    loader = DataLoader(ECGCLIPPretrain(train_signals, train_texts, tokenizer=tokenizer,
-                                        args=data_cfg),
-                        batch_size=args.batch_size, shuffle=True, seed=args.seed)
+    loader = batches.make_loader(
+        ECGCLIPPretrain(train_signals, train_texts, tokenizer=tokenizer, args=data_cfg),
+        args.batch_size, shuffle=True, seed=args.seed)
     for t in leaves(trainable):
         t.requires_grad_(True)
+    distributed.broadcast_(leaves(trainable))  # every rank from rank 0's
     spec = make_optimizer(hidden, args.warmup, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
                           weight_decay=args.weight_decay)
     optimizer, scheduler = spec.build(leaves(trainable))
@@ -215,20 +234,21 @@ def main(argv=None):
     for epoch in range(args.epochs):
         loader.set_epoch(epoch)
         total, n = 0.0, 0
-        for batch in loader:
-            if batch is None:
+        for step in batches.steps(loader, _no_tokens):
+            if step is None:
                 continue
+            batch = step.batch
             if text_encoder is not None:
                 batch["text_emb"] = text_encoder(batch.pop("resnet_input_ids"),
                                                  batch.pop("resnet_att_mask")).float()
-            batch = to_device(batch, device)
-            optimizer.zero_grad(set_to_none=True)
-            loss, static = loss_fn(trainable, static, batch, dropout)
-            loss.backward()
-            clip_by_global_norm_([t.grad for t in leaves(trainable) if t.grad is not None],
-                                 spec.clip_norm)
-            optimizer.step()
-            scheduler.step()
+            batch, out = to_device(batch, device), {}
+
+            def step_loss():
+                loss, out["static"] = loss_fn(trainable, static, batch, dropout, step.rows)
+                return loss
+
+            loss = apply_step(leaves(trainable), step_loss, optimizer, scheduler, spec.clip_norm)
+            static = out["static"]
             total += loss.item()
             n += 1
             if log_fn:

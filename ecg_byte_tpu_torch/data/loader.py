@@ -3,7 +3,9 @@
 A copy of ``ecg_byte_tpu/data/loader.py`` (importing that module runs
 ``ecg_byte_tpu/data/__init__.py``, which imports JAX).  Batches are numpy
 arrays; the caller moves them to its device.  Invalid (``None``) items are
-dropped; a fully invalid batch yields ``None``.
+dropped; a fully invalid batch yields ``None``.  ``with_kept=True`` yields
+``(batch, kept)``, ``kept`` the places in the batch's chunk of the items
+that loaded (``parallel/batches.steps`` renumbers a global batch with them).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class DataLoader:
         drop_last: bool = False,
         prefetch: bool = True,
         prefetch_depth: int = 2,
+        with_kept: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -78,6 +81,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.prefetch_depth = prefetch_depth
+        self.with_kept = with_kept
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -106,7 +110,11 @@ class DataLoader:
             if self.drop_last and len(chunk) < self.batch_size:
                 return
             items = [self.dataset[int(i)] for i in chunk]
-            yield collate(items, pad_id=self.pad_id)
+            batch = collate(items, pad_id=self.pad_id)
+            if self.with_kept:
+                yield batch, [j for j, it in enumerate(items) if it is not None]
+            else:
+                yield batch
 
     def __iter__(self):
         if not self.prefetch:

@@ -12,8 +12,13 @@ Dense weights keep PyTorch's ``(out, in)`` layout and apply with
 package's ``(in, out)`` kernels.  GELU is the tanh approximation, as
 ``jax.nn.gelu``'s default.  Dropout masks come from a ``torch.Generator``,
 so their bits differ from JAX's; with no generator there is no dropout.
-The loss is taken over the batch it is given: the global-batch gather of a
-multi-GPU run is not here yet (``ROADMAP.md``, section 1, item 5).
+
+Under ``--dis`` (``rows``: a rank's rows of the global batch) the losses
+are the JAX package's on the global batch: each rank gathers the global
+embeddings (``parallel.distributed.gather_rows``, which keeps the gradient
+of its own rows) and computes its rows of the loss, a sum over the global
+batch size, so the ranks' losses and gradients sum to one process's; the
+dropout masks are drawn for the global batch and the rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.models.resnet1d import conv1d
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.distributed import Rows
 
 Params = Dict[str, Any]
 
@@ -74,8 +81,8 @@ def attention_pool(p: Params, x: torch.Tensor, num_heads: int = 4
     x = torch.cat([cls, x], dim=1) + p["pos_embed"].to(x.dtype)
     q, k, v = F.linear(x, p["in_proj"], p["in_proj_bias"]).chunk(3, dim=-1)
     q = q[:, :1].reshape(b, 1, h, e // h)
-    k = k.reshape(b, -1, h, e // h)
-    v = v.reshape(b, -1, h, e // h)
+    k = k.reshape(b, k.shape[1], h, e // h)
+    v = v.reshape(b, v.shape[1], h, e // h)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * ((e // h) ** -0.5)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, e)
@@ -88,24 +95,37 @@ def attention_pool(p: Params, x: torch.Tensor, num_heads: int = 4
 # CLIP-style contrastive loss
 
 
-def precision_at_k(sim: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):
-    """Percent of rows whose label is among the k highest scores."""
+def _hit_counts(sim: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):
+    """Rows whose label is among the k highest scores, for each k."""
     order = torch.argsort(-sim, dim=1, stable=True)
     hits = order == labels[:, None]
-    return [hits[:, :k].any(dim=1).float().mean() * 100.0 for k in ks]
+    return [hits[:, :k].any(dim=1).float().sum() for k in ks]
 
 
-def clip_loss(x: torch.Tensor, y: torch.Tensor, temperature: float = 0.07):
-    """Symmetric InfoNCE over the batch; returns (loss, acc1, acc5)."""
+def precision_at_k(sim: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):
+    """Percent of rows whose label is among the k highest scores."""
+    return [h / sim.shape[0] * 100.0 for h in _hit_counts(sim, labels, ks)]
+
+
+def clip_loss(x: torch.Tensor, y: torch.Tensor, temperature: float = 0.07,
+              rows: Optional[Rows] = None):
+    """Symmetric InfoNCE over the global batch whose ``rows`` ``x`` and
+    ``y`` hold (None: the batch itself); returns (loss, acc1, acc5).  This
+    rank's rows of the similarity matrix and of its transpose against the
+    gathered embeddings, summed over the global batch size, so the ranks'
+    losses sum to the global batch's; the accuracies are the global
+    batch's."""
+    rows = rows if rows is not None else Rows.whole(x.shape[0])
     x, y = _l2_normalize(x), _l2_normalize(y)
-    sim = x @ y.T / temperature
-    labels = torch.arange(x.shape[0], device=x.device)
-    loss_t = F.cross_entropy(sim, labels)
-    loss_i = F.cross_entropy(sim.T, labels)
-    with torch.no_grad():
-        i2t1, i2t5 = precision_at_k(sim, labels)
-        t2i1, t2i5 = precision_at_k(sim.T, labels)
-    return loss_t + loss_i, (i2t1 + t2i1) / 2.0, (i2t5 + t2i5) / 2.0
+    labels = rows.positions(x.device)
+    sim = x @ distributed.gather_rows(y, rows).T / temperature
+    sim_t = y @ distributed.gather_rows(x, rows).T / temperature
+    loss = (F.cross_entropy(sim, labels, reduction="sum")
+            + F.cross_entropy(sim_t, labels, reduction="sum")) / rows.total
+    with torch.no_grad():  # hit counts of the rank's rows, summed over the ranks
+        hits = torch.stack(_hit_counts(sim, labels) + _hit_counts(sim_t, labels))
+        acc = distributed.sum_over_ranks(hits) / rows.total * 100.0
+    return loss, (acc[0] + acc[2]) / 2.0, (acc[1] + acc[3]) / 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -128,18 +148,23 @@ def init_merl_head(gen: torch.Generator, feature_channels: int = 2048, proj_out:
     }
 
 
-def _dropout(x, rate, gen):
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1 - rate
-    return torch.where(keep, x / (1 - rate), 0.0)
+def _dropout(x, rate, gen, rows: Optional[Rows] = None):
+    """The global batch's mask (``rows``: as in :func:`clip_loss`), this
+    batch's rows of it."""
+    rows = rows if rows is not None else Rows.whole(x.shape[0])
+    u = rows.take(torch.rand((rows.total,) + tuple(x.shape[1:]), generator=gen,
+                             device=x.device))
+    return torch.where(u < 1 - rate, x / (1 - rate), 0.0)
 
 
 def merl_pretrain_loss(head: Params, features: torch.Tensor, text_emb: torch.Tensor, *,
                        dropout_generator: Optional[torch.Generator] = None,
-                       dropout_rate: float = 0.1):
+                       dropout_rate: float = 0.1, rows: Optional[Rows] = None):
     """Cross-modal + uni-modal contrastive loss of the MERL head on ResNet
     features (B, C, L') and the frozen text embedding (B, text_dim).
     Dropout of the two uni-modal views draws from ``dropout_generator``
-    (on the features' device); None turns it off."""
+    (on the features' device); None turns it off.  ``rows``: this rank's
+    rows of the global batch (``--dis``; :func:`clip_loss`)."""
     ecg_emb = conv1d(features, head["downconv"])  # (B, 256, L')
     proj_ecg, att_map = attention_pool(head["att_pool"], ecg_emb)
     proj_ecg = _l2_normalize(proj_ecg)
@@ -148,15 +173,15 @@ def merl_pretrain_loss(head: Params, features: torch.Tensor, text_emb: torch.Ten
     e1 = F.linear(pooled, head["linear1"])
     e2 = F.linear(pooled, head["linear2"])
     if dropout_generator is not None and dropout_rate > 0:
-        e1 = _dropout(e1, dropout_rate, dropout_generator)
-        e2 = _dropout(e2, dropout_rate, dropout_generator)
+        e1 = _dropout(e1, dropout_rate, dropout_generator, rows)
+        e2 = _dropout(e2, dropout_rate, dropout_generator, rows)
 
     proj_text = F.gelu(F.linear(text_emb, head["proj_t_w1"], head["proj_t_b1"]),
                        approximate="tanh")
     proj_text = _l2_normalize(F.linear(proj_text, head["proj_t_w2"], head["proj_t_b2"]))
 
-    cma_loss, acc1, acc5 = clip_loss(proj_ecg, proj_text)
-    uma_loss, _, _ = clip_loss(e1, e2)
+    cma_loss, acc1, acc5 = clip_loss(proj_ecg, proj_text, rows=rows)
+    uma_loss, _, _ = clip_loss(e1, e2, rows=rows)
     return cma_loss + uma_loss, {"acc1": acc1, "acc5": acc5, "att_map": att_map}
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -138,14 +139,28 @@ def encoder_embedding(kind: str, fusion: Params, batch: Dict[str, torch.Tensor],
     return proj[:, None, :]
 
 
+def label_count(token_ids, labels, sig_id: int) -> int:
+    """The labelled next tokens the stage-2 loss counts, from a batch's host
+    arrays: :func:`adapt_sequence`'s training splice turns the label of the
+    slot after ``<signal>`` into ``IGNORE_INDEX``."""
+    ids, lab = np.asarray(token_ids), np.array(labels)
+    slot = (ids == sig_id).argmax(axis=-1) + 1
+    inside = slot < ids.shape[1]
+    lab[np.nonzero(inside)[0], slot[inside]] = IGNORE_INDEX
+    return int((lab[:, 1:] != IGNORE_INDEX).sum())
+
+
 def fusion_lm_loss(llm_params, llm_config, fusion: Params, kind: str,
                    batch: Dict[str, torch.Tensor], sig_id: int, *, encoders: Dict[str, Any],
                    lora=None, dropout_generator: Optional[torch.Generator] = None,
-                   remat: str = "none", chunked_loss: bool = False) -> torch.Tensor:
+                   remat: str = "none", chunked_loss: bool = False, rows=None,
+                   count=None) -> torch.Tensor:
     """Stage-2 training loss: the splice, then the causal LM on
     ``inputs_embeds``, its cross entropy through ``lm_loss_from_hidden``
-    (or ``chunked_lm_loss``).  ``dropout_generator`` and ``remat`` as in
-    ``transformer.forward``."""
+    (or ``chunked_lm_loss``).  ``dropout_generator``, ``remat`` and
+    ``rows`` as in ``transformer.forward``; ``count`` the global batch's
+    labelled tokens (``--dis``: :func:`label_count` summed over the
+    ranks), over which the loss is this batch's sum."""
     sig_embed = encoder_embedding(kind, fusion, batch, **encoders)
     token_ids = batch["tokenized_signal"]
     adapted = adapt_sequence(
@@ -156,10 +171,10 @@ def fusion_lm_loss(llm_params, llm_config, fusion: Params, kind: str,
     hidden = T.forward(
         llm_params, llm_config, None, adapted["attn_mask"], adapted["position_ids"],
         inputs_embeds=adapted["combined_embeds"], lora=lora,
-        dropout_generator=dropout_generator, remat=remat, return_hidden=True,
+        dropout_generator=dropout_generator, remat=remat, return_hidden=True, rows=rows,
     )
     loss_fn = T.chunked_lm_loss if chunked_loss else T.lm_loss_from_hidden
-    return loss_fn(llm_params, llm_config, hidden, adapted["labels"])
+    return loss_fn(llm_params, llm_config, hidden, adapted["labels"], count=count)
 
 
 @torch.inference_mode()

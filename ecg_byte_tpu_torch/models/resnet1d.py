@@ -11,10 +11,17 @@ so ``models/convert.resnet_from_jax`` only copies values.
 The BatchNorm is written out, not ``F.batch_norm``: the JAX package
 updates the running variance with the biased batch variance, torch's
 BatchNorm with the unbiased one.  The f32 convolutions run with TF32 off
-inside the call (cuDNN turns it on by default), so they compute the JAX
-package's f32 function.  ``ECG_BYTE_RESNET_BF16=1`` (or
+(cuDNN turns it on by default), in the forward and in both products of
+the backward (:func:`conv_f32`), so they compute the JAX package's f32
+function and its gradients.  ``ECG_BYTE_RESNET_BF16=1`` (or
 ``compute_dtype=torch.bfloat16``) casts both conv operands to bf16 and the
 output back to f32, as the JAX package does.
+
+Under ``--dis`` (``rows``: a rank's rows of the global batch) training
+BatchNorm takes its mean and biased variance over the global batch, as
+the JAX package's GSPMD step does: two passes, each an all-reduce of the
+per-channel sums with a gradient, so the running state and the gradients
+are one process's on the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.ops.dsp import full_f32_matmul
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.distributed import Rows
 
 Params = Dict[str, Any]
 
@@ -42,25 +51,70 @@ _DEPTHS = {
 }
 
 
+class _ConvF32(torch.autograd.Function):
+    """A convolution whose forward and both backward products run with
+    cuDNN's TF32 off.  The flag is read when a kernel launches, and
+    autograd runs the backward after the forward's block has restored the
+    process's setting, so the backward sets it again."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, padding):
+        ctx.save_for_backward(x, kernel)
+        ctx.conv = (stride, padding)
+        conv = F.conv1d if x.dim() == 3 else F.conv2d
+        with full_f32_matmul("conv"):
+            return conv(x, kernel, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        stride, padding = ctx.conv
+        one_d = x.dim() == 3
+        grad_input = torch.nn.grad.conv1d_input if one_d else torch.nn.grad.conv2d_input
+        grad_weight = torch.nn.grad.conv1d_weight if one_d else torch.nn.grad.conv2d_weight
+        dx = dk = None
+        with full_f32_matmul("conv"):
+            if ctx.needs_input_grad[0]:
+                dx = grad_input(x.shape, kernel, g, stride=stride, padding=padding)
+            if ctx.needs_input_grad[1]:
+                dk = grad_weight(x, kernel.shape, g, stride=stride, padding=padding)
+        return dx, dk, None, None
+
+
+def conv_f32(x, kernel, stride=1, padding=0):
+    """F.conv1d ((B, C, L) input) or F.conv2d ((B, C, H, W)) in full f32,
+    forward and backward."""
+    return _ConvF32.apply(x, kernel, stride, padding)
+
+
 def conv1d(x, kernel, stride=1, padding=0, compute_dtype=None):
     """1-D conv over (B, C, L).  With ``compute_dtype=torch.bfloat16`` both
     operands are cast to bf16 and the result back to x's dtype; otherwise
-    the conv runs in x's dtype with TF32 off."""
+    the conv runs in x's dtype with TF32 off (:func:`conv_f32`)."""
     if compute_dtype is not None:
         y = F.conv1d(x.to(compute_dtype), kernel.to(compute_dtype), stride=stride,
                      padding=padding)
         return y.to(x.dtype)
-    with full_f32_matmul("conv"):
-        return F.conv1d(x, kernel, stride=stride, padding=padding)
+    return conv_f32(x, kernel, stride, padding)
 
 
-def batchnorm(x, p, s, train: bool):
+def _batch_stats(x, rows: Optional[Rows]):
+    """The mean and biased variance over (B, L) of the global batch whose
+    ``rows`` ``x`` holds (None: ``x`` itself): two passes, each an
+    all-reduce of the per-channel sums."""
+    rows = rows if rows is not None else Rows.whole(x.shape[0])
+    n = rows.total * x.shape[2]
+    mean = distributed.all_reduce_sum(x.sum(dim=(0, 2))) / n
+    sq = (x - mean[None, :, None]).square().sum(dim=(0, 2))
+    return mean, distributed.all_reduce_sum(sq) / n
+
+
+def batchnorm(x, p, s, train: bool, rows: Optional[Rows] = None):
     """BatchNorm1d over (B, C, L); returns (y, new_state).  In training the
     batch mean and biased variance normalize and update the state (detached:
-    the state takes no gradient)."""
+    the state takes no gradient); with ``rows``, the global batch's."""
     if train:
-        mean = x.mean(dim=(0, 2))
-        var = (x - mean[None, :, None]).square().mean(dim=(0, 2))
+        mean, var = _batch_stats(x, rows)
         new_s = {
             "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean.detach(),
             "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * var.detach(),
@@ -127,43 +181,43 @@ def init_resnet(generator: torch.Generator, variant: str = "resnet101", in_chann
     return params, state, meta
 
 
-def _block_forward(x, p, s, stride, bottleneck, train, cd):
+def _block_forward(x, p, s, stride, bottleneck, train, cd, rows):
     new_s = {}
+
+    def bn(out, name):
+        out, new_s[name] = batchnorm(out, p[name], s[name], train, rows)
+        return out
+
     if bottleneck:
-        out = conv1d(x, p["conv1"], compute_dtype=cd)
-        out, new_s["bn1"] = batchnorm(out, p["bn1"], s["bn1"], train)
-        out = F.relu(out)
-        out = conv1d(out, p["conv2"], stride=stride, padding=1, compute_dtype=cd)
-        out, new_s["bn2"] = batchnorm(out, p["bn2"], s["bn2"], train)
-        out = F.relu(out)
-        out = conv1d(out, p["conv3"], compute_dtype=cd)
-        out, new_s["bn3"] = batchnorm(out, p["bn3"], s["bn3"], train)
+        out = F.relu(bn(conv1d(x, p["conv1"], compute_dtype=cd), "bn1"))
+        out = F.relu(bn(conv1d(out, p["conv2"], stride=stride, padding=1, compute_dtype=cd),
+                        "bn2"))
+        out = bn(conv1d(out, p["conv3"], compute_dtype=cd), "bn3")
     else:
-        out = conv1d(x, p["conv1"], stride=stride, padding=1, compute_dtype=cd)
-        out, new_s["bn1"] = batchnorm(out, p["bn1"], s["bn1"], train)
-        out = F.relu(out)
-        out = conv1d(out, p["conv2"], padding=1, compute_dtype=cd)
-        out, new_s["bn2"] = batchnorm(out, p["bn2"], s["bn2"], train)
+        out = F.relu(bn(conv1d(x, p["conv1"], stride=stride, padding=1, compute_dtype=cd),
+                        "bn1"))
+        out = bn(conv1d(out, p["conv2"], padding=1, compute_dtype=cd), "bn2")
     if "shortcut_conv" in p:
-        sc = conv1d(x, p["shortcut_conv"], stride=stride, compute_dtype=cd)
-        sc, new_s["shortcut_bn"] = batchnorm(sc, p["shortcut_bn"], s["shortcut_bn"], train)
+        sc = bn(conv1d(x, p["shortcut_conv"], stride=stride, compute_dtype=cd), "shortcut_bn")
     else:
         sc = x
     return F.relu(out + sc), new_s
 
 
 def resnet_forward(params, state, meta, x, train: bool = False,
-                   compute_dtype: Optional[torch.dtype] = None):
+                   compute_dtype: Optional[torch.dtype] = None, rows: Optional[Rows] = None):
     """x: (B, 12, L) f32 -> features (B, C_out, L'); returns (y, new_state).
     ``compute_dtype=torch.bfloat16`` casts every conv's operands to bf16;
-    ``ECG_BYTE_RESNET_BF16=1`` turns it on when the caller leaves it None."""
+    ``ECG_BYTE_RESNET_BF16=1`` turns it on when the caller leaves it None.
+    ``rows``: the rows of a global batch ``x`` holds (``--dis``), whose
+    statistics training BatchNorm takes."""
     if compute_dtype is None and os.environ.get("ECG_BYTE_RESNET_BF16") == "1":
         compute_dtype = torch.bfloat16
     new_state = {}
     out = conv1d(x, params["stem_conv"], stride=2, padding=3, compute_dtype=compute_dtype)
-    out, new_state["stem_bn"] = batchnorm(out, params["stem_bn"], state["stem_bn"], train)
+    out, new_state["stem_bn"] = batchnorm(out, params["stem_bn"], state["stem_bn"], train, rows)
     out = F.relu(out)
     for name, stride in meta["strides"]:
         out, new_state[name] = _block_forward(out, params[name], state[name], stride,
-                                              meta["bottleneck"], train, compute_dtype)
+                                              meta["bottleneck"], train, compute_dtype, rows)
     return out, new_state

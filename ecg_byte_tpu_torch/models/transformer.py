@@ -37,7 +37,7 @@ through ``ops/int8_linear``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.models.config import TransformerConfig
 from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant, rmsnorm
+from ecg_byte_tpu_torch.parallel.distributed import Rows
 
 Params = Dict[str, Any]
 
@@ -212,11 +213,16 @@ def _linear(x, p):
 
 class _Dropout:
     """Inverted LoRA dropout for one layer, from its own device generator
-    seeded with ``seed`` (None or a zero rate: no dropout)."""
+    seeded with ``seed`` (None or a zero rate: no dropout).  Each mask is
+    drawn for the whole global batch whose ``rows`` the batch holds (None:
+    the batch itself), and the batch keeps its rows of it, so a rank's
+    rows are masked as one process masks the same rows."""
 
-    def __init__(self, config: TransformerConfig, seed: Optional[int], device):
+    def __init__(self, config: TransformerConfig, seed: Optional[int], device,
+                 rows: Optional[Rows] = None):
         self.rate = config.lora_dropout
         self.style = config.lora_dropout_style
+        self.rows = rows
         self.gen = None
         if seed is not None and self.rate > 0.0:
             self.gen = torch.Generator(device=device).manual_seed(seed)
@@ -224,8 +230,10 @@ class _Dropout:
     def __call__(self, x):
         if self.gen is None:
             return x
-        keep = torch.rand(x.shape, generator=self.gen, device=x.device) < 1.0 - self.rate
-        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+        rows = self.rows if self.rows is not None else Rows.whole(x.shape[0])
+        u = rows.take(torch.rand((rows.total,) + tuple(x.shape[1:]), generator=self.gen,
+                                 device=x.device))
+        return torch.where(u < 1.0 - self.rate, x / (1.0 - self.rate), 0.0)
 
 
 def _lora_out(xa, b, config: TransformerConfig):
@@ -344,6 +352,17 @@ def make_position_ids(attn_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask == 0, 0, pos)
 
 
+def dropout_seeds(config: TransformerConfig, n: int, lora: Optional[Params],
+                  dropout_generator: Optional[torch.Generator]) -> List[Optional[int]]:
+    """The per-layer LoRA dropout seeds :func:`forward` draws from
+    ``dropout_generator`` (None each when dropout is off).  A rank with no
+    rows of a global batch calls it in the forward's place, so its
+    generator stays in step with the other ranks'."""
+    if lora is not None and dropout_generator is not None and config.lora_dropout > 0.0:
+        return torch.randint(0, 2**62, (n,), generator=dropout_generator).tolist()
+    return [None] * n
+
+
 def forward(
     params: Params,
     config: TransformerConfig,
@@ -356,6 +375,7 @@ def forward(
     dropout_generator: Optional[torch.Generator] = None,
     return_hidden: bool = False,
     remat: str = "none",
+    rows: Optional[Rows] = None,
 ) -> torch.Tensor:
     """Causal LM forward pass -> float32 logits (B, S, V).
 
@@ -374,6 +394,8 @@ def forward(
     ``remat``: ``"none"`` keeps every activation for the backward;
     ``"full"`` keeps only each layer's input and replays the layer
     (``torch.utils.checkpoint``) in the backward.
+    ``rows``: the rows of a global batch this batch holds (``--dis``):
+    dropout masks are drawn for the global batch (:class:`_Dropout`).
     """
     c = config
     if remat not in ("none", "full"):
@@ -391,13 +413,12 @@ def forward(
         return attention.causal_attention(q, k, v, attn_mask)
 
     n = len(params["layers"])
-    seeds = [None] * n
-    if lora is not None and dropout_generator is not None and c.lora_dropout > 0.0:
-        seeds = torch.randint(0, 2**62, (n,), generator=dropout_generator).tolist()
+    seeds = dropout_seeds(c, n, lora, dropout_generator)
     for layer_p, lora_p, seed in zip(params["layers"], _layer_loras(lora, n), seeds):
 
         def layer(h, layer_p=layer_p, lora_p=lora_p, seed=seed):
-            return _block(c, h, layer_p, rope, attn_fn, lora_p, _Dropout(c, seed, h.device))
+            return _block(c, h, layer_p, rope, attn_fn, lora_p,
+                          _Dropout(c, seed, h.device, rows))
 
         if remat == "full" and torch.is_grad_enabled():
             h = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
@@ -423,6 +444,15 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return total / valid.sum().clamp(min=1)
 
 
+def _count(valid: torch.Tensor, count):
+    """The loss's denominator, at least 1: the valid rows here (a device
+    tensor), or ``count`` (a global batch's, from the host: a number, so
+    no copy to the device waits for its queue)."""
+    if count is None:
+        return valid.sum().clamp(min=1)
+    return max(int(count), 1)
+
+
 class _DenseCE(torch.autograd.Function):
     """Mean cross entropy over valid rows of ``h2 @ head^T``; -100 ignored.
 
@@ -435,43 +465,45 @@ class _DenseCE(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, h2, head, labels):
+    def forward(ctx, h2, head, labels, count):
         logits = F.linear(h2, head).float()  # (M, V)
         valid = labels != -100
         safe = torch.where(valid, labels, 0).long()
         m = logits.amax(dim=-1)
         lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
         lab = logits.gather(1, safe[:, None])[:, 0]
-        count = valid.sum().clamp(min=1)
-        loss = torch.where(valid, lse - lab, 0.0).sum() / count
+        ctx.count = _count(valid, count)
+        loss = torch.where(valid, lse - lab, 0.0).sum() / ctx.count
         centered = (logits - lse[:, None]).to(torch.bfloat16)
-        ctx.save_for_backward(h2, head, centered, safe, valid, count)
+        ctx.save_for_backward(h2, head, centered, safe, valid)
         return loss
 
     @staticmethod
     def backward(ctx, gbar):
-        h2, head, centered, safe, valid, count = ctx.saved_tensors
+        h2, head, centered, safe, valid = ctx.saved_tensors
         probs = torch.exp(centered.float())
         probs[torch.arange(probs.shape[0], device=probs.device), safe] -= 1.0  # - onehot
-        coeff = torch.where(valid, gbar / count.float(), 0.0)
+        coeff = torch.where(valid, gbar / ctx.count, 0.0)
         dlogits = (probs * coeff[:, None]).to(h2.dtype)
         del probs
         dh2 = dlogits @ head
         dhead = dlogits.T @ h2 if ctx.needs_input_grad[1] else None
-        return dh2, dhead, None
+        return dh2, dhead, None, None
 
 
 def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch.Tensor,
-                        labels: torch.Tensor) -> torch.Tensor:
+                        labels: torch.Tensor, count=None) -> torch.Tensor:
     """Dense HF CausalLM loss from pre-final-norm hidden states: the value
     of ``causal_lm_loss(_unembed(hidden), labels)`` with the bf16 backward
-    of :class:`_DenseCE` (the final norm's gradient flows by autograd)."""
+    of :class:`_DenseCE` (the final norm's gradient flows by autograd).
+    ``count``: the labelled tokens of the global batch (``--dis``): the
+    loss is then this batch's sum over it."""
     c = config
     hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
     head = params["embed"] if c.tie_word_embeddings else params["lm_head"]
     d = hn.shape[-1]
     h2 = hn[:, :-1].reshape(-1, d)
-    return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1))
+    return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1), count)
 
 
 def _ce_tile(h2, head_tile, safe, lo, m_run, l_run, lab_run):
@@ -487,13 +519,13 @@ def _ce_tile(h2, head_tile, safe, lo, m_run, l_run, lab_run):
 
 
 def chunked_lm_loss(params: Params, config: TransformerConfig, hidden: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 8192) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int = 8192, count=None) -> torch.Tensor:
     """The HF CausalLM loss of ``causal_lm_loss(_unembed(hidden), labels)``
     without the (B, S, V) logits: vocabulary tiles of ``chunk`` columns, a
     running logsumexp, and the label logit picked in its tile.  Each tile
     is replayed in the backward (``torch.utils.checkpoint``), so peak
     memory is O(B * S * chunk).  Equal to the dense loss up to f32
-    logsumexp rounding."""
+    logsumexp rounding.  ``count`` as in :func:`lm_loss_from_hidden`."""
     c = config
     hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
     head = params["embed"] if c.tie_word_embeddings else params["lm_head"]  # (V, D)
@@ -508,7 +540,7 @@ def chunked_lm_loss(params: Params, config: TransformerConfig, hidden: torch.Ten
         m, l_run, lab = torch.utils.checkpoint.checkpoint(
             _ce_tile, h2, head[lo:lo + chunk], safe, lo, m, l_run, lab, use_reentrant=False)
     nll = m + torch.log(l_run) - lab
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, nll, 0.0).sum() / _count(valid, count)
 
 
 # ---------------------------------------------------------------------------

@@ -16,20 +16,28 @@ The image towers attend bidirectionally with plain torch ops (the JAX
 package's XLA ``full_attention``); the causal text tower goes through the
 plain ``ops/attention.grouped_attention``, as the JAX package opts it out
 of every Pallas kernel (``use_flash=False``).  Everything runs in f32.
+
+Under ``--dis`` (``rows``: a rank's rows of the global batch) CLIP's loss
+is the rank's rows of the global batch's loss against the gathered
+embeddings (``parallel.distributed.gather_rows``), and the masked-image
+loss the rank's sum over the global count of masked patches, so the
+ranks' losses and gradients sum to one process's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.models.bert import full_attention
-from ecg_byte_tpu_torch.ops.dsp import full_f32_matmul
+from ecg_byte_tpu_torch.models.resnet1d import conv_f32
 from ecg_byte_tpu_torch.ops.attention import grouped_attention
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.distributed import Rows
 
 Params = Dict[str, Any]
 
@@ -161,9 +169,9 @@ def init_vit(gen: torch.Generator, config: VisionConfig, device=None) -> Params:
 
 
 def _patchify_embed(p, config: VisionConfig, pixels):
-    """(B, C, H, W) -> (B, N, hidden) through the patch conv (TF32 off)."""
-    with full_f32_matmul("conv"):
-        out = F.conv2d(pixels, p["patch_embed"], stride=config.patch_size)
+    """(B, C, H, W) -> (B, N, hidden) through the patch conv (TF32 off,
+    forward and backward)."""
+    out = conv_f32(pixels, p["patch_embed"], stride=config.patch_size)
     return out.flatten(2).transpose(1, 2) + p["patch_bias"]
 
 
@@ -182,15 +190,17 @@ def vit_encode(p: Params, config: VisionConfig, pixels, bool_masked_pos=None,
 
 
 def vit_mim_loss(p: Params, config: VisionConfig, pixels, bool_masked_pos):
-    """Masked image modeling: the L1 reconstruction loss on masked patches."""
+    """Masked image modeling: the L1 reconstruction loss on masked patches,
+    this batch's sum over the global batch's count of them (``--dis``: the
+    count summed over the ranks)."""
     seq, _ = vit_encode(p, config, pixels, bool_masked_pos)
     patch_pred = F.linear(seq[:, 1:], p["decoder"], p["decoder_b"])  # (B, N, P*P*C)
     c = config
     ps, g, b = c.patch_size, c.image_size // c.patch_size, pixels.shape[0]
     target = pixels.reshape(b, c.channels, g, ps, g, ps).permute(0, 2, 4, 1, 3, 5)
-    l1 = (patch_pred - target.reshape(b, g * g, -1)).abs().mean(-1)
+    l1 = (patch_pred - target.reshape(b, g * g, patch_pred.shape[-1])).abs().mean(-1)
     mask = bool_masked_pos.float()
-    return (l1 * mask).sum() / mask.sum().clamp_min(1.0)
+    return (l1 * mask).sum() / distributed.sum_over_ranks(mask.sum()).clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -233,15 +243,23 @@ def clip_text_embeds(p, config: ClipConfig, input_ids, attention_mask):
 
 
 def clip_forward(p: Params, config: ClipConfig, input_ids, attention_mask, pixel_values,
-                 return_loss: bool = False):
-    """dict(loss, image_embeds, text_embeds), as HF ``CLIPModel``."""
+                 return_loss: bool = False, rows: Optional[Rows] = None):
+    """dict(loss, image_embeds, text_embeds), as HF ``CLIPModel``.  The
+    loss is this batch's rows of the loss of the global batch whose
+    ``rows`` it holds (None: the batch itself): its text rows against every
+    image and its image rows against every text, summed over the global
+    batch size."""
     image_embeds = clip_image_embeds(p, config, pixel_values)
     text_embeds = clip_text_embeds(p, config, input_ids, attention_mask)
     out = {"image_embeds": image_embeds, "text_embeds": text_embeds, "loss": None}
     if return_loss:
+        rows = rows if rows is not None else Rows.whole(input_ids.shape[0])
         ie = image_embeds / (torch.linalg.vector_norm(image_embeds, dim=-1, keepdim=True) + 1e-8)
         te = text_embeds / (torch.linalg.vector_norm(text_embeds, dim=-1, keepdim=True) + 1e-8)
-        logits = te @ ie.T * torch.exp(p["logit_scale"])
-        labels = torch.arange(logits.shape[0], device=logits.device)
-        out["loss"] = (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)) / 2.0
+        scale = torch.exp(p["logit_scale"])
+        labels = rows.positions(te.device)
+        logits = te @ distributed.gather_rows(ie, rows).T * scale
+        logits_t = ie @ distributed.gather_rows(te, rows).T * scale
+        out["loss"] = (F.cross_entropy(logits, labels, reduction="sum")
+                       + F.cross_entropy(logits_t, labels, reduction="sum")) / (2.0 * rows.total)
     return out

@@ -1,0 +1,9 @@
+"""Data parallelism (``--dis``): process groups, the rows of a rank and the
+collectives that make a rank's step the single-process step on the global
+batch (``parallel/distributed.py``); the global batches as steps every
+rank agrees on (``parallel/batches.py``); local ranks as spawned processes
+(``parallel/spawn.py``)."""
+
+from ecg_byte_tpu_torch.parallel.distributed import Rows
+
+__all__ = ["Rows"]

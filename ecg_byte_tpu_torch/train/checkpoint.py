@@ -19,6 +19,10 @@ file format (:func:`save_tree`, :func:`load_tree`).
 
 Loading copies the saved values into the template's own tensors, so the
 optimizer keeps pointing at the tensors it updates.
+
+Under ``--dis`` rank 0 alone writes, and the other ranks wait for it at a
+barrier (reference main.py:311-316); ``wait=False`` leaves the barrier out,
+for a save on the way out of a failed run, whose peers may be gone.
 """
 
 from __future__ import annotations
@@ -29,9 +33,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ecg_byte_tpu_torch.models.lora import leaves
+from ecg_byte_tpu_torch.parallel import distributed
 
 # the largest host snapshot taken; only a full fine-tune's state exceeds it
 SNAPSHOT_LIMIT_BYTES = 2 << 30
+# the roles this process wrote, in order (under --dis only rank 0's fill)
+written = []
 
 
 def checkpoint_path(directory: str, role: str) -> str:
@@ -80,20 +87,26 @@ def snapshot_state(state) -> Optional[HostSnapshot]:
     return HostSnapshot(_to_host(payload), mutable_only, nbytes)
 
 
-def _save(directory: str, role: str, payload, epoch: int, mutable_only: bool) -> str:
-    os.makedirs(directory, exist_ok=True)
+def _save(directory: str, role: str, payload, epoch: int, mutable_only: bool,
+          wait: bool = True) -> str:
     path = checkpoint_path(directory, role)
-    tmp = path + ".tmp"
-    torch.save({"state": payload, "epoch": int(epoch), "mutable_only": bool(mutable_only)}, tmp)
-    os.replace(tmp, path)  # never leave a half-written checkpoint
+    if distributed.is_primary():
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"state": payload, "epoch": int(epoch), "mutable_only": bool(mutable_only)},
+                   tmp)
+        os.replace(tmp, path)  # never leave a half-written checkpoint
+        written.append(role)
+    if wait:
+        distributed.barrier()
     return path
 
 
 def save_checkpoint(directory: str, role: str, state, *, epoch: int = 0,
-                    mutable_only: bool = False) -> str:
+                    mutable_only: bool = False, wait: bool = True) -> str:
     """Save the train state as ``{directory}/{role}.pt``; ``mutable_only``
     leaves the frozen base out.  Returns the path."""
-    return _save(directory, role, _payload(state, mutable_only), epoch, mutable_only)
+    return _save(directory, role, _payload(state, mutable_only), epoch, mutable_only, wait)
 
 
 def state_is_alive(state) -> bool:
@@ -103,17 +116,18 @@ def state_is_alive(state) -> bool:
 
 
 def save_crash_checkpoint(directory: str, state, fallback: Optional[HostSnapshot], *,
-                          epoch: int = 0, fallback_epoch: int = 0) -> str:
+                          epoch: int = 0, fallback_epoch: int = 0, wait: bool = True) -> str:
     """The crash save: the live state when it is whole, else ``fallback``,
     the host snapshot of the last epoch boundary.  Under LoRA training both
     carry only the mutable part.  Returns ``"live"``, ``"snapshot"`` or
     ``"none"`` (nothing savable)."""
     if state_is_alive(state):
         save_checkpoint(directory, "crash_model", state, epoch=epoch,
-                        mutable_only=state.base is not None)
+                        mutable_only=state.base is not None, wait=wait)
         return "live"
     if fallback is not None:
-        _save(directory, "crash_model", fallback.payload, fallback_epoch, fallback.mutable_only)
+        _save(directory, "crash_model", fallback.payload, fallback_epoch, fallback.mutable_only,
+              wait)
         return "snapshot"
     return "none"
 
@@ -184,10 +198,10 @@ def load_weights(directory: str, role: str, params, *, peft: bool) -> Tuple[Any,
     return params, state["trainable"]
 
 
-def save_tree(directory: str, role: str, tree, *, epoch: int = 0) -> str:
+def save_tree(directory: str, role: str, tree, *, epoch: int = 0, wait: bool = True) -> str:
     """Save a nested dict/list of tensors (a two-stage model's trainable
     part, its BatchNorm state) as ``{directory}/{role}.pt``."""
-    return _save(directory, role, tree, epoch, mutable_only=False)
+    return _save(directory, role, tree, epoch, mutable_only=False, wait=wait)
 
 
 def load_tree(directory: str, role: str, device):

@@ -10,14 +10,23 @@ host reads it once per ``log_every``-step window and once at the end.
 Two deliberate differences: no ``tqdm`` progress bar (the machine with the
 card has no tqdm), and an exception from a step propagates.  The JAX
 runner prints and skips it, which would hide a failing kernel.
+
+The batches come as the steps every rank agrees on
+(``parallel/batches.steps``, with the caller's ``measure`` of a batch's
+labelled tokens and tokens): a batch is skipped on every rank or on none,
+the step's loss is the global mean, the validation loss of a window is
+summed over the ranks before the host reads it, and the token counts are
+global, so under ``--dis`` every rank logs and returns the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.batches import steps
 from ecg_byte_tpu_torch.train.checkpoint import save_checkpoint
 
 
@@ -31,22 +40,26 @@ def model_batch(raw: Dict) -> Dict:
     }
 
 
-def _run_epoch(batches, run_fn, *, dev: bool, log_fn, log_every: int, key: str, epoch: int,
-               after_step=None):
+Measure = Callable[[Dict], Tuple[int, int]]
+
+
+def _run_epoch(dataloader, run_fn, measure: Measure, *, dev: bool, log_fn, log_every: int,
+               key: str, epoch: int, after_step=None, reduce=None):
     n_batches, dev_count, tokens = 0, 0, 0
     total_loss = 0.0  # host float, updated once per window
     window_sum, window_n = None, 0  # device accumulator
-    for step, batch in enumerate(batches):
-        if batch is None:
+    for step, item in enumerate(steps(dataloader, measure)):
+        if item is None:
             print(f"Skipping invalid batch at step {step}")
             continue
-        inputs = model_batch(batch)
-        loss = run_fn(inputs)
-        tokens += inputs["input_ids"].size
+        loss = run_fn(model_batch(item.batch), item)
+        tokens += item.tokens
         window_sum = loss if window_sum is None else window_sum + loss
         window_n += 1
         n_batches += 1
         if window_n >= log_every:
+            if reduce is not None:
+                window_sum = reduce(window_sum)
             w = window_sum.item()  # the only device -> host sync
             total_loss += w
             if log_fn is not None:
@@ -60,21 +73,22 @@ def _run_epoch(batches, run_fn, *, dev: bool, log_fn, log_every: int, key: str, 
             if dev_count == 10:
                 break
     if window_sum is not None:
-        total_loss += window_sum.item()
+        total_loss += (reduce(window_sum) if reduce is not None else window_sum).item()
     avg = total_loss / n_batches if n_batches > 0 else float("inf")
     return {"average_loss": avg, "steps": n_batches, "tokens": tokens}
 
 
-def trainer(state, step_fn: Callable, dataloader, rng, *, epoch: int,
+def trainer(state, step_fn: Callable, dataloader, rng, *, measure: Measure, epoch: int,
             directory_path: Optional[str] = None, dev: bool = False, toy: bool = False,
             log_fn: Optional[Callable] = None, desc: str = "Training", log_every: int = 32):
-    """Run one training epoch; returns ``(state, {"average_loss", "steps",
-    "tokens"})``."""
+    """Run one training epoch over ``dataloader`` (``parallel.batches.
+    make_loader``'s); returns ``(state, {"average_loss", "steps",
+    "tokens"})``.  ``step_fn(state, batch, rng, rows, n_valid)``."""
     dataloader.set_epoch(epoch)
     holder = {"state": state}
 
-    def run(batch):
-        holder["state"], loss = step_fn(holder["state"], batch, rng)
+    def run(batch, item):
+        holder["state"], loss = step_fn(holder["state"], batch, rng, item.rows, item.n_valid)
         return loss
 
     def after_step(step):
@@ -83,15 +97,19 @@ def trainer(state, step_fn: Callable, dataloader, rng, *, epoch: int,
                             holder["state"], epoch=epoch)
 
     print(f"{desc}: epoch {epoch + 1}, {len(dataloader)} batches")
-    out = _run_epoch(dataloader, run, dev=dev, log_fn=log_fn, log_every=log_every,
+    out = _run_epoch(dataloader, run, measure, dev=dev, log_fn=log_fn, log_every=log_every,
                      key="train", epoch=epoch, after_step=after_step)
     return holder["state"], out
 
 
-def validater(state, eval_fn: Callable, dataloader, *, epoch: int, dev: bool = False,
+def validater(state, eval_fn: Callable, dataloader, *, measure: Measure, epoch: int,
+              dev: bool = False,
               log_fn: Optional[Callable] = None, desc: str = "Validating",
               log_every: int = 32):
-    """Run one validation pass; returns ``{"average_loss", "steps", "tokens"}``."""
+    """Run one validation pass; returns ``{"average_loss", "steps", "tokens"}``,
+    the same on every rank.  ``eval_fn(state, batch, rows, n_valid)``."""
     print(f"{desc}: epoch {epoch + 1}, {len(dataloader)} batches")
-    return _run_epoch(dataloader, lambda batch: eval_fn(state, batch), dev=dev,
-                      log_fn=log_fn, log_every=log_every, key="val", epoch=epoch)
+    return _run_epoch(dataloader, lambda batch, item: eval_fn(state, batch, item.rows,
+                                                              item.n_valid),
+                      measure, dev=dev, log_fn=log_fn, log_every=log_every, key="val", epoch=epoch,
+                      reduce=distributed.sum_over_ranks)

@@ -4,14 +4,21 @@ One step is the reference's forward, backward, clip and Noam-scheduled Adam
 update: gradients over the trainable tree (LoRA adapters under ``peft``,
 every parameter otherwise), the loss returned as a device tensor with no
 host sync.  Under ``peft`` the base tensors have ``requires_grad=False``,
-so autograd never forms their gradients.  There is no sharding here:
-``--dis`` (DDP) is ``ROADMAP.md`` queue 1, item 12.
+so autograd never forms their gradients.
+
+Under ``--dis`` a step takes a rank's rows of the global batch
+(``rows``) and the global count of labelled tokens (``n_valid``): the
+loss is the rank's sum over that count, the gradients are summed over the
+ranks before the clip by global norm (optax's chain clips the global
+gradient), and the loss returned is the global mean.  So every rank takes
+the step one process takes on the global batch.  The tensor and FSDP
+sharding of the JAX mesh are not here (``ROADMAP.md`` section 1, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +26,8 @@ import torch
 from ecg_byte_tpu_torch.models import lora as lora_lib
 from ecg_byte_tpu_torch.models import transformer as T
 from ecg_byte_tpu_torch.models.config import TransformerConfig
+from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel.distributed import Rows
 from ecg_byte_tpu_torch.train.scheduler import OptimizerSpec, clip_by_global_norm_
 
 Params = Dict[str, Any]
@@ -85,59 +94,116 @@ def _batch_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _loss_from_batch(config, params, lora, batch, dropout_generator, remat="none"):
+def _loss_from_batch(config, params, lora, batch, dropout_generator, remat="none", rows=None,
+                     n_valid=None):
+    if batch["input_ids"].shape[0] == 0:  # a rank without rows of the global batch
+        T.dropout_seeds(config, len(params["layers"]), lora, dropout_generator)
+        return None
     hidden = T.forward(
         params, config, batch["input_ids"], batch.get("attn_mask"), batch.get("position_ids"),
         lora=lora, dropout_generator=dropout_generator, return_hidden=True, remat=remat,
+        rows=rows,
     )
-    return T.lm_loss_from_hidden(params, config, hidden, batch["labels"])
+    return T.lm_loss_from_hidden(params, config, hidden, batch["labels"], count=n_valid)
 
 
 def _device(state: TrainState):
     return lora_lib.leaves(state.trainable)[0].device
 
 
+def gradients(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional[torch.Tensor]]
+              ) -> torch.Tensor:
+    """The forward and backward of a step: each of ``trainable``'s
+    ``.grad`` becomes the gradient of ``loss_fn()``, this rank's share of
+    the global batch's loss (None: a rank without rows), summed over the
+    ranks before any clip.  Returns the loss summed over the ranks (the
+    global mean), detached."""
+    for t in trainable:
+        t.grad = None
+    loss = loss_fn()
+    if loss is None:
+        loss = torch.zeros((), device=trainable[0].device)
+    else:
+        loss.backward()
+        loss = loss.detach()
+    (loss,) = distributed.reduce_gradients_(trainable, loss)
+    return loss
+
+
+def apply_step(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional[torch.Tensor]],
+               optimizer: torch.optim.Optimizer, scheduler, clip_norm: float) -> torch.Tensor:
+    """One step of the reference's chain on ``trainable``: :func:`gradients`,
+    the clip by global norm (after the sum over the ranks, as optax clips
+    the global gradient), the optimizer and the schedule.  Returns the
+    loss (the global mean), detached."""
+    loss = gradients(trainable, loss_fn)
+    clip_by_global_norm_([t.grad for t in trainable if t.grad is not None], clip_norm)
+    optimizer.step()
+    scheduler.step()
+    return loss
+
+
 def make_train_step(config: TransformerConfig, optimizer: OptimizerSpec, *,
                     remat: str = "none") -> Callable:
-    """Build ``(state, batch, generator) -> (state, loss)``.
+    """Build ``(state, batch, generator, rows=None, n_valid=None) -> (state,
+    loss)``.
 
     ``batch`` holds ``input_ids``, ``attn_mask``, ``labels`` and
     ``position_ids`` (numpy or tensors).  ``generator`` is the CPU
     ``torch.Generator`` LoRA dropout draws its per-layer seeds from (None:
-    no dropout).  ``remat`` is ``"none"`` or ``"full"``
-    (``transformer.forward``); the JAX policies ``"slim"`` and ``"dots"``
-    name XLA primitives to save, which have no PyTorch counterpart over
-    kernels called through ctypes, so they run as ``"none"``.
+    no dropout).  ``rows`` and ``n_valid``: the rows of the global batch
+    ``batch`` holds and the global batch's labelled tokens (``--dis``;
+    None: ``batch`` is the whole batch).  ``remat`` is ``"none"`` or
+    ``"full"`` (``transformer.forward``); the JAX policies ``"slim"`` and
+    ``"dots"`` name XLA primitives to save, which have no PyTorch
+    counterpart over kernels called through ctypes, so they run as
+    ``"none"``.
     """
     if remat in ("slim", "dots"):
         print(f"remat {remat!r} is a save policy over XLA primitives; it runs as 'none' here")
         remat = "none"
 
-    def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator]):
-        batch = _batch_tensors(batch, _device(state))
-        params, lora = (state.base, state.trainable) if state.base is not None else (
-            state.trainable, None)
+    def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
+                   rows: Optional[Rows] = None, n_valid: Optional[int] = None):
         state.in_step = True
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = _loss_from_batch(config, params, lora, batch, generator, remat)
-        loss.backward()
-        grads = [t.grad for t in lora_lib.leaves(state.trainable) if t.grad is not None]
-        clip_by_global_norm_(grads, optimizer.clip_norm)
-        state.optimizer.step()
-        state.scheduler.step()
+        loss = apply_step(lora_lib.leaves(state.trainable),
+                          _step_loss(config, state, batch, generator, remat, rows, n_valid),
+                          state.optimizer, state.scheduler, optimizer.clip_norm)
         state.step += 1
         state.in_step = False
-        return state, loss.detach()
+        return state, loss
 
     return train_step
 
 
+def _step_loss(config, state: TrainState, batch: Dict, generator, remat, rows, n_valid):
+    batch = _batch_tensors(batch, _device(state))
+    params, lora = (state.base, state.trainable) if state.base is not None else (
+        state.trainable, None)
+    return lambda: _loss_from_batch(config, params, lora, batch, generator, remat, rows, n_valid)
+
+
+def compute_gradients(config: TransformerConfig, state: TrainState, batch: Dict,
+                      generator: Optional[torch.Generator], *, remat: str = "none",
+                      rows: Optional[Rows] = None, n_valid: Optional[int] = None
+                      ) -> torch.Tensor:
+    """The forward and backward of a train step (:func:`gradients`) without
+    its update; returns the loss (the global mean), detached."""
+    return gradients(lora_lib.leaves(state.trainable),
+                     _step_loss(config, state, batch, generator, remat, rows, n_valid))
+
+
 def make_eval_step(config: TransformerConfig) -> Callable:
-    """``(state, batch) -> loss``: no dropout, no gradients."""
+    """``(state, batch, rows=None, n_valid=None) -> loss``: no dropout, no
+    gradients.  Under ``--dis`` the loss is this rank's share of the global
+    mean (its sum over ``n_valid``): the caller sums it over the ranks."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: Dict):
+    def eval_step(state: TrainState, batch: Dict, rows: Optional[Rows] = None,
+                  n_valid: Optional[int] = None):
         batch = _batch_tensors(batch, _device(state))
-        return _loss_from_batch(config, state.full_params(), state.lora(), batch, None)
+        loss = _loss_from_batch(config, state.full_params(), state.lora(), batch, None,
+                                n_valid=n_valid)
+        return torch.zeros((), device=_device(state)) if loss is None else loss
 
     return eval_step

@@ -2,8 +2,8 @@
 attention forwards, of both RMSNorm kernels, of the int8 weight product, of
 the device BPE encoder's token streams and of phase 15's preprocessing (the
 chain against float64 scipy, the threshold's median, skip counts, the
-written tree, the token cache) and of phases 9 and 16's teacher-forced
-logits, on the CPU:
+written tree, the token cache), of phases 9 and 16's teacher-forced
+logits and of phase 17's two-rank steps and per-rank counts, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
@@ -975,3 +975,108 @@ def test_logits_check_refuses_faults(fault):
         match = "differ beyond the bf16 error"
     with pytest.raises(AssertionError, match=match):
         chip_smoke.hold_logits(kern, plain, ref)
+
+
+# ---------------------------------------------------------------- phase 17
+
+_DDP = dict(llm="tiny-llama", batch=4, pad_to_max=508, pretrain_data="ptb_500", pretrain_batch=6,
+            finetune_pad_to_max=510, tiny=True)
+
+
+@pytest.fixture(scope="module")
+def dis_harness(tmp_path_factory):
+    """Phase 17's two-rank harness at tiny sizes on the CPU (the real rank
+    function, two gloo ranks) and the one-process pretrain step beside it."""
+    from ecg_byte_tpu_torch.parallel.spawn import spawn
+
+    root = str(tmp_path_factory.mktemp("dis"))
+    vocab, merges = chip_smoke.make_data(root, n_train=7, n_val=3, n_test=2, seg_len=60,
+                                         num_merges=30)
+    ddp = chip_smoke.Ddp(**_DDP)
+    # the ranks import chip_smoke by name, and the rank function pickles as
+    # this module's (other test files load chip_smoke.py under that name too)
+    sys.path.insert(0, REPO)
+    sys.modules["chip_smoke"] = chip_smoke
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # a torch thread a rank
+    try:
+        ranks = spawn(chip_smoke.ddp_rank, (root, vocab, merges, ddp, True, "cpu"), world=2,
+                      timeout_s=300)
+    finally:
+        sys.path.remove(REPO)
+        if threads is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    model = chip_smoke._ddp_merl_model(root, ddp, torch.device("cpu"))
+    one = chip_smoke.ddp_merl_run(*model)
+    ref = chip_smoke.ddp_merl_run(*chip_smoke._f64(model))
+    lm = chip_smoke.ddp_lm_run(*chip_smoke._ddp_lm_model(root, vocab, merges, ddp,
+                                                          torch.device("cpu")))
+    return ranks, (one, ref), lm, model
+
+
+def test_dis_step_check_passes_two_ranks(dis_harness):
+    """Phase 17's harness on the CPU: each rank's pretrain step passes
+    check_dis_step against one process (f32 and f64), and the main path's
+    step (loss, every LoRA group) is one process's to f32 rounding."""
+    ranks, (one, ref), lm, _ = dis_harness
+    for r in ranks:
+        chip_smoke.check_dis_step(r["merl"], one, ref)
+        loss, _, _, grads = r["lm"]
+        assert abs(loss - lm[0]) <= 1e-6 * abs(lm[0])
+        for k, g in lm[3].items():
+            assert (torch.linalg.vector_norm(grads[k] - g) / torch.linalg.vector_norm(g)) < 1e-5
+    # every row's cross entropies, rank r holding global rows j * 2 + r
+    got = [ranks[g % 2]["lm"][1][g // 2] for g in range(4)]
+    assert all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in zip(got, lm[1]))
+
+
+@pytest.mark.parametrize("fault", ["gradient-over-world", "local-batchnorm"])
+def test_dis_step_check_refuses_faults(dis_harness, fault):
+    """A two-rank step whose gradients were averaged over the ranks (the
+    1/W of a contrastive loss gathered without its gradient, or a mean
+    all-reduce), or whose BatchNorm took the rank's own statistics, is
+    refused."""
+    from ecg_byte_tpu_torch.parallel import Rows
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+
+    ranks, (one, ref), _, (trainable, bn, loss_fn, batch) = dis_harness
+    loss, grads, update = ranks[0]["merl"]
+    if fault == "gradient-over-world":
+        got = (loss, {k: g / 2 for k, g in grads.items()}, update)
+        match = "gradient"
+    else:  # rank 0's rows alone, as a BatchNorm without the all-reduce sees them
+        local = chip_smoke.ddp_merl_run(trainable, bn, loss_fn,
+                                        shard_rows(batch, Rows.stride(len(batch["norm_signal"]), 2, 0)))
+        got = (loss, grads, local[2])
+        match = "BatchNorm update"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_dis_step(got, one, ref)
+
+
+def _dis_out(counts):
+    def rank(r):
+        return {"rank": r, "launches": counts[r], "training": {"steps": 4, "train_loss": [1.0],
+                                                               "val_loss": [2.0]},
+                "written": ["best_model", "crash_model"] if r == 0 else []}
+
+    return {"ranks": [rank(0), rank(1)]}
+
+
+def test_dis_rank_check_passes_and_refuses_a_launch_count_off_by_one():
+    """Phase 17's per-rank check: exact launch counts (rank 0 evaluates the
+    one validation record, rank 1 none), and rank 0 alone writing."""
+    want = [chip_smoke.dis_train_counts(16, chip_smoke.rank_steps(6, 4, 2, r),
+                                        chip_smoke.rank_steps(1, 4, 2, r)) for r in range(2)]
+    assert want[0]["prefill_attention"] == 96 and want[1]["prefill_attention"] == 64
+    assert want[0]["rmsnorm"] == 198 and want[1]["rmsnorm_bwd"] == 128
+    chip_smoke.check_dis_ranks(_dis_out([dict(w) for w in want]), want, "W = 2")
+    off = [dict(w) for w in want]
+    off[1]["prefill_attention_bwd"] += 1
+    with pytest.raises(AssertionError, match="rank 1: prefill_attention_bwd launched 65"):
+        chip_smoke.check_dis_ranks(_dis_out(off), want, "W = 2")
+    both = _dis_out([dict(w) for w in want])
+    both["ranks"][1]["written"] = ["best_model"]
+    with pytest.raises(AssertionError, match="written"):
+        chip_smoke.check_dis_ranks(both, want, "W = 2")

@@ -92,7 +92,8 @@ def test_inference_cli_on_cpu(workdir):
         # int8 serving quantizes merged weights only (the JAX CLI's rule)
         (["--device", "cpu", "--peft", "--checkpoint", "ckpt_lora", "--int8_decode",
           "--no_merge_lora"], "--int8_decode requires merged adapters; drop --no_merge_lora"),
-        (["--device", "cpu", "--dis"], "ROADMAP.md section 1, item 5"),
+        # --dis is data parallelism; the mesh's tp axis is not ported
+        (["--device", "cpu", "--dis", "--tp", "2"], "ROADMAP.md section 1, item 8"),
     ],
     ids=["no-device", "int8", "dis"],
 )

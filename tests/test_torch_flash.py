@@ -170,6 +170,18 @@ def test_dispatch_at_flash_min_seq(monkeypatch, s, want):
     assert out.shape == (1, s, 1, 8) and torch.isfinite(out).all()
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test, restored after: gradcheck's thousands
+    of tiny ops on eight threads in each of six pytest workers spend their
+    time waking threads (oversubscribed cores), not computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_flash_attention_gradcheck():
     """``FlashAttention`` passes gradcheck in f64 (no pad: a fully masked
     row's logits lose q to the -1e30 fill, so its numeric derivative is zero

@@ -298,6 +298,18 @@ def test_rmsnorm_bwd_plain_matches_pallas_vjp(rows, block_rows):
     assert rmsnorm.rmsnorm_bwd.launches == 0
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test, restored after: gradcheck's thousands
+    of tiny ops on eight threads in each of six pytest workers spend their
+    time waking threads (oversubscribed cores), not computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_autograd_functions_gradcheck():
     """Both autograd functions pass gradcheck in f64 on the CPU (no pad:
     a fully masked row's logits lose q to the -1e30 fill, so its numeric

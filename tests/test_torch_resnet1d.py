@@ -156,3 +156,59 @@ def test_f32_conv_runs_with_tf32_off_and_restores_the_flags(api):
     r = subprocess.run([sys.executable, "-c", _FLAGS, api], cwd=repo, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+_BACKWARD_FLAGS = r"""
+import sys, torch
+from ecg_byte_tpu_torch.models import resnet1d as R
+legacy = sys.argv[1] == "legacy"
+cudnn = torch.backends.cudnn
+read = (lambda: cudnn.allow_tf32) if legacy else (lambda: cudnn.conv.fp32_precision)
+if legacy:
+    cudnn.allow_tf32 = True
+else:
+    cudnn.conv.fp32_precision = "tf32"
+before, seen = read(), []
+
+def spying(fn):
+    def spy(*args, **kwargs):
+        seen.append((fn.__name__, cudnn.allow_tf32, cudnn.conv.fp32_precision))
+        return fn(*args, **kwargs)
+    return spy
+
+for name in ("conv1d_input", "conv1d_weight", "conv2d_input", "conv2d_weight"):
+    setattr(torch.nn.grad, name, spying(getattr(torch.nn.grad, name)))
+x = torch.ones(1, 2, 8, requires_grad=True)
+w = torch.ones(3, 2, 3, requires_grad=True)
+R.conv1d(x, w, padding=1).sum().backward()
+img = torch.ones(1, 3, 8, 8, requires_grad=True)
+k = torch.ones(4, 3, 4, 4, requires_grad=True)
+R.conv_f32(img, k, stride=4).sum().backward()
+assert sorted(n for n, _, _ in seen) == ["conv1d_input", "conv1d_weight", "conv2d_input",
+                                         "conv2d_weight"], seen
+assert all(a is False and p != "tf32" for _, a, p in seen), seen
+assert read() == before, read()
+# the products are the convolution's own gradients
+x2 = x.detach().requires_grad_(True)
+w2 = w.detach().requires_grad_(True)
+torch.nn.functional.conv1d(x2, w2, padding=1).sum().backward()
+assert torch.equal(x.grad, x2.grad) and torch.equal(w.grad, w2.grad)
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("api", ["legacy", "fp32_precision"])
+def test_f32_conv_backward_runs_with_tf32_off(api):
+    """Both products of the conv's backward (the ResNet's and the ViT
+    patch embedding's) run with cuDNN's TF32 off too, and give the
+    convolution's own gradients: autograd runs the backward after the
+    forward restored the process's setting."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", _BACKWARD_FLAGS, api], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

@@ -19,10 +19,12 @@ from ecg_byte_tpu.train import create_train_state as jax_create_state
 from ecg_byte_tpu.train import make_train_step as jax_make_step
 from ecg_byte_tpu.train.scheduler import make_optimizer as jax_make_optimizer
 from ecg_byte_tpu.train.scheduler import noam_schedule as jax_noam
+from ecg_byte_tpu_torch.cli.main import lm_measure
 from ecg_byte_tpu_torch.models import lora as lora_lib
 from ecg_byte_tpu_torch.models import tiny_test_config
 from ecg_byte_tpu_torch.models import transformer as T
 from ecg_byte_tpu_torch.models.convert import lora_from_jax, params_from_jax
+from ecg_byte_tpu_torch.parallel.batches import make_loader
 from ecg_byte_tpu_torch.train import checkpoint as ckpt
 from ecg_byte_tpu_torch.train.runner import trainer
 from ecg_byte_tpu_torch.train.scheduler import make_optimizer, noam_schedule
@@ -304,15 +306,23 @@ def test_load_weights_for_serving(tmp_path):
     _assert_trees_equal(params, full.trainable)
 
 
-class _Loader(list):
-    def set_epoch(self, epoch):
-        self.epoch = epoch
+class _Rows(list):
+    """A dataset of cli.main's items: the rows of each batch, two a batch;
+    a None batch is two items that fail to load."""
+
+    def __init__(self, batches):
+        super().__init__(item for b in batches for item in (b if b is not None else [None] * 2))
+
+
+def _loader(batches):
+    return make_loader(_Rows(batches), 2, prefetch=False)
 
 
 def _raw(vocab, seed):
     b = _batch(vocab, seed=seed)
-    return {"tokenized_signal": b["input_ids"], "attn_mask": b["attn_mask"],
-            "quantized_signal_ids_input": b["labels"], "position_ids": b["position_ids"]}
+    return [{"tokenized_signal": b["input_ids"][i], "attn_mask": b["attn_mask"][i],
+             "quantized_signal_ids_input": b["labels"][i], "position_ids": b["position_ids"][i]}
+            for i in range(2)]
 
 
 def test_trainer_propagates_step_errors():
@@ -320,16 +330,16 @@ def test_trainer_propagates_step_errors():
     and go on); a None batch is still skipped."""
     calls = []
 
-    def step_fn(state, batch, rng):
+    def step_fn(state, batch, rng, rows, n_valid):
         calls.append(batch["input_ids"].shape)
         if len(calls) == 2:
             raise RuntimeError("kernel failed")
         return state, torch.tensor(1.0)
 
-    loader = _Loader([None, _raw(64, 0), _raw(64, 1), _raw(64, 2)])
+    loader = _loader([None, _raw(64, 0), _raw(64, 1), _raw(64, 2)])
     with pytest.raises(RuntimeError, match="kernel failed"):
-        trainer(object(), step_fn, loader, None, epoch=3)
-    assert loader.epoch == 3 and len(calls) == 2
+        trainer(object(), step_fn, loader, None, measure=lm_measure, epoch=3)
+    assert loader._epoch == 3 and len(calls) == 2
 
 
 def test_trainer_and_eval_step_on_tiny_llama():
@@ -337,10 +347,10 @@ def test_trainer_and_eval_step_on_tiny_llama():
     the eval step leaves parameters and gradients alone."""
     pc, state = _trained_state(steps=0)
     step = make_train_step(pc, make_optimizer(pc.hidden_size, 2))
-    loader = _Loader([_raw(pc.vocab_size, i) for i in range(3)])
+    loader = _loader([_raw(pc.vocab_size, i) for i in range(3)])
     before = [t.clone() for t in lora_lib.leaves(state.trainable)]
-    state, out = trainer(state, step, loader, torch.Generator().manual_seed(0), epoch=0,
-                         log_every=2)
+    state, out = trainer(state, step, loader, torch.Generator().manual_seed(0),
+                         measure=lm_measure, epoch=0, log_every=2)
     assert out["steps"] == 3 and out["tokens"] == 3 * 2 * 24 and np.isfinite(out["average_loss"])
     assert state.step == 3
     assert any((a != b).any() for a, b in zip(before, lora_lib.leaves(state.trainable)))

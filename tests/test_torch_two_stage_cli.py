@@ -13,8 +13,9 @@ package reads its own stage-1 checkpoint.
 Held: the pretrain and finetune losses of every epoch within 1e-4
 relative (f32 through 2 epochs of Adam), the token streams of every
 ``fusion_generate`` call identical, both serving modes, and the texts the
-two CLIs score identical where both keep them.  ``--dis`` and a run without ``--device`` on a
-machine with no card are refused.
+two CLIs score identical where both keep them.  ``--dis`` with a global
+batch its two ranks cannot split, and a run without ``--device`` on a
+machine with no card, are refused.
 """
 
 import json
@@ -181,7 +182,9 @@ def test_two_stage_clis_match_jax(data, tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--device", "cpu", "--dis"], "ROADMAP.md section 1, item 5"),
+    # --batch_size is the global batch: two ranks need an even one
+    (["--device", "cpu", "--dis", "--gpus", "0,0", "--batch_size", "3"],
+     "--dis over 2 ranks needs a multiple of 2"),
     ([], "no CUDA device"),  # no --device and no card: no CPU fallback
 ], ids=["dis", "no-device"])
 @pytest.mark.parametrize("cli", ["pretrain", "finetune"])
