@@ -22,7 +22,10 @@ Phases, each printing its own lines, in the order they run:
    ragged S = 4000.  All four attention kernels (tensor-core kernels)
    print each row's rate; the resident ones also run at B4 S1024 with 300
    left-pad positions, at D 128 and with gpt2's heads at S 1040 (rows past
-   S), the backward at S 3072 too.  Both forwards are held by
+   S), the backward at S 3072 too, and both through the padding of
+   ``attention.resident_padded`` at B4 S1004 (cli.main's default
+   --pad_to_max 1000) and S504, against plain at the unpadded S.  Both
+   forwards are held by
    check_resident_fwd and check_flash_fwd, and at the two training shapes
    a second call of each attention kernel must equal the first
    (torch.equal).  Decode attention (check_decode) also over the long
@@ -58,7 +61,11 @@ Phases, each printing its own lines, in the order they run:
    table rows staged, exactly (check_match).  The chain kernel also on
    adversarial rows (chain_rows: lengths all 1, all 2, all max_len, <= 0
    and past max_len, N = 1, N below the block, a ragged last segment, one
-   record past the shared-memory stage), exactly.
+   record past the shared-memory stage), exactly, also at max_len 300 and
+   1,024 (its 16-bit stage) and 1,100 (its one-thread walk); and a
+   vocabulary whose flat-lead tokens reach a^300 (flat_lead_merges) on
+   records with flat runs past 300 symbols: the device encoder equals the
+   host trie exactly.
 6. Train: ``ecg_byte_tpu_torch.cli.main`` trains a random Llama-3.2-1B at
    full width with LoRA (``--peft --dev``, batch 4 x 1024) on ``ptb_500``,
    its records encoded once into the device token cache; exact launch
@@ -152,6 +159,22 @@ Phases, each printing its own lines, in the order they run:
     step's distance from it).  Then each path's step (main, pretrain,
     fusion) and its gradient all-reduce timed with CUDA events, at W = 2
     and (the main path) at W = 1 over NCCL.
+
+18. ``cli.main --peft --dev`` at its default ``--pad_to_max 1000`` (S
+    1004: the resident kernels through the padding), exact launch counts,
+    and its train step held to the plain path and f32 as phase 7 holds
+    phase 6's; ``cli.interp_analysis`` on phase 6's checkpoint at
+    ``--pad_to_max 1020`` (S 1024) from the device token cache, exact
+    launch counts, the streamed layer and head mean held to the eager
+    stack's, its rows and pad columns (check_attention_mean) and the kernel
+    path's mean to 1.25x the plain path's distance from f32, ms a record
+    and peak memory; ``translate_reports`` on 64 German sentences with a
+    size-exact random opus-mt-de-en directory (write_random_marian: 73.9M
+    f32 parameters), held to the port's CPU run of the same directory
+    (check_marian_streams: teacher-forced logits within MARIAN_TOL, greedy
+    streams equal up to a near tie), sentences/s and ms a decode step;
+    ``cli.token_distribution`` and ``cli.track_bpe_encoding`` on the
+    ptb_500 files, without matplotlib.
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
@@ -714,6 +737,35 @@ def chain_rows(gen, max_len, device, n=6000, long_n=40_001, threads=512):
                                       dtype=torch.int32)) for label, ln in rows]
 
 
+FLAT_MAX_LEN = 300  # the flat-lead vocabulary's longest token: past a byte's lengths
+
+
+def flat_lead_merges(merges, max_len=FLAT_MAX_LEN):
+    """``merges`` and the tokens a flat lead merges into: runs of 'a' of 2,
+    4, ..., 256 symbols and one of ``max_len``, with ids after the last."""
+    nid = max(i for _, i in merges) + 1
+    runs = [2 ** k for k in range(1, 9) if 2 ** k < max_len] + [max_len]
+    return list(merges) + [([97] * r, nid + j) for j, r in enumerate(runs)]
+
+
+def flat_lead_records(gen, b, n, max_len=FLAT_MAX_LEN):
+    """(b, n) uint8 symbols on the CPU: random ones, each record holding flat
+    runs of symbol 0 ('a') of 1 to 2.5 ``max_len`` symbols (one of exactly
+    ``max_len``), as a flat lead reads after quantization."""
+    import torch
+
+    q = torch.randint(1, 26, (b, n), generator=gen, dtype=torch.uint8)
+    for r in range(b):
+        p = int(torch.randint(0, 50, (1,), generator=gen))
+        first = True
+        while p < n:
+            run = max_len if first else int(torch.randint(1, 5 * max_len // 2, (1,), generator=gen))
+            q[r, p: p + run] = 0
+            p += run + int(torch.randint(20, 200, (1,), generator=gen))
+            first = False
+    return q
+
+
 def match_rows(rng, merges):
     """The match kernel's adversarial rows, each ``(label, q, merges,
     budget)``: q (B, N) uint8 symbols (numpy, from ``rng``), the vocabulary
@@ -1122,6 +1174,8 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
         record("prefill_attention_bwd", [b, s, h, kh, d], err, times, 10 * d * pairs, nbytes,
                main=main, left_pad=pad, tflops=round(10 * d * pairs / times[0] / 1e9, 1))
 
+    padded_checks(record, dev, randn)
+
     # K2: (B, S_max, H, KH, D), the left padding of row 0, the slots filled
     # and the split counts forced beside the kernel's own choice ("max": one
     # range a tile).  The long rows are the long serving path's cache (its
@@ -1232,6 +1286,68 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     bpe_checks(record, dev, f"{BIG['name']}, {BIG['num_merges']} merges", big, big_p1, big_p99,
                big_merges, main=False, iters=(10, 1, 1))
     return report
+
+
+def padded_checks(record, dev, randn):
+    """The resident kernels through ``attention.resident_padded``, as the
+    model runs them where S is not a multiple of 16: B4 32/8 D64 with 37
+    left-pad positions at S 1004 (cli.main's default --pad_to_max 1000) and
+    S 504 (--pad_to_max 500).  The forward held by check_resident_fwd and
+    the backward (autograd through the padding) by check_attention_bwd,
+    each against the plain version at the unpadded S; both timed with the
+    padding's copies, against plain and SDPA at the unpadded S, and the
+    bound counted at the unpadded S."""
+    import torch
+    import torch.nn.functional as F
+
+    from ecg_byte_tpu_torch.ops import attention, attention_resident
+
+    b, h, kh, d, pad = 4, 32, 8, 64, 37
+    for s in (1004, 504):
+        shape = [b, s, h, kh, d]
+        qg, k, v = randn(b, s, kh, h // kh, d), randn(b, s, kh, d), randn(b, s, kh, d)
+        mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+        mask[:, :pad] = 0
+        pairs = (mask * mask.cumsum(-1)).sum().item() * h
+        padded = s + (-s % attention.RESIDENT_SEQ_TILE)
+        q4, k4, v4, bmask = sdpa_inputs(qg, k, v, mask)
+        with torch.inference_mode():
+            got = attention.resident_padded(qg, k, v, mask)
+            want = attention.grouped_attention(qg, k, v, mask)
+            torch.cuda.synchronize()
+            err = check_resident_fwd(got, want, mask, shape + ["padded"])
+            times = time_in_turns([
+                lambda: attention.resident_padded(qg, k, v, mask),
+                lambda: attention.grouped_attention(qg, k, v, mask),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bmask,
+                                                       enable_gqa=True),
+            ], [20, 4, 20])
+        nbytes = 2 * (2 * qg.numel() + k.numel() + v.numel()) + 4 * mask.numel()
+        record("prefill_attention", shape, err, times, 4 * d * pairs, nbytes, main=False,
+               left_pad=pad, padded_to=padded, tflops=round(4 * d * pairs / times[0] / 1e9, 1))
+
+        leaves = [t.detach().requires_grad_(True) for t in (qg, k, v)]
+        out = attention.resident_padded(*leaves, mask)
+        gout = randn(*qg.shape) * mask[:, :, None, None, None].to(torch.bfloat16)
+        got = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+        with torch.no_grad():
+            want = attention_resident.resident_attention_bwd_plain(qg, k, v, mask, out.detach(),
+                                                                   gout)
+            torch.cuda.synchronize()
+            err = check_attention_bwd(got, want, shape + ["padded"])
+        l4 = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+        lib_out = F.scaled_dot_product_attention(*l4, attn_mask=bmask, enable_gqa=True)
+        g4 = gout.reshape(b, s, h, d).transpose(1, 2).contiguous()
+        times = time_in_turns([
+            lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
+            lambda: attention_resident.resident_attention_bwd_plain(qg, k, v, mask, out.detach(),
+                                                                    gout),
+            lambda: torch.autograd.grad(lib_out, l4, g4, retain_graph=True),
+        ], 4)
+        del lib_out, out, q4, k4, v4, bmask
+        nbytes = 2 * (4 * qg.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * mask.numel()
+        record("prefill_attention_bwd", shape, err, times, 10 * d * pairs, nbytes, main=False,
+               left_pad=pad, padded_to=padded, tflops=round(10 * d * pairs / times[0] / 1e9, 1))
 
 
 def decode_row(record, name, shape, forced, q, kc, vc, mask, library, k_scale=None,
@@ -1594,16 +1710,19 @@ def flash_checks(record, dev, randn, serve_prompt):
 def chain_checks(record, dev, max_len):
     """The chain kernel on :func:`chain_rows`' adversarial rows (with the
     main path's ``max_len``, and the first three also at max_len 64, 128
-    and 255: the kernel's instances for longer tokens): each must equal the
-    plain chain and ``_compact`` exactly; timed in turns with the plain
-    version, and on the device (CUDA graphs)."""
+    and 255, the byte stage's instances for longer tokens, at 300 and
+    CHAIN_WIDE_MAX_LEN, its 16-bit stage's, and past it, the one-thread
+    walk): each must equal the plain chain and ``_compact`` exactly; timed
+    in turns with the plain version, and on the device (CUDA graphs)."""
     import torch
 
     from ecg_byte_tpu_torch.ops import bpe_match
 
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [(max_len, row) for row in chain_rows(gen, max_len, dev)]
-    cases += [(w, row) for w in (64, 128, 255) for row in chain_rows(gen, w, dev)[:3]]
+    wide = bpe_match.CHAIN_WIDE_MAX_LEN
+    cases += [(w, row) for w in (64, 128, 255, FLAT_MAX_LEN, wide, wide + 76)
+              for row in chain_rows(gen, w, dev)[:3]]
     for w, (label, ln, tok) in cases:
         got = bpe_match.greedy_chain(ln, tok, w)
         want = _chain_plain(ln, tok, w)
@@ -1617,8 +1736,43 @@ def chain_checks(record, dev, max_len):
                False, row=label, max_len=w,
                tokens_per_record=round(want[2].float().mean().item(), 1),
                device_ms=time_graphed([kernel])[0])
-    print(f"  bpe_chain: every adversarial row (max_len {max_len}, and 64, 128, 255) equals the "
-          "plain chain and _compact exactly")
+    print(f"  bpe_chain: every adversarial row (max_len {max_len}, and 64, 128, 255, "
+          f"{FLAT_MAX_LEN}, {wide}, {wide + 76}) equals the plain chain and _compact exactly")
+
+
+def flat_lead_checks(record, dev, merges):
+    """A vocabulary whose flat-lead tokens reach a^FLAT_MAX_LEN
+    (:func:`flat_lead_merges` over ``merges``) on 64 records of 6,000
+    symbols with flat runs past it (:func:`flat_lead_records`): the device
+    encoder (the match kernel, then the chain kernel's 16-bit stage) equals
+    the host C++ trie exactly, record by record; the chain timed in turns
+    with its plain version, and on the device."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops import bpe_encode, bpe_match
+    from ecg_byte_tpu_torch.tokenizer import native
+
+    vocab = flat_lead_merges(merges)
+    table = bpe_encode.build_automaton(vocab, dev)
+    assert table.max_len == FLAT_MAX_LEN > bpe_match.CHAIN_MAX_LEN, table.max_len
+    q_cpu = flat_lead_records(torch.Generator().manual_seed(4), CACHE_BATCH, 6000)
+    q = q_cpu.to(dev)
+    ids, counts = bpe_encode.encode(q, table)
+    enc = native.NativeEncoder(vocab)
+    want = [enc.encode(bytes((row + 97).tolist())).tolist() for row in q_cpu]
+    check_streams(ids, counts, want, f"flat leads, max_len {FLAT_MAX_LEN}")
+    tok, ln = bpe_match.longest_match(q, table)
+    assert int(ln.max()) == FLAT_MAX_LEN
+    times = time_in_turns([lambda: bpe_match.greedy_chain(ln, tok, table.max_len),
+                           lambda: _chain_plain(ln, tok, table.max_len)], [20, 1])
+    b, n = q.shape
+    record("bpe_chain", [b, n], 0.0, (*times, None), 0, 8 * b * n + b * n + 4 * b * n + 4 * b,
+           False, row="flat leads, encoded as the host trie", max_len=FLAT_MAX_LEN,
+           tokens_per_record=round(counts.float().mean().item(), 1),
+           device_ms=time_graphed([lambda: bpe_match.greedy_chain(ln, tok, table.max_len)])[0])
+    print(f"  flat leads: {b} records of {n} symbols, longest token {FLAT_MAX_LEN}: the device "
+          f"encoder (16-bit chain stage) equals the host trie on every record "
+          f"({int(counts.sum())} tokens)")
 
 
 def match_checks(dev, merges):
@@ -1733,6 +1887,7 @@ def bpe_checks(record, dev, label, signals, p1, p99, merges, main, iters):
     if main:
         match_checks(dev, merges)
         chain_checks(record, dev, table.max_len)
+        flat_lead_checks(record, dev, merges)
 
 
 def train_phase(root, vocab, merges):
@@ -2238,7 +2393,7 @@ def decode_device_time(run, params, config, s, label, steps=16):
                                   for e in first[3]))
 
 
-def train_paths_phase(root, vocab, merges, check):
+def train_paths_phase(root, vocab, merges, check, model=MODEL, dev="cuda"):
     """Loss and LoRA gradients of ``check.items`` training items (S =
     pad_to_max + 4), each with its own draw of LoRA B, with the kernels,
     with the plain versions and in f32; the kernel path must be no further
@@ -2264,9 +2419,10 @@ def train_paths_phase(root, vocab, merges, check):
 
     phase(check.title)
     s = check.pad_to_max + 4
-    torch.cuda.empty_cache()
-    dev = torch.device("cuda")
-    params, config, tok = build_model(MODEL, vocab, dev)
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params, config, tok = build_model(model, vocab, dev)
     items = _batch_tensors(_training_items(root, vocab, merges, tok, check.items,
                                            check.pad_to_max), dev)
     assert items["input_ids"].shape == (check.items, s), items["input_ids"].shape
@@ -2313,7 +2469,8 @@ def train_paths_phase(root, vocab, merges, check):
                for lora, batch in zip(loras, batches)]
         del params32
     after = launches()
-    assert all(mid[k] > before[k] for k in check.kernels), (before, mid)
+    if dev.type == "cuda":  # the plain versions count nothing
+        assert all(mid[k] > before[k] for k in check.kernels), (before, mid)
     assert all(mid[k] == before[k] for k in SOURCES if k not in check.kernels), (before, mid)
     assert after == mid, "the plain runs launched a kernel"
     print(f"{check.items} items at B1 x {s}, each with its own LoRA B; errors against f32:")
@@ -3625,7 +3782,8 @@ def two_stage_phase(root, ts=TWO_STAGE, dev="cuda"):
         for r in recs:
             toks = r["tokens"]
             assert toks.shape == (1, 128) and toks.min() >= 0, toks.shape
-            assert r["prompt_len"] % 64 == 0, r["prompt_len"]  # the spliced prompt
+            # the prompt padded to 64k positions, as the JAX CLI pads it; spliced, 64k + 1
+            assert r["prompt_len"] % 64 == 1, r["prompt_len"]
         key = "int8" if int8 else "bf16"
         numbers[f"serve_{key}_ms_per_token"] = 1e3 * sum(r["decode_s"] for r in recs) / dsteps
         numbers[f"serve_{key}_prefill_ms"] = 1e3 * sum(r["prefill_s"] for r in recs) / prefills
@@ -4181,6 +4339,364 @@ def ddp_phase(root, vocab, merges, ddp=DDP, dev="cuda"):
     return by_path, numbers
 
 
+# ------------------------------------------- phase 18: interpretation, translation, analysis
+
+# Helsinki-NLP/opus-mt-de-en's published config: 73.9M stored parameters (295.8 MB
+# of f32), the Marian translation model of the PTB-XL preprocessing
+OPUS_MT_DE_EN = dict(vocab_size=58101, d_model=512, encoder_layers=6, decoder_layers=6,
+                     num_heads=8, ffn_dim=2048, activation="swish", max_position_embeddings=512,
+                     pad_token_id=58100, eos_token_id=0, decoder_start_token_id=58100)
+# the translation on the card against the port's CPU run of the same
+# directory: teacher-forced f32 logits within MARIAN_TOL of the largest
+# |logit| (f32 on both, TF32 off; sums in another order through 12 layers)
+MARIAN_TOL = 1e-4
+# the layer and head mean of the interpretation: the streamed mean against
+# the eager stack's mean (f32 sums in another order: the JAX package's
+# bound, tests/test_interpret.py); each valid row's sum within one bf16 ulp
+# of 1 (each probability rounded to bf16 after an exact f32 softmax)
+MEAN_TOL = 2e-6
+ROW_SUM_TOL = 2.0 ** -8
+
+
+@dataclasses.dataclass(frozen=True)
+class Slice:
+    """The sizes of phase 18: full width on the card (the defaults), tiny
+    for a rehearsal on the CPU."""
+
+    model: str = MODEL
+    batch: int = 4  # cli.main --dev at its default --pad_to_max 1000: S 1004
+    interp_pad_to_max: int = 1020  # cli.interp_analysis's default: S 1024
+    marian: tuple = tuple(OPUS_MT_DE_EN.items())
+    sentences: int = 64  # two batches of translate_reports' 32
+    # items of the train-step check at S 1004: one batch of the CLI's 4, as
+    # phase 7 (the pooled cross entropy's ratio to plain spreads with fewer:
+    # 1.00 and 1.27 over two items at S 1024 and 1004, 1.15 and 1.18 over
+    # four, NVIDIA H100 80GB HBM3 at 700 W, PERF.md)
+    check_items: int = 4
+
+
+SLICE = Slice()
+
+_RHYTHMS = ("Sinusrhythmus", "Sinusbradykardie", "Sinustachykardie", "Vorhofflimmern")
+_AXES = ("Linkstyp", "Steiltyp", "Indifferenztyp", "überdrehter Linkstyp")
+_FINDINGS = ("normales EKG", "unvollständiger Rechtsschenkelblock", "linksanteriorer Hemiblock",
+             "periphere Niedervoltage", "ST-Senkung in V5 und V6", "T-Negativierung in III",
+             "AV-Block I. Grades", "ventrikuläre Extrasystolen", "Q-Zacken in II, III und aVF")
+
+
+def german_reports(n):
+    """``n`` PTB-XL-style German report sentences."""
+    return [f"{_RHYTHMS[i % 4]}, {_AXES[i // 4 % 4]}, {_FINDINGS[i % 9]}"
+            + (f", {_FINDINGS[(i + 4) % 9]}." if i % 3 else ".") for i in range(n)]
+
+
+def write_random_marian(out_dir, texts, widths=OPUS_MT_DE_EN, seed=0):
+    """A random opus-mt-style directory: ``config.json`` and
+    ``model.safetensors`` (f32, HF's init std 0.02, written by the port's
+    ``save_hf_marian``), a unigram ``source.spm`` (the port's ``write_spm``)
+    holding every word and character of ``texts`` and a ``vocab.json`` of
+    the model's vocabulary size.  Returns (config, tensor bytes written)."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import marian
+    from ecg_byte_tpu_torch.tokenizer import sp_model
+
+    config = marian.MarianConfig(**dict(widths))
+    params = marian.init_params(config, torch.Generator().manual_seed(seed))
+    nbytes = marian.save_hf_marian(params, config, out_dir)
+    words = sorted({w for t in texts for w in t.split()})
+    chars = sorted({c for t in texts for c in t if not c.isspace()})
+    pieces = [("<unk>", 0.0), ("▁", -2.0)] + [("▁" + w, -1.0) for w in words]
+    pieces += [(c, -3.0) for c in chars]
+    sp_model.write_spm(os.path.join(out_dir, "source.spm"), pieces)
+    vocab = {"</s>": config.eos_token_id, "<pad>": config.pad_token_id}
+    taken = set(vocab.values())
+    free = (i for i in range(config.vocab_size) if i not in taken)
+    for piece, _ in pieces:
+        vocab[piece] = next(free)
+    for i, tid in enumerate(free):
+        vocab[f"▁t{i}"] = tid
+    with open(os.path.join(out_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    return config, nbytes
+
+
+def check_attention_mean(mean, stack_mean, mask, what):
+    """Hold the streamed layer and head mean (B, S, S) to the eager stack's
+    mean within MEAN_TOL; on every valid query row, each row sums to 1
+    within ROW_SUM_TOL and its pad columns are 0 exactly (the causal future
+    too).  Returns the largest |d|."""
+    import torch
+
+    d = (mean - stack_mean).abs().max().item()
+    assert d <= MEAN_TOL, f"{what}: streamed mean {d:.3e} from the eager stack's mean"
+    valid = mask.bool()
+    rows = mean[valid]  # (valid rows, S)
+    sums = (rows.double().sum(-1) - 1).abs().max().item()
+    assert sums <= ROW_SUM_TOL, f"{what}: a valid row sums to 1 +- {sums:.3e}"
+    b, s = mask.shape
+    future = torch.ones(s, s, dtype=torch.bool, device=mean.device).triu(1)
+    masked = (~valid[:, None, :] | future[None]) & valid[:, :, None]
+    assert (mean[masked] == 0).all(), f"{what}: a valid row attends a pad or future column"
+    return d, sums
+
+
+def check_marian_streams(tokens, card, cpu, eos, pad, tol=MARIAN_TOL):
+    """Hold the card's greedy ``tokens`` (B, T) and its teacher-forced f32
+    logits ``card`` (B, T - 1, V) to the CPU's ``cpu``: the logits within
+    ``tol`` of max|cpu|; each row's next token is the CPU's argmax (the pad
+    token banned, as greedy decoding bans it) at every step up to its eos,
+    or up to the first step whose CPU top-2 margin is under twice that
+    bound (a near tie that the sums' order may decide).  Returns (max|d|,
+    bound, steps held, rows cut at a near tie)."""
+    import torch
+
+    d = (card - cpu).abs().max().item()
+    bound = tol * cpu.abs().max().item()
+    assert d <= bound, f"translation logits: max|d| {d:.3e} past {bound:.3e}"
+    cpu = cpu.clone()
+    cpu[..., pad] = -float("inf")
+    top2 = cpu.topk(2, dim=-1)
+    held, ties = 0, 0
+    for r in range(tokens.shape[0]):
+        for t in range(tokens.shape[1] - 1):
+            if (top2.values[r, t, 0] - top2.values[r, t, 1]).item() < 2 * bound:
+                ties += 1
+                break
+            nxt = int(tokens[r, t + 1])
+            assert int(top2.indices[r, t, 0]) == nxt, \
+                f"translation row {r} step {t}: the card chose {nxt}, the CPU's argmax " \
+                f"{int(top2.indices[r, t, 0])}"
+            held += 1
+            if nxt == eos:
+                break
+    return d, bound, held, ties
+
+
+def slice_phase(root, vocab, merges, checkpoint, sl=SLICE, dev="cuda"):
+    """Phase 18: (a) ``cli.main --peft --dev`` at its default --pad_to_max
+    1000 (S 1004, through ``attention.resident_padded``): exact launch
+    counts, then the train step at S 1004 held to the plain path and f32 by
+    :func:`hold_train_paths`; (b) ``cli.interp_analysis`` on phase 6's
+    checkpoint at --pad_to_max 1020 (S 1024) from the device token cache:
+    exact launch counts, then the first record's streamed mean held to the
+    eager stack's, its rows and pad columns (:func:`check_attention_mean`),
+    and the kernel path's mean no further from f32 than 1.25x the plain
+    path's; (c) ``translate_reports`` on ``sl.sentences`` German sentences
+    with a size-exact random opus-mt-de-en directory, held to the port's
+    CPU run of it (:func:`check_marian_streams`); (d) both analysis CLIs on
+    the ptb_500 files, without matplotlib.  Returns the launch counts by
+    path and the phase's numbers.  (``dev="cpu"`` with a tiny ``Slice``
+    rehearses it on the CPU, with ``N_TRAIN``, ``N_VAL``, ``N_TEST``,
+    ``check_launch_counts`` and ``hold_train_paths`` patched.)"""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.cli import interp_analysis, token_distribution, track_bpe_encoding
+    from ecg_byte_tpu_torch.cli import main as cli_main
+    from ecg_byte_tpu_torch.cli.common import _PRESETS, build_model
+    from ecg_byte_tpu_torch.data import DataConfig, ECGTokenDataset, collate
+    from ecg_byte_tpu_torch.data.preprocess import translate_reports
+    from ecg_byte_tpu_torch.interpret import get_component_indices
+    from ecg_byte_tpu_torch.models import marian
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.ops import attention
+    from ecg_byte_tpu_torch.tokenizer import encode_text
+    from ecg_byte_tpu_torch.tokenizer.analysis import quantize_file
+    from ecg_byte_tpu_torch.tokenizer.sp_model import MarianSpTokenizer
+    from ecg_byte_tpu_torch.train.checkpoint import load_weights
+    from ecg_byte_tpu_torch.utils import viz_utils
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    s_train = 1000 + 4
+    phase(f"18. cli.main at its default --pad_to_max 1000 (S {s_train}); cli.interp_analysis at "
+          f"S {sl.interp_pad_to_max + 4}; translate_reports with a size-exact random "
+          "opus-mt-de-en; the analysis CLIs")
+    if cuda:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev_args = [] if cuda else ["--device", "cpu"]
+    data_args = ["--dataset", "ptb_500", "--tokenizer_check", f"tokenizer_{NUM_MERGES}",
+                 "--num_merges", str(NUM_MERGES), "--percentiles", "data/ptb_500_dataset_stats.npy"]
+    by_path, out = {}, {}
+    layers = _PRESETS[sl.model]().num_layers
+
+    # (a) training at the CLI's default --pad_to_max: S 1004 through the padding
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), contextlib.redirect_stdout(sys.stderr):
+        summary = cli_main.main(["--model", sl.model, *data_args, *dev_args, "--peft", "--dev",
+                                 "--batch_size", str(sl.batch)])["training"]
+    sync()
+    counts = by_path["train_pad1000"] = launches()
+    steps, evals = summary["steps"], -(-N_VAL // sl.batch) * 2
+    check_launch_counts(counts, {
+        "prefill_attention": layers * (steps + evals), "prefill_attention_bwd": layers * steps,
+        "rmsnorm": (2 * layers + 1) * (steps + evals), "rmsnorm_bwd": 2 * layers * steps,
+        "bpe_match": 2, "bpe_chain": 2}, "18a cli.main --pad_to_max 1000")
+    assert all(np.isfinite(summary["train_loss"] + summary["val_loss"])), summary
+    print(f"18a cli.main --peft --dev --batch_size {sl.batch} (default --pad_to_max 1000): "
+          f"{steps} train steps and {evals} eval steps at S {s_train}, {time.perf_counter() - t0:.1f} s; "
+          f"train loss {summary['train_loss']}, val loss {summary['val_loss']}; launches {counts}")
+    train_paths_phase(root, vocab, merges, TrainCheck(
+        f"18a. train-step kernel path vs plain path at B1 x {s_train} (S not a multiple of 16: "
+        "the padded route)", 1000, ("prefill_attention", "prefill_attention_bwd", "rmsnorm",
+                                    "rmsnorm_bwd"), items=sl.check_items),
+        model=sl.model, dev=dev)
+
+    # (b) interpretation on phase 6's checkpoint
+    phase(f"18b. cli.interp_analysis on phase 6's checkpoint at --pad_to_max "
+          f"{sl.interp_pad_to_max}")
+    if cuda:
+        torch.cuda.empty_cache()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), contextlib.redirect_stdout(sys.stderr), \
+            mock.patch.object(viz_utils, "_pyplot", lambda: None):
+        res = interp_analysis.main(["--model", sl.model, *data_args, *dev_args, "--checkpoint",
+                                    checkpoint, "--pad_to_max", str(sl.interp_pad_to_max),
+                                    "--seg_len", str(SEG_LEN)])
+    sync()
+    counts = by_path["interpret"] = launches()
+    n = res["summary"]["records"]
+    assert n == len(res["signal"]["sequences"]) == N_TEST, res["summary"]
+    # 2L norms a record: mean_attention stops before the final norm and the head
+    check_launch_counts(counts, {"rmsnorm": 2 * layers * n, "bpe_match": 1,
+                                 "bpe_chain": 1}, "18b cli.interp_analysis")
+    interp_s = time.perf_counter() - t0
+    params, config, tok = build_model(sl.model, vocab, dev)
+    params, lora = load_weights(os.path.join(root, "runs", "0", checkpoint), "best_model", params,
+                                peft=True)
+    data = os.path.join(root, "data")
+    sigs, texts = align_signal_text_files(f"{data}/ptb_500/ecg/test", f"{data}/ptb_500/text/test")
+    ds = ECGTokenDataset(sigs[:1], texts[:1], vocab, merges, tokenizer=tok,
+                         args=DataConfig(percentiles=f"{data}/ptb_500_dataset_stats.npy",
+                                         pad_to_max=sl.interp_pad_to_max))
+    item = collate([ds[0]], pad_id=ds.pad_id)
+    ids, mask, pos = (torch.from_numpy(np.asarray(item[k], np.int32)).to(dev)
+                      for k in ("tokenized_signal", "attn_mask", "position_ids"))
+    assert ids.shape[1] == sl.interp_pad_to_max + 4, ids.shape
+    with torch.inference_mode():
+        mean = T.mean_attention(params, config, ids, mask, pos, lora=lora)
+        stack = T.forward(params, config, ids, mask, pos, lora=lora, return_attentions=True)[1]
+        stack_mean = stack.float().mean(dim=(0, 2))
+        del stack
+        d_stack, d_sum = check_attention_mean(mean, stack_mean, mask, "18b")
+        del stack_mean
+        s0, q0, _ = get_component_indices(item["tokenized_signal"][0],
+                                          item["quantized_signal_ids_input"][0], tok)
+        cli_row = np.asarray(res["signal"]["attentions"][0])
+        d_cli = np.abs(cli_row - mean[0, s0:q0, s0:q0].mean(0).cpu().numpy()).max()
+        assert d_cli <= 1e-6, f"18b: the CLI's signal attention {d_cli:.3e} from mean_attention"
+        with plain_path():
+            plain = T.mean_attention(params, config, ids, mask, pos, lora=lora)
+            f32 = lambda t: t.float()  # noqa: E731
+            ref = T.mean_attention(_map_tree(f32, params), config.replace(dtype="float32"), ids,
+                                   mask, pos, lora=_map_tree(f32, lora))
+
+        def rel(a, b):
+            return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+        ek, ep, ekp = rel(mean, ref), rel(plain, ref), rel(mean, plain)
+    print(f"18b: {n} records, {res['summary']['forward_ms_per_record']:.2f} ms a record "
+          f"(mean_attention, host clock), peak {res['summary']['peak_gib']} GiB, CLI "
+          f"{interp_s:.1f} s; launches {counts}; record 0 at S {ids.shape[1]}: streamed mean "
+          f"vs eager stack max|d| {d_stack:.3e} (bound {MEAN_TOL:.0e}), valid rows sum to 1 "
+          f"+- {d_sum:.3e} (bound {ROW_SUM_TOL:.2e}), pad and future columns 0; the CLI's "
+          f"signal row within {d_cli:.1e}; |d|/|ref| against f32: kernel path {ek:.3e}, plain "
+          f"{ep:.3e} (bound 1.25x plain), kernel vs plain {ekp:.3e}")
+    assert ek <= 1.25 * ep, f"18b: the kernel path's mean {ek:.3e} from f32, plain's {ep:.3e}"
+    out.update(interp_ms_per_record=res["summary"]["forward_ms_per_record"],
+               interp_peak_gib=res["summary"]["peak_gib"])
+    del params, lora, plain, ref, mean
+
+    # (c) translation with a size-exact random opus-mt-de-en
+    phase(f"18c. translate_reports: {sl.sentences} German sentences, a random opus-mt-de-en "
+          "directory")
+    if cuda:
+        torch.cuda.empty_cache()
+    mdir = os.path.join(root, "opus-mt-de-en")
+    reports = german_reports(sl.sentences)
+    t0 = time.perf_counter()
+    mconfig, nbytes = write_random_marian(mdir, reports, dict(sl.marian))
+    write_s = time.perf_counter() - t0
+    zero_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    texts = np.asarray(reports + ["", "  "], dtype=object)
+    with contextlib.redirect_stdout(sys.stderr):
+        got = translate_reports(texts, model_dir=mdir, device=dev, stats=stats)
+    sync()
+    wall = time.perf_counter() - t0
+    assert launches() == dict.fromkeys(SOURCES, 0), "translation launched a kernel of the port"
+    assert got.shape == texts.shape and all(isinstance(t, str) for t in got), got
+    assert got[-1] == got[-2] == "" and stats["sentences"] == sl.sentences, stats
+    tokenizer = MarianSpTokenizer(mdir)
+    mparams, mconf = marian.load_hf_marian(mdir, dev)
+    first = reports[:32]  # translate_reports' first batch
+    enc = tokenizer(first, truncation=True, max_length=512)
+    width = max(64, -(-enc["input_ids"].shape[1] // 64) * 64)
+    src = np.pad(enc["input_ids"], ((0, 0), (0, width - enc["input_ids"].shape[1])),
+                 constant_values=tokenizer.pad_token_id)
+    src_mask = np.pad(enc["attention_mask"], ((0, 0), (0, width - enc["input_ids"].shape[1])))
+    run = {}
+    sync()
+    t0 = time.perf_counter()
+    tokens = marian.greedy_generate(mparams, mconf, src, src_mask, max_length=128, stats=run)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / run["steps"]
+    src_t, mask_t = torch.from_numpy(src), torch.from_numpy(src_mask)
+    with torch.inference_mode():
+        card = marian.forward(mparams, mconf, src_t.to(dev), mask_t.to(dev),
+                              tokens[:, :-1].long()).cpu()
+        del mparams
+        cparams, _ = marian.load_hf_marian(mdir, "cpu")
+        cpu = marian.forward(cparams, mconf, src_t, mask_t, tokens[:, :-1].long().cpu())
+        del cparams
+    d, bound, held, ties = check_marian_streams(tokens.cpu(), card, cpu, mconf.eos_token_id,
+                                                mconf.pad_token_id)
+    decoded = tokenizer.batch_decode(tokens.cpu().numpy())
+    assert list(got[:len(first)]) == decoded, "translate_reports differs from its greedy_generate"
+    print(f"18c: {nbytes / 1e6:.1f} MB of f32 written in {write_s:.1f} s; translate_reports "
+          f"{len(texts)} reports ({sl.sentences} sentences, {stats['batches']} batches, "
+          f"{stats['decode_steps']} decode steps) in {wall:.2f} s: "
+          f"{sl.sentences / wall:.1f} sentences/s (load included, host clock); greedy_generate "
+          f"B{len(first)} x 128: {step_ms:.3f} ms a decode step; teacher-forced logits card vs CPU max|d| "
+          f"{d:.3e} (bound {bound:.3e}); {held} greedy steps equal to the CPU's argmax, "
+          f"{ties} rows cut at a near tie; no kernel launched")
+    out.update(sentences_per_s=sl.sentences / wall, marian_step_ms=step_ms)
+
+    # (d) the analysis CLIs, without matplotlib (the card's machine has none)
+    phase("18d. cli.token_distribution and cli.track_bpe_encoding on ptb_500")
+    t0 = time.perf_counter()
+    tok_path = os.path.join(data, f"tokenizer_{NUM_MERGES}.pkl")
+    stats_path = os.path.join(data, "ptb_500_dataset_stats.npy")
+    with contextlib.redirect_stdout(sys.stderr), mock.patch.object(viz_utils, "_pyplot",
+                                                                   lambda: None):
+        counts_tok, lengths = token_distribution.main([
+            "--tokenizer", tok_path, "--ecg_glob", f"{data}/ptb_500/ecg/train/*.npy",
+            "--percentiles", stats_path, "--out_dir", os.path.join(root, "pngs")])
+        ids_t, segmap = track_bpe_encoding.main([
+            "--tokenizer", tok_path, "--ecg_file", sigs[0], "--percentiles", stats_path,
+            "--out_dir", os.path.join(root, "pngs")])
+    assert len(lengths) == N_TRAIN and sum(counts_tok.values()) == sum(lengths)
+    percentiles = np.load(stats_path, allow_pickle=True).item()
+    text = quantize_file(sigs[0], percentiles)
+    assert ids_t == encode_text(text, merges)
+    assert segmap[0][0] == 0 and segmap[-1][1] == len(text) == 12 * SEG_LEN
+    assert all(e == s2 for (_, e), (s2, _) in zip(segmap, segmap[1:]))
+    assert not os.path.exists(os.path.join(root, "pngs"))
+    print(f"18d: {len(lengths)} files, {len(counts_tok)} distinct tokens, mean "
+          f"{np.mean(lengths):.1f} a file; {len(text)} symbols -> {len(ids_t)} tokens, spans "
+          f"tile the record; no plot drawn; {time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 {out['wall_s']:.1f} s")
+    return by_path, out
+
+
 def main() -> int:
     import torch
 
@@ -4226,6 +4742,8 @@ def main() -> int:
         by_path.update(two_counts)
         ddp_counts, ddp = ddp_phase(root, vocab, merges)
         by_path.update(ddp_counts)
+        slice_counts, sl = slice_phase(root, vocab, merges, train["checkpoint"])
+        by_path.update(slice_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
                 "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax"):
         assert mod not in sys.modules, f"{mod} was imported"
@@ -4264,6 +4782,10 @@ def main() -> int:
           f"card (all-reduce {ddp['lm_W=2 gloo_rank0_allreduce_ms']:.2f} ms), "
           f"{ddp['lm_W=1 NCCL_rank0_ms']:.2f} ms at W = 1 over NCCL (all-reduce "
           f"{ddp['lm_W=1 NCCL_rank0_allreduce_ms']:.2f} ms); phase 17 {ddp['wall_s']:.1f} s")
+    print(f"phase 18: interpretation {sl['interp_ms_per_record']:.2f} ms a record at S "
+          f"{SLICE.interp_pad_to_max + 4}, peak {sl['interp_peak_gib']:.2f} GiB; translation "
+          f"{sl['sentences_per_s']:.1f} sentences/s, {sl['marian_step_ms']:.3f} ms a decode step "
+          f"at B32 (host clock); phase 18 {sl['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -140,12 +140,12 @@ def load_stage1(args, encoders, device):
 
 
 def pad_prompt(batch, pad_id: int):
-    """Left-pad ``tokenized_signal2`` / ``attn_mask2`` so that the spliced
-    prompt, one longer, is a multiple of 64 positions: the prefill
-    attention kernel takes multiples of 16.  (The JAX CLI pads the prompt
-    itself to a multiple of 64, to bound recompiles.)"""
+    """Left-pad ``tokenized_signal2`` / ``attn_mask2`` to a multiple of 64
+    positions, as the JAX CLI buckets its prompts (the spliced prompt is
+    one longer, 64k + 1: ``ops/attention.causal_attention`` pads such a
+    length for the prefill kernel)."""
     seq, mask = np.asarray(batch["tokenized_signal2"]), np.asarray(batch["attn_mask2"])
-    pad = -(-(seq.shape[1] + 1) // 64) * 64 - 1 - seq.shape[1]
+    pad = -(-seq.shape[1] // 64) * 64 - seq.shape[1]
     if not pad:
         return batch
     return {**batch,

@@ -46,6 +46,17 @@
 // prefetched into L2 once the lengths are staged.  Rows whose length is a
 // multiple of 4 (every ECG record: 12 leads) move in 16-byte loads.  The
 // tail of ids is filled with -1 and counts written as before.
+//
+// Lengths, exits and entries are staged in a byte for max_len up to 255,
+// the main path's (uint8_t instances), and in 16 bits up to kWideMaxLen
+// (uint16_t instances: tokens of more than 255 symbols, as flat leads
+// merge into).  The 16-bit stage is twice the bytes of shared memory (128
+// KB a block at kChunk), so one block fits an SM where two byte-stage
+// blocks do.  Above kWideMaxLen, where B's maps would outgrow a lane's
+// registers and the shared memory, one thread a record walks the chain
+// (bpe_chain_walk_kernel, the first design): serial, but right at any
+// max_len (a flat record of 12 x 2,500 symbols can merge into tokens of
+// thousands).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,9 +65,9 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32768;   // positions staged per pass: 64 KB of shared memory
-constexpr int kMaxLen = 255;    // exits < max_len fit a byte beside kStop
-constexpr int kStop = 0xFF;
+constexpr int kChunk = 32768;   // positions staged per pass: 64 KB (byte stage) of shared memory
+constexpr int kMaxLen = 255;       // byte stage: exits < max_len fit beside kStop
+constexpr int kWideMaxLen = 1024;  // 16-bit stage: B's lanes follow 32 entries each
 constexpr int kPadToken = -1;
 constexpr int kBatch = 8;   // global loads a thread keeps in flight, 4 bytes each
 constexpr int kBatch4 = 4;  // the same, 16 bytes each
@@ -65,34 +76,63 @@ __device__ __forceinline__ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The stage's value for "the chain ends here": all ones of the stage type.
+template <typename T>
+__host__ __device__ constexpr int stop_of() {
+  return T(~T(0));
+}
+
 // A staged length: the length, or 0 where the chain would end.
 __device__ __forceinline__ uint32_t staged(int l, int W) {
   return (l >= 1 && l <= W) ? uint32_t(l) : 0u;
 }
 
-// The exit of entry offset x (or kStop) of the segment of ``len`` positions
-// at s0, from the exits ``ex`` of its positions.
-__device__ __forceinline__ int through(const uint8_t* ex, int s0, int len, int x) {
-  if (x == kStop) return kStop;
+// The exit of entry offset x (or the stop value) of the segment of ``len``
+// positions at s0, from the exits ``ex`` of its positions.
+template <typename T>
+__device__ __forceinline__ int through(const T* ex, int s0, int len, int x) {
+  if (x == stop_of<T>()) return stop_of<T>();
   return x < len ? ex[s0 + x] : x - len;
 }
 
+// Four staged values from four lengths, as one 4- or 8-byte word.
+__device__ __forceinline__ void stage4(uint8_t* s, int q, int4 l, int W) {
+  reinterpret_cast<uint32_t*>(s)[q] =
+      staged(l.x, W) | staged(l.y, W) << 8 | staged(l.z, W) << 16 | staged(l.w, W) << 24;
+}
+__device__ __forceinline__ void stage4(uint16_t* s, int q, int4 l, int W) {
+  reinterpret_cast<uint2*>(s)[q] = make_uint2(staged(l.x, W) | staged(l.y, W) << 16,
+                                              staged(l.z, W) | staged(l.w, W) << 16);
+}
+
+// The ranks of positions 4q .. 4q + 3, one a byte of the word.
+__device__ __forceinline__ uint32_t ranks4(const uint8_t* s, int q) {
+  return reinterpret_cast<const uint32_t*>(s)[q];
+}
+__device__ __forceinline__ uint32_t ranks4(const uint16_t* s, int q) {
+  // a rank is at most a segment's length (<= 64): it fits a byte
+  const uint2 r = reinterpret_cast<const uint2*>(s)[q];
+  return (r.x & 0xFF) | (r.x >> 16) << 8 | (r.y & 0xFF) << 16 | (r.y >> 16) << 24;
+}
+
+// T: the stage type (uint8_t for max_len <= kMaxLen, uint16_t above).
 // kEntries: entry offsets a lane follows in B, ceil(max_len / 32) rounded
 // up to a power of two (1 for the main path's max_len <= 32).
-template <int kEntries>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int kEntries>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 1 ? 2 : 1)
 bpe_chain_kernel(const int* __restrict__ match_len, const int* __restrict__ match_tok,
                  uint8_t* __restrict__ visited, int* __restrict__ ids, int* __restrict__ counts,
                  int N, int W, int chunk) {
+  constexpr int kStop = stop_of<T>();
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* s_len = smem;          // the chunk's lengths, 0 where the chain ends
-  uint8_t* s_ex = smem + chunk;   // each position's exit; from E on, its token's rank
-  __shared__ uint8_t s_gmap[kWarps][kMaxLen];  // each warp's map over its 32 segments
+  T* s_len = reinterpret_cast<T*>(smem);  // the chunk's lengths, 0 where the chain ends
+  T* s_ex = s_len + chunk;  // each position's exit; from E on, its token's rank
+  __shared__ T s_gmap[kWarps][32 * kEntries];  // each warp's map over its 32 segments
   // max_len <= 32: where each lane's entry stands after each of the warp's
   // segments (B's walk), so that D is one lookup
-  __shared__ uint8_t s_path[kEntries == 1 ? kWarps : 1][32][32];
-  __shared__ uint8_t s_entry[kThreads];        // each segment's true entry
-  __shared__ uint8_t s_gentry[kWarps];         // each warp's true entry
+  __shared__ T s_path[kEntries == 1 ? kWarps : 1][32][32];
+  __shared__ T s_entry[kThreads];        // each segment's true entry
+  __shared__ T s_gentry[kWarps];         // each warp's true entry
   __shared__ int s_warp_tokens[kWarps];
   __shared__ int s_off[kThreads];  // where each segment's tokens start in ids
   __shared__ int s_count;  // tokens of the chunks before this one
@@ -122,11 +162,7 @@ bpe_chain_kernel(const int* __restrict__ match_len, const int* __restrict__ matc
 #pragma unroll
       for (int u = 0; u < kBatch4; ++u) {
         const int q = q0 + u * kThreads;
-        if (q < n / 4) {
-          reinterpret_cast<uint32_t*>(s_len)[q] = staged(l[u].x, W) | staged(l[u].y, W) << 8 |
-                                                  staged(l[u].z, W) << 16 |
-                                                  staged(l[u].w, W) << 24;
-        }
+        if (q < n / 4) stage4(s_len, q, l[u], W);
       }
     }
     for (int k0 = tid; !vec && k0 < n; k0 += kBatch * kThreads) {
@@ -238,7 +274,7 @@ bpe_chain_kernel(const int* __restrict__ match_len, const int* __restrict__ matc
 #pragma unroll
       for (int u = 0; u < kBatch4; ++u) {
         const int q = q0 + u * kThreads;
-        rank[u] = q < n / 4 ? reinterpret_cast<const uint32_t*>(s_ex)[q] : 0u;
+        rank[u] = q < n / 4 ? ranks4(s_ex, q) : 0u;
         if (rank[u]) tk[u] = reinterpret_cast<const int4*>(match_tok + row + base)[q];
       }
 #pragma unroll
@@ -277,14 +313,41 @@ bpe_chain_kernel(const int* __restrict__ match_len, const int* __restrict__ matc
   if (tid == 0) counts[blockIdx.x] = count;
 }
 
-template <int kEntries>
+// max_len above kWideMaxLen: thread 0 walks the record's chain; the
+// block's threads clear visited first and fill the tail of ids after.
+__global__ void __launch_bounds__(kThreads)
+bpe_chain_walk_kernel(const int* __restrict__ match_len, const int* __restrict__ match_tok,
+                      uint8_t* __restrict__ visited, int* __restrict__ ids,
+                      int* __restrict__ counts, int N, int W) {
+  __shared__ int s_count;
+  const size_t row = size_t(blockIdx.x) * N;
+  for (int k = threadIdx.x; k < N; k += kThreads) visited[row + k] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int c = 0;
+    for (int p = 0; p < N;) {
+      visited[row + p] = 1;
+      ids[row + c++] = match_tok[row + p];
+      const int l = match_len[row + p];
+      if (l < 1 || l > W) break;
+      p += l;
+    }
+    s_count = c;
+    counts[blockIdx.x] = c;
+  }
+  __syncthreads();
+  for (int k = s_count + threadIdx.x; k < N; k += kThreads) ids[row + k] = kPadToken;
+}
+
+template <typename T, int kEntries>
 int launch(const void* match_len, const void* match_tok, void* visited, void* ids, void* counts,
            int B, int N, int W, cudaStream_t stream) {
   static const cudaError_t raised = cudaFuncSetAttribute(  // once: the largest stage
-      bpe_chain_kernel<kEntries>, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * kChunk);
+      bpe_chain_kernel<T, kEntries>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(2 * kChunk * sizeof(T)));
   if (raised != cudaSuccess) return raised;
   const int chunk = N < kChunk ? N : kChunk;
-  bpe_chain_kernel<kEntries><<<B, kThreads, 2 * chunk, stream>>>(
+  bpe_chain_kernel<T, kEntries><<<B, kThreads, 2 * chunk * sizeof(T), stream>>>(
       static_cast<const int*>(match_len), static_cast<const int*>(match_tok),
       static_cast<uint8_t*>(visited), static_cast<int*>(ids), static_cast<int*>(counts), N, W,
       chunk);
@@ -295,11 +358,21 @@ int launch(const void* match_len, const void* match_tok, void* visited, void* id
 
 extern "C" int ecg_bpe_chain(const void* match_len, const void* match_tok, void* visited,
                              void* ids, void* counts, int B, int N, int max_len, void* stream) {
-  if (B <= 0 || N < 0 || max_len > kMaxLen) return cudaErrorInvalidValue;
+  if (B <= 0 || N < 0) return cudaErrorInvalidValue;
   const int W = max_len > 1 ? max_len : 1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W <= 32) return launch<1>(match_len, match_tok, visited, ids, counts, B, N, W, s);
-  if (W <= 64) return launch<2>(match_len, match_tok, visited, ids, counts, B, N, W, s);
-  if (W <= 128) return launch<4>(match_len, match_tok, visited, ids, counts, B, N, W, s);
-  return launch<8>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  if (W <= 32) return launch<uint8_t, 1>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  if (W <= 64) return launch<uint8_t, 2>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  if (W <= 128) return launch<uint8_t, 4>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  if (W <= kMaxLen) {
+    return launch<uint8_t, 8>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  }
+  if (W <= 512) return launch<uint16_t, 16>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  if (W <= kWideMaxLen) {
+    return launch<uint16_t, 32>(match_len, match_tok, visited, ids, counts, B, N, W, s);
+  }
+  bpe_chain_walk_kernel<<<B, kThreads, 0, s>>>(
+      static_cast<const int*>(match_len), static_cast<const int*>(match_tok),
+      static_cast<uint8_t*>(visited), static_cast<int*>(ids), static_cast<int*>(counts), N, W);
+  return cudaGetLastError();
 }

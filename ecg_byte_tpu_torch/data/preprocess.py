@@ -346,13 +346,19 @@ def select_labeled(agg: List[List[str]], task: str, min_samples: int = 0,
 TRANSLATION_ENV = "ECG_BYTE_TRANSLATION_MODEL"
 
 
-def translate_reports(texts, model_dir: Optional[str] = None):
+def translate_reports(texts, model_dir: Optional[str] = None, device: Optional[str] = None,
+                      stats: Optional[dict] = None):
     """German -> English report translation (preprocess_utils.py:664-713).
 
-    Without a local opus-mt-de-en checkpoint (``model_dir`` or
-    ``$ECG_BYTE_TRANSLATION_MODEL``) the reports pass through unchanged,
-    with a warning, as in the JAX package.  With one, this raises: the
-    Marian model is not ported yet (ROADMAP.md section 1, item 7).
+    With a local opus-mt-de-en checkpoint (``model_dir`` or
+    ``$ECG_BYTE_TRANSLATION_MODEL``: ``config.json``, ``*.safetensors``,
+    ``source.spm``, ``vocab.json``) the Marian model (``models/marian.py``)
+    translates on ``device`` (default the CUDA card; the CPU only when
+    named), in batches of 32, greedily up to 128 tokens, each batch's
+    source padded to a multiple of 64 positions, as the JAX package does;
+    an empty report stays empty.  Without one the reports pass through
+    unchanged, with a warning.  ``stats`` (a dict) receives the batches
+    and decode steps run.
     """
     texts = np.asarray(texts, dtype=object)
     model_dir = model_dir or os.environ.get(TRANSLATION_ENV)
@@ -360,9 +366,38 @@ def translate_reports(texts, model_dir: Optional[str] = None):
         print("translate_reports: no local opus-mt-de-en checkpoint; "
               f"keeping original report text (set ${TRANSLATION_ENV})")
         return texts
-    raise NotImplementedError(
-        f"report translation with {model_dir!r} is not ported yet: the Marian model, "
-        "ROADMAP.md section 1, item 7")
+    from ecg_byte_tpu_torch.models.marian import greedy_generate, load_hf_marian
+    from ecg_byte_tpu_torch.tokenizer.sp_model import MarianSpTokenizer
+
+    dev = resolve_device(device)
+    tokenizer = MarianSpTokenizer(model_dir)
+    params, config = load_hf_marian(model_dir, dev)
+    valid_mask = np.array([bool(t and str(t).strip()) for t in texts], dtype=bool)
+    valid = [str(t) for t in texts[valid_mask]]
+    translations: List[str] = []
+    steps = batches = 0
+    for i in range(0, len(valid), 32):
+        enc = tokenizer(valid[i: i + 32], truncation=True, max_length=512)
+        ids, mask = enc["input_ids"], enc["attention_mask"]
+        # the JAX package buckets the source width to bound its compiles;
+        # the same widths here give the same function
+        width = max(64, -(-ids.shape[1] // 64) * 64)
+        pad = width - ids.shape[1]
+        if pad:
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=tokenizer.pad_token_id)
+            mask = np.pad(mask, ((0, 0), (0, pad)))
+        run = {}
+        out = greedy_generate(params, config, torch.from_numpy(ids), torch.from_numpy(mask),
+                              max_length=128, stats=run)
+        steps += run["steps"]
+        batches += 1
+        translations.extend(tokenizer.batch_decode(out.cpu().numpy(), skip_special_tokens=True))
+    if stats is not None:
+        stats.update(batches=batches, decode_steps=steps, sentences=len(valid))
+    result = np.empty_like(texts)
+    result[valid_mask] = translations
+    result[~valid_mask] = ""
+    return result
 
 
 def _read_ptb_database(path: str):
@@ -420,7 +455,7 @@ def preprocess_ptb(ptb_folder: str, args: PreprocessArgs, task: str = "superdiag
     reports = all_reports[keep]
 
     for split_name, mask in (("train", folds < 8), ("val", folds == 8), ("test", folds > 8)):
-        split_reports = translate_reports(reports[mask], translation_model)
+        split_reports = translate_reports(reports[mask], translation_model, args.device)
         os.makedirs(os.path.join(out_root, "ecg", split_name), exist_ok=True)
         os.makedirs(os.path.join(out_root, "text", split_name), exist_ok=True)
         count = 0

@@ -376,7 +376,8 @@ def forward(
     return_hidden: bool = False,
     remat: str = "none",
     rows: Optional[Rows] = None,
-) -> torch.Tensor:
+    return_attentions: bool = False,
+):
     """Causal LM forward pass -> float32 logits (B, S, V).
 
     ``attn_mask``: (B, S) 1/0 validity (left pads are 0).
@@ -396,6 +397,10 @@ def forward(
     (``torch.utils.checkpoint``) in the backward.
     ``rows``: the rows of a global batch this batch holds (``--dis``):
     dropout masks are drawn for the global batch (:class:`_Dropout`).
+    ``return_attentions``: the eager capture; every layer's attention
+    takes the plain probability path (``causal_attention(...,
+    return_probs=True)``) and the call returns ``(logits, probs)``, probs
+    the (L, B, H, S, S) stack in the model's dtype.  For inference only.
     """
     c = config
     if remat not in ("none", "full"):
@@ -409,7 +414,13 @@ def forward(
     h = _inputs_to_hidden(params, c, input_ids, position_ids, inputs_embeds)
     rope = _rope_for(c, position_ids)
 
+    probs = []
+
     def attn_fn(q, k, v):
+        if return_attentions:
+            out, p = attention.causal_attention(q, k, v, attn_mask, return_probs=True)
+            probs.append(p)
+            return out
         return attention.causal_attention(q, k, v, attn_mask)
 
     n = len(params["layers"])
@@ -426,7 +437,48 @@ def forward(
             h = layer(h)
     if return_hidden:
         return h
+    if return_attentions:
+        return _unembed(params, c, h), torch.stack(probs)
     return _unembed(params, c, h)
+
+
+@torch.no_grad()
+def mean_attention(
+    params: Params,
+    config: TransformerConfig,
+    input_ids: torch.Tensor,
+    attn_mask: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    *,
+    lora: Optional[Params] = None,
+) -> torch.Tensor:
+    """Layer- and head-averaged attention probabilities (B, S, S), f32,
+    streamed (``ecg_byte_tpu/models/transformer.py:759``): each layer's
+    (B, H, S, S) probabilities are added, as their f32 head mean, into one
+    f32 sum and dropped before the next layer, so memory holds one layer's
+    probabilities, not the eager (L, B, H, S, S) stack of
+    ``forward(return_attentions=True)``, whose mean over layers and heads
+    this equals up to f32 summation order."""
+    c = config
+    if attn_mask is None:
+        attn_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=input_ids.device)
+    attn_mask = attn_mask.to(torch.int32).contiguous()
+    if position_ids is None:
+        position_ids = make_position_ids(attn_mask)
+    h = _inputs_to_hidden(params, c, input_ids, position_ids, None)
+    rope = _rope_for(c, position_ids)
+    b, s = input_ids.shape
+    acc = torch.zeros((b, s, s), dtype=torch.float32, device=h.device)
+
+    def attn_fn(q, k, v):
+        out, p = attention.causal_attention(q, k, v, attn_mask, return_probs=True)
+        acc.add_(p.float().mean(dim=1))
+        return out
+
+    n = len(params["layers"])
+    for layer_p, lora_p in zip(params["layers"], _layer_loras(lora, n)):
+        h = _block(c, h, layer_p, rope, attn_fn, lora_p)
+    return acc / n
 
 
 # ---------------------------------------------------------------------------

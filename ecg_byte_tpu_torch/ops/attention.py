@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -21,6 +22,25 @@ NEG_INF = -1e30
 def _causal(s, device):
     """(S, S) bool: query position q sees key t where t <= q."""
     return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
+# the resident kernels take sequence lengths in multiples of this
+RESIDENT_SEQ_TILE = 16
+
+
+def grouped_probs(qg, k, pad_mask: Optional[torch.Tensor]):
+    """The probabilities of :func:`grouped_attention` (``_grouped_probs``):
+    (B, KH, G, S, S), f32 logits and softmax with the causal and pad
+    masks, rounded to qg's dtype."""
+    ct = torch.promote_types(qg.dtype, torch.float32)
+    d = qg.shape[-1]
+    s = qg.shape[1]
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
+    bias = torch.where(_causal(s, qg.device), 0.0, NEG_INF)
+    if pad_mask is not None:
+        key_ok = pad_mask[:, None, None, None, :].bool()
+        bias = bias + torch.where(key_ok, 0.0, NEG_INF)
+    return torch.softmax(logits + bias.to(ct), dim=-1).to(qg.dtype)
 
 
 def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
@@ -32,14 +52,7 @@ def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
     Returns (B, S, KH, G, D).
     """
     ct = torch.promote_types(qg.dtype, torch.float32)
-    d = qg.shape[-1]
-    s = qg.shape[1]
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
-    bias = torch.where(_causal(s, qg.device), 0.0, NEG_INF)
-    if pad_mask is not None:
-        key_ok = pad_mask[:, None, None, None, :].bool()
-        bias = bias + torch.where(key_ok, 0.0, NEG_INF)
-    probs = torch.softmax(logits + bias.to(ct), dim=-1).to(qg.dtype)
+    probs = grouped_probs(qg, k, pad_mask)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(ct), v.to(ct))
     return out.to(qg.dtype)
 
@@ -49,7 +62,24 @@ def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):
 FLASH_MIN_SEQ = 4096
 
 
-def causal_attention(q, k, v, pad_mask: torch.Tensor) -> torch.Tensor:
+def resident_padded(qg, k, v, pad_mask):
+    """``ResidentAttention`` on qg, k and v padded at the end to a multiple
+    of :data:`RESIDENT_SEQ_TILE` positions, the pad mask extended with 0,
+    and the extra rows dropped.  The extra keys lie after every real
+    query, so the causal mask hides them; the extra rows' output gradient
+    is 0, so they add nothing to dq, dk or dv of the real positions."""
+    from ecg_byte_tpu_torch.ops import attention_resident
+
+    s = qg.shape[1]
+    extra = -s % RESIDENT_SEQ_TILE
+    qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, extra))
+    k = F.pad(k, (0, 0, 0, 0, 0, extra))
+    v = F.pad(v, (0, 0, 0, 0, 0, extra))
+    pad_mask = F.pad(pad_mask, (0, extra))
+    return attention_resident.ResidentAttention.apply(qg, k, v, pad_mask)[:, :s]
+
+
+def causal_attention(q, k, v, pad_mask: torch.Tensor, *, return_probs: bool = False):
     """Causal attention with left-pad key masking.
 
     q (B, S, H, D); k, v (B, S, KH, D); pad_mask (B, S) int32.  The call's
@@ -58,19 +88,32 @@ def causal_attention(q, k, v, pad_mask: torch.Tensor) -> torch.Tensor:
     ``ecg_byte_tpu/ops/flash_attention.py:378-384``) goes through
     ``flash_attention.FlashAttention``, anything else through
     ``attention_resident.ResidentAttention``; both are differentiable, and
-    their wrappers take the plain versions for CPU tensors.  Returns
-    (B, S, H, D).
+    their wrappers take the plain versions for CPU tensors.  On the card
+    an S that is not a multiple of :data:`RESIDENT_SEQ_TILE` goes through
+    :func:`resident_padded`.  Returns (B, S, H, D).
+
+    ``return_probs=True`` takes the plain path of the JAX package's eager
+    capture (``ecg_byte_tpu/ops/attention.py:182-184``, XLA there, no
+    kernel) on any device and returns ``(out, probs)``, probs (B, H, S, S)
+    rounded to q's dtype and out = probs . V with f32 accumulation.
     """
     from ecg_byte_tpu_torch.ops import attention_resident, flash_attention
 
     b, s, h, d = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, d).contiguous()
+    if return_probs:
+        probs = grouped_probs(qg, k, pad_mask)
+        ct = torch.promote_types(q.dtype, torch.float32)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(ct), v.to(ct)).to(q.dtype)
+        return out.reshape(b, s, h, d), probs.reshape(b, h, s, s)
+    k, v = k.contiguous(), v.contiguous()
     if s >= FLASH_MIN_SEQ and d % 8 == 0 and d <= 256:
-        fn = flash_attention.FlashAttention
+        out = flash_attention.FlashAttention.apply(qg, k, v, pad_mask)
+    elif qg.device.type != "cpu" and s % RESIDENT_SEQ_TILE:
+        out = resident_padded(qg, k, v, pad_mask)
     else:
-        fn = attention_resident.ResidentAttention
-    out = fn.apply(qg, k.contiguous(), v.contiguous(), pad_mask)
+        out = attention_resident.ResidentAttention.apply(qg, k, v, pad_mask)
     return out.reshape(b, s, h, d)
 
 

@@ -31,8 +31,14 @@ one thread compose those maps into every segment's true entry (a few
 dozen dependent lookups, whatever the chain's length, also on rows whose
 chains never meet again), each thread walks its segment once more to rank
 its tokens, and after a block-wide prefix sum of the counts the block
-writes the outputs position by position.  Lengths are staged in a byte,
-so the wrapper takes ``max_len`` up to :data:`CHAIN_MAX_LEN`.
+writes the outputs position by position.  Lengths are staged in a byte up
+to ``max_len`` :data:`CHAIN_MAX_LEN`, the main path's, and in 16 bits up to
+:data:`CHAIN_WIDE_MAX_LEN` (the kernel's second instance: tokens of more
+than 255 symbols, which flat leads merge into).  Above that, where the
+kernel's per-lane maps would not fit, one thread a record walks the chain
+(its third instance); the JAX package encodes such vocabularies with its
+XLA matcher (``ecg_byte_tpu/ops/bpe_encode.py:536-547``).  The choice is
+made in the kernel's entry from ``max_len``.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
 or raises.  Each wrapper counts its launches in ``.launches``.
@@ -46,7 +52,8 @@ from ecg_byte_tpu_torch.ops import _cuda
 from ecg_byte_tpu_torch.ops.bpe_encode import PAD_SYMBOL, Automaton, _compact
 from ecg_byte_tpu_torch.ops.quantize import _BYTE_A
 
-CHAIN_MAX_LEN = 255  # the chain kernel's lengths and exits fit a byte
+CHAIN_MAX_LEN = 255  # up to this the chain kernel stages lengths and exits in a byte
+CHAIN_WIDE_MAX_LEN = 1024  # up to this in 16 bits; above, one thread a record walks it
 
 
 def longest_match_plain(q: torch.Tensor, table: Automaton):
@@ -175,8 +182,8 @@ longest_match.launches = 0
 
 
 def _check_chain(match_len, match_tok, max_len):
-    if not 0 <= max_len <= CHAIN_MAX_LEN:
-        raise ValueError(f"max_len {max_len} outside the chain kernel's [0, {CHAIN_MAX_LEN}]")
+    if max_len < 0:
+        raise ValueError(f"max_len {max_len} is negative")
     if match_len.dim() != 2 or match_tok.shape != match_len.shape:
         raise ValueError("match_len and match_tok must be (B, N) of one shape")
     for name, t in (("match_len", match_len), ("match_tok", match_tok)):
@@ -194,7 +201,8 @@ def greedy_chain(match_len: torch.Tensor, match_tok: torch.Tensor, max_len: int)
     ``PAD_TOKEN``, counts int32 (B,).  A length outside [1, max_len] ends
     the chain there.  A CPU tensor takes ``greedy_chain_plain`` and
     ``bpe_encode._compact``; a CUDA tensor launches ``csrc/bpe_chain.cu``
-    (``max_len`` at most :data:`CHAIN_MAX_LEN`)."""
+    (its byte stage up to :data:`CHAIN_MAX_LEN`, its 16-bit stage up to
+    :data:`CHAIN_WIDE_MAX_LEN` and its one-thread walk past it)."""
     if match_len.device.type == "cpu":
         visited = greedy_chain_plain(match_len, max_len)
         return (visited, *_compact(match_tok, visited))

@@ -54,3 +54,101 @@ def plot_original_vs_decoded(decoded_signal, original_array, lead_index: int = 0
     plt.tight_layout()
     plt.savefig(os.path.join(out_dir, "original_vs_decoded.png"))
     plt.close()
+
+
+def plot_attention_on_signal(signal, attention_array, lead_index: int, sample_count: int,
+                             out_dir: str = "./pngs/attention") -> None:
+    """One lead's trace with its attention weight filled underneath."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    fig, ax1 = plt.subplots(figsize=(12, 4))
+    ax1.plot(signal[lead_index], color="tab:blue", lw=0.8)
+    ax1.set_ylabel("amplitude")
+    ax2 = ax1.twinx()
+    att = attention_array[lead_index]
+    ax2.fill_between(np.arange(len(att)), att, color="tab:red", alpha=0.3)
+    ax2.set_ylabel("attention")
+    plt.title(f"Attention over signal, lead {lead_index}, sample {sample_count}")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, f"attn_sample{sample_count}_lead{lead_index}.png"))
+    plt.close()
+
+
+def plot_text_attention_weights(tokens, attention, sample_count: int,
+                                out_dir: str = "./pngs/attention") -> None:
+    """A bar per text token, its attention weight."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    n = min(len(tokens), len(attention))
+    plt.figure(figsize=(max(6, n * 0.4), 4))
+    plt.bar(range(n), attention[:n])
+    plt.xticks(range(n), tokens[:n], rotation=90, fontsize=6)
+    plt.ylabel("attention")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, f"text_attn_sample{sample_count}.png"))
+    plt.close()
+
+
+def plot_token_rank_frequency(token_counts, out_dir: str = "./pngs") -> None:
+    """Token frequencies against their rank, log-log."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    freqs = sorted(token_counts.values(), reverse=True)
+    plt.figure(figsize=(6, 4))
+    plt.loglog(np.arange(1, len(freqs) + 1), freqs)
+    plt.xlabel("rank")
+    plt.ylabel("frequency")
+    plt.title("Token rank-frequency")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, "token_rank_frequency.png"))
+    plt.close()
+
+
+def plot_token_length_distribution(token_lengths, out_dir: str = "./pngs") -> None:
+    """A histogram of the tokens per ECG."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    plt.figure(figsize=(6, 4))
+    plt.hist(token_lengths, bins=50)
+    plt.xlabel("tokens per ECG")
+    plt.ylabel("count")
+    plt.title("Encoded length distribution")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, "token_length_distribution.png"))
+    plt.close()
+
+
+def plot_bpe_segments(signal, segment_map, lead_index: int, seg_len: int,
+                      out_dir: str = "./pngs") -> None:
+    """Coloured spans over one lead: the samples each BPE token covers."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    plt.figure(figsize=(12, 4))
+    plt.plot(signal[lead_index], color="black", lw=0.6)
+    cmap = plt.get_cmap("tab20")
+    lead_start = lead_index * seg_len
+    lead_end = lead_start + seg_len
+    for i, (start, end) in enumerate(segment_map):
+        s = max(start, lead_start) - lead_start
+        e = min(end, lead_end) - lead_start
+        if e <= 0 or s >= seg_len or e <= s:
+            continue
+        plt.axvspan(s, e, color=cmap(i % 20), alpha=0.25)
+    plt.title(f"BPE token spans, lead {lead_index}")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, f"bpe_segments_lead{lead_index}.png"))
+    plt.close()

@@ -30,7 +30,10 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 sys.modules.setdefault("chip_smoke", chip_smoke)
 _spec.loader.exec_module(chip_smoke)
 
-STOP = 0xFF
+def stop_value(max_len):
+    """The kernel's "the chain ends here" of its stage: a byte's all-ones up
+    to ``CHAIN_MAX_LEN``, 16 bits' above."""
+    return 0xFF if max_len <= bpe_match.CHAIN_MAX_LEN else 0xFFFF
 
 
 def segment_chain(match_len, match_tok, max_len, threads=512, chunk=32768):
@@ -40,6 +43,8 @@ def segment_chain(match_len, match_tok, max_len, threads=512, chunk=32768):
     ml, mt = match_len.numpy(), match_tok.numpy()
     b, n_all = ml.shape
     w = max(int(max_len), 1)
+    assert w <= bpe_match.CHAIN_WIDE_MAX_LEN, "past the segment kernel's widest stage"
+    STOP = stop_value(w)
     warps = threads // 32
     visited = np.zeros((b, n_all), bool)
     ids = np.full((b, n_all), bpe_encode.PAD_TOKEN, np.int32)
@@ -149,10 +154,76 @@ def test_plain_chain_matches_jax_on_the_adversarial_rows(label, match_len, match
         np.testing.assert_array_equal(visited.numpy(), np.asarray(pallas))
 
 
-def test_chain_wrapper_refuses_a_max_len_past_a_byte():
-    """The kernel stages lengths in a byte: a CUDA call with max_len above
-    CHAIN_MAX_LEN is refused before any launch (a meta tensor stands in for
-    the card's)."""
-    ln = torch.ones(2, 10, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="max_len"):
-        bpe_match.greedy_chain(ln, ln, bpe_match.CHAIN_MAX_LEN + 1)
+def walk_chain(match_len, match_tok, max_len):
+    """(visited, ids, counts) as ``csrc/bpe_chain.cu``'s one-thread walk
+    computes them (max_len past ``CHAIN_WIDE_MAX_LEN``)."""
+    ml, mt = match_len.numpy(), match_tok.numpy()
+    b, n = ml.shape
+    w = max(int(max_len), 1)
+    visited = np.zeros((b, n), bool)
+    ids = np.full((b, n), bpe_encode.PAD_TOKEN, np.int32)
+    counts = np.zeros(b, np.int32)
+    for r in range(b):
+        c, p = 0, 0
+        while p < n:
+            visited[r, p] = True
+            ids[r, c] = mt[r, p]
+            c += 1
+            if not 1 <= ml[r, p] <= w:
+                break
+            p += int(ml[r, p])
+        counts[r] = c
+    return torch.from_numpy(visited), torch.from_numpy(ids), torch.from_numpy(counts)
+
+
+WIDE_ROWS = [(w, row) for w in (300, bpe_match.CHAIN_WIDE_MAX_LEN)
+             for row in chip_smoke.chain_rows(torch.Generator().manual_seed(1), w,
+                                              torch.device("cpu"), n=1200, long_n=1300,
+                                              threads=64)[:5]]
+
+
+@pytest.mark.parametrize("max_len,row", WIDE_ROWS,
+                         ids=[f"{w}-{r[0]}" for w, r in WIDE_ROWS])
+def test_chain_route_at_max_len_past_a_byte(max_len, row):
+    """max_len 300 and CHAIN_WIDE_MAX_LEN: the 16-bit stage (exits and
+    entries up to 0xFFFF) in the segment model equals the plain chain; past
+    it, the one-thread walk does.  The wrapper takes such a max_len (a meta
+    tensor stands in for the card's: the check passes max_len and stops at
+    the device)."""
+    label, ln, tok = row
+    want = _plain(ln, tok, max_len)
+    for threads, chunk in ((64, 700), (32, 5000)):
+        got = segment_chain(ln, tok, max_len, threads=threads, chunk=chunk)
+        for g, w, what in zip(got, want, ("visited", "ids", "counts")):
+            assert torch.equal(g, w), f"{label}, {threads} threads: {what}"
+    longer = max_len + bpe_match.CHAIN_WIDE_MAX_LEN
+    for g, w in zip(walk_chain(ln, tok, longer), _plain(ln, tok, longer)):
+        assert torch.equal(g, w), f"{label}: the walk at max_len {longer}"
+    meta = torch.ones(2, 10, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        bpe_match.greedy_chain(meta, meta, max_len)
+
+
+def test_flat_lead_vocabulary_encodes_as_the_host_trie():
+    """A vocabulary whose flat-lead tokens reach a^300 (chip_smoke's
+    flat_lead_merges) over records with flat runs past 300 symbols: the
+    device encoder's plain path equals the C++ trie exactly, and so do the
+    kernel's 16-bit stage (segment model) on its match lengths."""
+    from ecg_byte_tpu_torch.tokenizer import native
+
+    rng = np.random.default_rng(7)
+    corpus = bytes(rng.integers(97, 123, 4000).astype(np.uint8))
+    _, merges = native.train(corpus, 40)
+    merges = chip_smoke.flat_lead_merges(merges)
+    table = bpe_encode.build_automaton(merges, torch.device("cpu"))
+    assert table.max_len == chip_smoke.FLAT_MAX_LEN > bpe_match.CHAIN_MAX_LEN
+    q = chip_smoke.flat_lead_records(torch.Generator().manual_seed(2), 3, 2400)
+    ids, counts = bpe_encode.encode(q, table)
+    want = [native.NativeEncoder(merges).encode((row.numpy() + 97).tobytes()).tolist()
+            for row in q]
+    assert max(len(w) for w in want) < q.shape[1]
+    chip_smoke.check_streams(ids, counts, want, "flat leads")
+    match_tok, match_len = bpe_match.longest_match_plain(q, table)
+    assert int(match_len.max()) == chip_smoke.FLAT_MAX_LEN
+    _, mids, mcounts = segment_chain(match_len, match_tok, table.max_len, threads=64, chunk=1000)
+    chip_smoke.check_streams(mids, mcounts, want, "flat leads, 16-bit stage")

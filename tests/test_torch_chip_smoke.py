@@ -3,11 +3,12 @@ attention forwards, of both RMSNorm kernels, of the int8 weight product, of
 the device BPE encoder's token streams and of phase 15's preprocessing (the
 chain against float64 scipy, the threshold's median, skip counts, the
 written tree, the token cache), of phases 9 and 16's teacher-forced
-logits and of phase 17's two-rank steps and per-rank counts, on the CPU:
+logits, of phase 17's two-rank steps and per-rank counts and of phase 18's
+attention mean and translation streams, on the CPU:
 they pass the plain versions' own output and refuse outputs with the faults
 the bounds are there for.  The
 plain versions stand in for the kernels here (the kernels themselves run
-only on the card)."""
+only on the card).  Phase 18 also runs whole, at tiny sizes."""
 
 import importlib.util
 import os
@@ -1080,3 +1081,119 @@ def test_dis_rank_check_passes_and_refuses_a_launch_count_off_by_one():
     both["ranks"][1]["written"] = ["best_model"]
     with pytest.raises(AssertionError, match="written"):
         chip_smoke.check_dis_ranks(both, want, "W = 2")
+
+
+# ------------------------------------------------------------------ phase 18
+
+
+def _attention_mean(layers_dropped=0):
+    """The tiny llama's streamed mean and eager stack mean on a left-padded
+    batch; ``layers_dropped`` leaves the last layers out of the stack's
+    mean, as a stream that lost them would."""
+    from ecg_byte_tpu_torch.models import tiny_test_config
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    config = tiny_test_config("llama", dtype="bfloat16")
+    params = T.init_params(config, torch.Generator().manual_seed(0), torch.device("cpu"))
+    ids = torch.randint(0, 512, (2, 24), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 24, dtype=torch.int32)
+    mask[1, :5] = 0
+    mean = T.mean_attention(params, config, ids, mask)
+    with torch.no_grad():
+        stack = T.forward(params, config, ids, mask, return_attentions=True)[1]
+    stack = stack[: stack.shape[0] - layers_dropped]
+    return mean, stack.float().mean(dim=(0, 2)), mask
+
+
+def test_attention_mean_check_passes_the_stream():
+    mean, stack_mean, mask = _attention_mean()
+    d, sums = chip_smoke.check_attention_mean(mean, stack_mean, mask, "tiny")
+    assert d <= chip_smoke.MEAN_TOL and sums <= chip_smoke.ROW_SUM_TOL
+
+
+@pytest.mark.parametrize("fault", ["lost-layer", "pad-column", "row-scaled"])
+def test_attention_mean_check_refuses_faults(fault):
+    """A stream that lost a layer, a valid row that attends a left-pad key,
+    and a row whose probabilities were scaled (a softmax over the wrong
+    keys) are refused."""
+    mean, stack_mean, mask = _attention_mean(layers_dropped=fault == "lost-layer")
+    if fault == "pad-column":
+        mean[1, 10, 2] = 1e-3
+        stack_mean = mean
+    elif fault == "row-scaled":
+        mean[0, 7] *= 1.01
+        stack_mean = mean
+    with pytest.raises(AssertionError, match="streamed mean|pad or future|sums to 1"):
+        chip_smoke.check_attention_mean(mean, stack_mean, mask, fault)
+
+
+def _marian_run():
+    from ecg_byte_tpu_torch.models import marian
+
+    config = marian.MarianConfig(vocab_size=60, d_model=32, encoder_layers=1, decoder_layers=2,
+                                 num_heads=4, ffn_dim=64, pad_token_id=59,
+                                 decoder_start_token_id=59)
+    params = marian.init_params(config, torch.Generator().manual_seed(0), std=0.3)
+    src = torch.randint(1, 59, (3, 8), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(3, 8, dtype=torch.int32)
+    tokens = marian.greedy_generate(params, config, src, mask, max_length=12)
+    logits = marian.forward(params, config, src, mask, tokens[:, :-1].long())
+    return tokens, logits, config
+
+
+def bound_of(logits):
+    return chip_smoke.MARIAN_TOL * logits.abs().max()
+
+
+def test_marian_stream_check_passes_the_cpu_run():
+    tokens, logits, c = _marian_run()
+    d, bound, held, ties = chip_smoke.check_marian_streams(
+        tokens, logits + 1e-3 * bound_of(logits), logits, c.eos_token_id, c.pad_token_id)
+    assert d <= bound and held + ties >= 3
+
+
+@pytest.mark.parametrize("fault", ["logits", "token"])
+def test_marian_stream_check_refuses_faults(fault):
+    """Logits past the bound, and a greedy token that is not the CPU's
+    argmax at a step with a clear margin, are refused."""
+    tokens, logits, c = _marian_run()
+    card = logits.clone()
+    if fault == "logits":
+        card[1, 3, 7] += 2 * bound_of(logits)
+        match = "logits"
+    else:
+        tokens = tokens.clone()
+        tokens[0, 1] = (tokens[0, 1] + 1) % 59
+        match = "the card chose"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_marian_streams(tokens, card, logits, c.eos_token_id, c.pad_token_id)
+
+
+def test_slice_phase_rehearsal(tmp_path, monkeypatch):
+    """Phase 18 end to end on the CPU at tiny sizes: cli.main at its default
+    --pad_to_max, the train-step check at S 1004, cli.interp_analysis on a
+    checkpoint and its checks, translate_reports with a random Marian
+    directory held to its own greedy streams, and the analysis CLIs."""
+    from ecg_byte_tpu_torch.cli import main as cli_main
+
+    root = str(tmp_path)
+    vocab, merges = chip_smoke.make_data(root, n_train=4, n_val=1, n_test=2, seg_len=60,
+                                         num_merges=30)
+    monkeypatch.chdir(root)
+    ckpt = cli_main.main(["--model", "tiny-llama", "--dataset", "ptb_500", "--tokenizer_check",
+                          "tokenizer_30", "--num_merges", "30", "--percentiles",
+                          "data/ptb_500_dataset_stats.npy", "--device", "cpu", "--peft", "--dev",
+                          "--batch_size", "2", "--pad_to_max", "300"])["training"]["directory"]
+    for name, value in dict(N_TRAIN=4, N_VAL=1, N_TEST=2, SEG_LEN=60, NUM_MERGES=30).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "check_launch_counts", lambda *a: None)
+    tiny = dict(vocab_size=400, d_model=32, encoder_layers=1, decoder_layers=1, num_heads=4,
+                ffn_dim=64, pad_token_id=399, decoder_start_token_id=399)
+    sl = chip_smoke.Slice(model="tiny-llama", batch=2, interp_pad_to_max=300,
+                          marian=tuple(tiny.items()), sentences=8, check_items=1)
+    counts, out = chip_smoke.slice_phase(root, vocab, merges, os.path.basename(ckpt), sl,
+                                         dev="cpu")
+    assert set(counts) == {"train_pad1000", "interpret"}
+    assert out["sentences_per_s"] > 0 and out["interp_ms_per_record"] > 0
+    reports = chip_smoke.german_reports(64)
+    assert len(set(reports)) == 64 and all(r.endswith(".") for r in reports)

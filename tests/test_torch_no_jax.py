@@ -11,7 +11,10 @@ its tokenizer and the ECG tokens registered, and a random BERT written by
 records through ``cli.preprocess_ecg`` and the segments through
 ``cli.sample_ecg``; and the two-stage CLIs: ``cli.pretrain --model
 resnet --tiny``, ``cli.finetune`` on its checkpoint and ``--inference``,
-and the CLIP and ViT image pipelines.  No source line imports JAX or the
+and the CLIP and ViT image pipelines; and this PR's modules:
+``translate_reports`` with a random Marian directory written by
+``chip_smoke``, ``cli.interp_analysis``, ``cli.token_distribution`` and
+``cli.track_bpe_encoding``.  No source line imports JAX or the
 JAX package, nor scikit-learn, pandas, pywt, wfdb, Pillow or optax."""
 
 import os
@@ -88,6 +91,32 @@ with tempfile.TemporaryDirectory() as root:
         stage2 = os.path.basename(finetune.main(args)["training"]["directory"])
         served = finetune.main(args + ["--inference", "--checkpoint", stage2])
         assert served["records"][0]["tokens"].shape == (1, 128)
+    finally:
+        os.chdir(cwd)
+    from ecg_byte_tpu_torch.cli import interp_analysis, token_distribution, track_bpe_encoding
+    from ecg_byte_tpu_torch.data.preprocess import translate_reports
+    mdir = os.path.join(root, "marian")
+    reports = chip_smoke.german_reports(4)
+    chip_smoke.write_random_marian(mdir, reports, dict(
+        vocab_size=300, d_model=16, encoder_layers=1, decoder_layers=1, num_heads=2, ffn_dim=32,
+        pad_token_id=299, decoder_start_token_id=299))
+    out = translate_reports(np.asarray(reports + [""], dtype=object), model_dir=mdir, device="cpu")
+    assert out[-1] == "" and all(isinstance(t, str) for t in out)
+    os.chdir(root)
+    try:
+        res = interp_analysis.main(["--device", "cpu", "--model", "tiny-llama",
+                                    "--tokenizer_check", "tokenizer_30", "--percentiles",
+                                    "data/ptb_500_dataset_stats.npy", "--seg_len", "60",
+                                    "--pad_to_max", "300"])
+        assert res["summary"]["records"] == 1
+        counts, lengths = token_distribution.main([
+            "--tokenizer", "data/tokenizer_30.pkl", "--ecg_glob", "data/ptb_500/ecg/train/*.npy",
+            "--percentiles", "data/ptb_500_dataset_stats.npy"])
+        ids, segmap = track_bpe_encoding.main([
+            "--tokenizer", "data/tokenizer_30.pkl", "--ecg_file",
+            os.path.join("data/ptb_500/ecg/test", sorted(os.listdir("data/ptb_500/ecg/test"))[0]),
+            "--percentiles", "data/ptb_500_dataset_stats.npy", "--leads", "0"])
+        assert len(lengths) == 4 and segmap[-1][1] == 12 * 60
     finally:
         os.chdir(cwd)
 params, config, tok = build_model("tiny-llama", vocab, cpu)

@@ -266,17 +266,30 @@ def test_preprocess_ptb_matches_jax(tmp_path):
 
 def test_translate_reports_passes_through_or_refuses(tmp_path, monkeypatch):
     """Without a checkpoint the reports pass through, as in the JAX package;
-    with one the port raises (the Marian model is ROADMAP section 1, item
-    7), it does not pass through quietly."""
+    a directory that holds no model is refused by both packages, not passed
+    through quietly; with a Marian directory (``chip_smoke``'s random one,
+    tiny) both translate it to the same texts, named directly or by
+    ``$ECG_BYTE_TRANSLATION_MODEL``."""
     monkeypatch.delenv(pre.TRANSLATION_ENV, raising=False)
     texts = ["sinusrhythmus", ""]
     assert list(pre.translate_reports(texts)) == list(jpre.translate_reports(texts))
     assert list(pre.translate_reports(texts, str(tmp_path / "missing"))) == texts
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pre.translate_reports(texts, str(tmp_path))
-    monkeypatch.setenv(pre.TRANSLATION_ENV, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Marian"):
-        pre.translate_reports(texts)
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError):
+        pre.translate_reports(texts, str(tmp_path / "empty"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jpre.translate_reports(texts, str(tmp_path / "empty"))
+    model = str(tmp_path / "marian")
+    reports = chip_smoke.german_reports(3)
+    chip_smoke.write_random_marian(model, reports, dict(
+        vocab_size=200, d_model=16, encoder_layers=1, decoder_layers=1, num_heads=2, ffn_dim=32,
+        max_position_embeddings=160, pad_token_id=199, decoder_start_token_id=199))
+    texts = reports + [""]
+    want = list(jpre.translate_reports(texts, model))
+    assert list(pre.translate_reports(texts, model, device="cpu")) == want
+    assert want[-1] == "" and all(want[:3])
+    monkeypatch.setenv(pre.TRANSLATION_ENV, model)
+    assert list(pre.translate_reports(texts, device="cpu")) == want
 
 
 # ---------------------------------------------------------------- the CLI

@@ -12,7 +12,8 @@ package reads its own stage-1 checkpoint.
 
 Held: the pretrain and finetune losses of every epoch within 1e-4
 relative (f32 through 2 epochs of Adam), the token streams of every
-``fusion_generate`` call identical, both serving modes, and the texts the
+``fusion_generate`` call identical, both serving modes, with prompts padded
+to the same multiple of 64 positions, and the texts the
 two CLIs score identical where both keep them.  ``--dis`` with a global
 batch its two ranks cannot split, and a run without ``--device`` on a
 machine with no card, are refused.
@@ -39,7 +40,7 @@ SERVE = FINETUNE + ["--inference", "--checkpoint", STAGE2]
 # Runs the pretrain and finetune CLIs of package argv[1] for each (cli,
 # argv) of the JSON list argv[2], with the port's random inits replaced by
 # the JAX package's draws and dropout off, and writes every
-# fusion_generate token stream to tokens.json.
+# fusion_generate token stream and prompt width to tokens.json.
 _SPY = r"""
 import importlib, json, sys
 import numpy as np
@@ -56,11 +57,12 @@ def merl(*args, **kw):
     kw.pop("dropout_generator", None)
     return real_merl(*args, **kw)
 
-streams = []
+streams, widths = [], []
 
 def generate(*args, **kw):
     out = real_generate(*args, **kw)
     streams.append(np.asarray(out.cpu() if hasattr(out, "cpu") else out).tolist())
+    widths.append(int(args[4]["tokenized_signal2"].shape[1]))
     return out
 
 def build(*args, **kw):
@@ -106,7 +108,7 @@ for cli, argv in runs:
     sys.argv = [cli] + argv
     clis[cli].main()
 with open("tokens.json", "w") as f:
-    json.dump(streams, f)
+    json.dump({"streams": streams, "widths": widths}, f)
 """
 
 
@@ -172,8 +174,10 @@ def test_two_stage_clis_match_jax(data, tmp_path):
     assert len(jt) == len(pt) == 4 and len(jv) == len(pv) == 2  # 2 pretrain + 2 finetune epochs
     np.testing.assert_allclose(pt, jt, rtol=1e-4)
     np.testing.assert_allclose(pv, jv, rtol=1e-4)
-    assert len(jtok) == len(ptok) == 2 * 5 * 2  # 2 serving runs x 5 seeds x 2 test records
-    assert ptok == jtok
+    assert len(jtok["streams"]) == len(ptok["streams"]) == 2 * 5 * 2  # 2 runs x 5 seeds x 2
+    assert ptok["streams"] == jtok["streams"]
+    # both CLIs pad the prompt to a multiple of 64 (the spliced one is 64k + 1)
+    assert ptok["widths"] == jtok["widths"] and all(w % 64 == 0 for w in ptok["widths"])
     # the JAX runner drops a sample whose scoring raised (BLEU of an empty
     # text); the port scores it zero and keeps its text (ROADMAP.md,
     # deliberate differences), so the texts are compared where JAX kept them
