@@ -71,8 +71,9 @@ Phases, each printing its own lines, in the order they run:
    its records encoded once into the device token cache; exact launch
    counts of the six training kernels, every cached stream held to the
    host trie's; then the train step timed alone.
-4. Serve: ``cli.main --inference --peft`` serves the checkpoint phase 6
-   wrote, LoRA merged; every serving kernel's launch count (none of BPE).
+4. Serve: ``cli.main --inference --peft --toy`` serves the checkpoint
+   phase 6 wrote (one record, 5 seeds), LoRA merged; every serving
+   kernel's launch count (none of BPE).
 8. Serve int8: ``cli.main --inference --int8_decode --peft --toy`` serves
    the same checkpoint, merged then quantized, with the int8 KV cache;
    every kernel's launch count (each prefill's projections on the
@@ -175,6 +176,20 @@ Phases, each printing its own lines, in the order they run:
     streams equal up to a near tie), sentences/s and ms a decode step;
     ``cli.token_distribution`` and ``cli.track_bpe_encoding`` on the
     ptb_500 files, without matplotlib.
+19. ``--tp`` and ``--fsdp`` (ranks sharing the card over gloo):
+    ``cli.main --dis --gpus 0,0 --tp 2`` and ``--fsdp 2`` at B4 x 1024,
+    exact launch counts per rank (under F = 2 each layer's forward runs
+    again in its backward), rank 0 alone writing the whole tree, each
+    checkpoint in the one-process shapes and served by ``cli.main
+    --inference``; a four-rank harness on T = 2 x F = 2 at full width and
+    4 layers whose steps at B4 x 1024 (resident kernels) and B1 x 4096
+    (flash kernels) are held to the one-process step and f32 by
+    :func:`hold_train_paths`, with each rank's step ms and the ms of its
+    tp, fsdp and data-group collectives (replayed alone); tensor-parallel
+    greedy decode at T = 2 on 16 layers, its prefill logits held by
+    :func:`hold_logits` and its tokens to one process's
+    (:func:`check_tp_stream`).  Phase 3 holds the attention kernels at a
+    rank's T = 2 heads (16/4).
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
@@ -311,11 +326,12 @@ class ServePath:
 # (the last position only); no BPE kernel (serving encodes on the host).
 # --toy decodes a quarter of the test records.
 NORMS = {"rmsnorm": 2 * LAYERS + 1}
+# phase 4 decodes one record (--toy), as phase 8 does: the script's time limit
 SERVE = ServePath(
-    "serve", "4. serve: cli.main --inference --peft on phase 6's checkpoint (LoRA merged)",
+    "serve", "4. serve: cli.main --inference --peft --toy on phase 6's checkpoint (LoRA merged)",
     f"5. serving kernel path vs plain path: one prompt + {TEACHER_FORCED} teacher-forced tokens",
-    (), NUM_MERGES, {"prefill_attention": LAYERS}, {"decode_attention": LAYERS}, NORMS,
-    records=N_TEST, min_prompt=1024)
+    ("--toy",), NUM_MERGES, {"prefill_attention": LAYERS}, {"decode_attention": LAYERS}, NORMS,
+    records=max(1, int(N_TEST * 0.25)), min_prompt=1024)
 SERVE_INT8 = ServePath(
     "serve_int8", "8. serve int8: cli.main --inference --int8_decode --peft --toy on phase 6's "
     "checkpoint (LoRA merged, then quantized; int8 KV cache)",
@@ -1107,7 +1123,8 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     for b, s, h, kh, d, pad in [(1, 1024, 32, 8, 64, 37), (1, 2048, 32, 8, 64, 37),
                                 (4, 1024, 32, 8, 64, 37), (4, 1024, 32, 8, 64, 300),
                                 (1, 1024, 25, 25, 64, 37), (1, 256, 8, 1, 256, 37),
-                                (1, 1024, 16, 4, 128, 37), (1, 1040, 25, 25, 64, 37)]:
+                                (1, 1024, 16, 4, 128, 37), (1, 1040, 25, 25, 64, 37),
+                                (4, 1024, 16, 4, 64, 37)]:  # a rank's heads at --tp 2
         shape = [b, s, h, kh, d]
         main = (b, s, h, pad) == (4, 1024, 32, 37)
         with torch.inference_mode():
@@ -1143,7 +1160,8 @@ def kernels_phase(root, merges, big_merges, serve_prompt):
     for b, s, h, kh, d, pad in [(4, 1024, 32, 8, 64, 37), (4, 1024, 32, 8, 64, 300),
                                 (1, 1024, 25, 25, 64, 37), (1, 256, 8, 1, 256, 37),
                                 (1, 1024, 16, 4, 128, 37), (1, 3072, 32, 8, 64, 37),
-                                (1, 1040, 25, 25, 64, 37)]:
+                                (1, 1040, 25, 25, 64, 37),
+                                (4, 1024, 16, 4, 64, 37)]:  # a rank's heads at --tp 2
         qg, k, v = randn(b, s, kh, h // kh, d), randn(b, s, kh, d), randn(b, s, kh, d)
         mask = torch.ones(b, s, dtype=torch.int32, device=dev)
         mask[:, :pad] = 0
@@ -1415,7 +1433,8 @@ def fused_decode_checks(record, dev, randn, serve_prompt):
         name = "decode_attention_int8" if int8 else "decode_attention"
         for b, s, h, kh, d, pad, at in [(1, 1152, 32, 8, 64, 3, 1100),
                                         (1, bucket + 128, 32, 8, 64, bucket - prompt_len,
-                                         bucket + 64)]:
+                                         bucket + 64),
+                                        (1, 1152, 16, 4, 64, 3, 1100)]:  # a rank's at --tp 2
             shape = [b, s, h, kh, d]
             with torch.inference_mode():
                 q, kb, vb = randn(b, 1, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
@@ -1649,7 +1668,8 @@ def flash_checks(record, dev, randn, serve_prompt):
     for b, s, h, kh, d, pad, bwd in [
             (1, 4096, 32, 8, 64, 300, True), (1, bucket, 32, 8, 64, bucket - prompt_len, False),
             (1, 8192, 32, 8, 64, 37, True), (1, 4096, 25, 25, 64, 128, True),
-            (1, 4096, 8, 1, 256, 1, True), (1, 4000, 32, 8, 64, 127, True)]:
+            (1, 4096, 8, 1, 256, 1, True), (1, 4000, 32, 8, 64, 127, True),
+            (1, 4096, 16, 4, 64, 300, True)]:  # a rank's heads at --tp 2
         qg, k, v = randn(b, s, kh, h // kh, d), randn(b, s, kh, d), randn(b, s, kh, d)
         mask = torch.ones(b, s, dtype=torch.int32, device=dev)
         mask[:, :pad] = 0
@@ -3865,13 +3885,17 @@ def rank_steps(n, batch, world, rank, epochs=2):
     return epochs * sum(steps[:10])
 
 
-def dis_train_counts(layers, steps, evals, embeds_grad=False):
+def dis_train_counts(layers, steps, evals, embeds_grad=False, replay=False):
     """One rank's launches: per train step each layer's attention forward and
     backward, 2L + 1 norms forward and 2L backward (2L + 1 where layer 0's
     input takes a gradient, the spliced embeddings); per eval step the
-    forwards."""
-    return {"prefill_attention": layers * (steps + evals), "prefill_attention_bwd": layers * steps,
-            "rmsnorm": (2 * layers + 1) * (steps + evals),
+    forwards.  ``replay``: each layer's forward runs again in its backward
+    (``--fsdp``: the layer under ``torch.utils.checkpoint``), its attention
+    and its two norms."""
+    again = int(replay) * steps
+    return {"prefill_attention": layers * (steps + evals + again),
+            "prefill_attention_bwd": layers * steps,
+            "rmsnorm": (2 * layers + 1) * (steps + evals) + 2 * layers * again,
             "rmsnorm_bwd": (2 * layers + int(embeds_grad)) * steps}
 
 
@@ -4697,6 +4721,513 @@ def slice_phase(root, vocab, merges, checkpoint, sl=SLICE, dev="cuda"):
     return by_path, out
 
 
+# ------------------------------------------------ phase 19: --tp and --fsdp
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The sizes of phase 19: full width on the card (the defaults), tiny for
+    a rehearsal on the CPU."""
+
+    llm: str = MODEL
+    batch: int = 4  # the global batch of the CLI runs and of the harness's B x 1024 step
+    pad_to_max: int = 1020  # S 1024, as phase 6
+    long_pad_to_max: int = 4092  # S 4096, as phase 10: the flash kernels
+    layers: int = 4  # the harness's depth (the decode check's: the model's)
+    new_tokens: int = 16
+
+
+GRID = Grid()
+GRID_TP, GRID_FSDP = 2, 2  # the harness's grid: four ranks on one card
+# what each collective of a step is, by the group it runs on
+_GROUP_KINDS = ("tp", "fsdp", "data", "host")
+
+
+def check_tp_stream(tp, one, margins, bound):
+    """The token stream of a tp group against one process's: equal, or where
+    they part, one process's top-2 margin at that step (``margins[k]``) no
+    wider than ``bound``, the logits' own error (a near tie flips either
+    way).  Returns the first step where they part (None: equal)."""
+    tp, one = [int(t) for t in tp], [int(t) for t in one]
+    if tp == one:
+        return None
+    k = next(i for i, (a, b) in enumerate(zip(tp, one)) if a != b)
+    print(f"tp stream parts from one process's at step {k}: one process's top-2 margin "
+          f"{margins[k]:.4e} against the logits bound {bound:.4e}")
+    assert margins[k] <= bound, (f"the tp stream parts at step {k}, where one process's top-2 "
+                                 f"margin {margins[k]:.4e} is wider than {bound:.4e}")
+    return k
+
+
+@contextlib.contextmanager
+def recorded_collectives(log):
+    """Log each collective that ``torch.distributed`` runs in the block: its
+    function, tensor shapes and dtype, group and op (the port's collectives
+    call them through the module, so the patch sees every one)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        def call(*args, **kw):
+            tensors = [a for a in args if hasattr(a, "shape")]
+            log.append((name, [(tuple(t.shape), t.dtype, t.device) for t in tensors],
+                        kw.get("group"), kw.get("op")))
+            return saved[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def replay_collectives(log, kind_of, repeats=3):
+    """ms of each kind of the collectives in ``log`` (one step's), replayed
+    alone on fresh tensors of their shapes, every rank in the same order:
+    host clock around ``torch.cuda.synchronize`` (gloo copies through the
+    host)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for kind in _GROUP_KINDS:
+        calls = [c for c in log if kind_of(c[2]) == kind]
+        bufs = [[torch.zeros(shape, dtype=dt, device=d) for shape, dt, d in specs]
+                for _, specs, _, _ in calls]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            for (name, _, group, op), b in zip(calls, bufs):
+                kw = {"group": group} if op is None else {"group": group, "op": op}
+                getattr(dist, name)(*b, **kw)
+        torch.cuda.synchronize()
+        out[kind] = ((time.perf_counter() - t0) * 1e3 / repeats, len(calls))
+    return out
+
+
+def _grid_model(root, vocab, merges, g, dev, layers, n, pad_to_max):
+    """The main path's random model (seed 0) cut to ``layers``, LoRA adapters
+    with B != 0 (seed 2), and ``n`` training items at ``pad_to_max``."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.common import build_model
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+    from ecg_byte_tpu_torch.train.step import _batch_tensors
+
+    params, config, tok = build_model(g.llm, vocab, dev)
+    params = {**params, "layers": params["layers"][:layers]}
+    config = config.replace(num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lora = lora_lib.init_lora(config, gen, dev)
+    for layer in lora["layers"]:  # B != 0, so that dA != 0
+        for ab in layer.values():
+            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
+                ab["b"].dtype)
+    batch = _batch_tensors(_training_items(root, vocab, merges, tok, n, pad_to_max), dev)
+    return params, config, lora, batch
+
+
+def grid_lm_run(params, config, lora, batch):
+    """The port's train step's forward and backward (LoRA dropout on, its
+    masks drawn for the global batch) on the global ``batch``, on this
+    rank's grid (one process without one): the state sharded by the JAX
+    specs, this rank's rows.  Returns (loss, [(global row, cross entropies
+    at its labelled positions, at its valid positions)] of the rows it
+    holds, {LoRA group: whole gradient}); the loss and gradients are the
+    global batch's."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.parallel import Rows, mesh, sharding
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import (
+        _no_rows,
+        compute_gradients,
+        create_train_state,
+        shard_train_state,
+    )
+
+    dev = batch["input_ids"].device
+    opt = make_optimizer(config.hidden_size, 500)
+    lora = _map_tree(lambda t: t.detach().clone(), lora)
+    state = create_train_state(config, opt, torch.Generator(device=dev), peft=True, params=params,
+                               lora=lora)
+    state = shard_train_state(state, opt)
+    total = len(batch["input_ids"])
+    rows = Rows.stride(total, mesh.data_world(), mesh.data_rank())
+    local = shard_rows(batch, rows)
+    loss = compute_gradients(config, state, local, torch.Generator().manual_seed(0), rows=rows,
+                             n_valid=int((batch["labels"][:, 1:] != -100).sum()))
+    names = [(n, k) for n in lora["layers"][0] for k in ("a", "b")]
+    grads = {f"LoRA {n}.{k}": torch.cat([
+        sharding.gather(sharding.mark(layer[n][k].grad, layer[n][k])).float().flatten()
+        for layer in state.trainable["layers"]]).cpu() for n, k in names}
+    ces = []
+    held = len(rows.index)
+    # every rank of an fsdp group runs as many forwards and heads as the one
+    # holding the most rows (a row no loss counts where it holds fewer), so
+    # their gathers stay in step
+    most = -(-total // mesh.data_world())
+    run = local if held else _no_rows(local, rows)[0]
+    with torch.no_grad():
+        hidden = T.forward(state.base, config, run["input_ids"], run["attn_mask"],
+                           run["position_ids"], lora=state.trainable, return_hidden=True)
+        for i in range(most):
+            j = min(i, held - 1) if held else 0  # past its rows: a row no result reads
+            h = hidden[i:i + 1] if i < held else torch.zeros_like(hidden[:1])
+            logits = T._unembed(state.base, config, h)[0, :-1]  # this rank's vocabulary columns
+            labels, nxt = run["labels"][j, 1:], run["input_ids"][j, 1:]
+            lab = vocab_ce(logits, labels.clamp_min(0), config.vocab_size)
+            every = vocab_ce(logits, nxt, config.vocab_size)
+            del logits
+            if i < held:
+                ces.append((rows.index[i], lab[labels != -100].cpu(),
+                            every[local["attn_mask"][i, 1:].bool()].cpu()))
+    return loss.item(), ces, grads
+
+
+def vocab_ce(logits, targets, vocab):
+    """The cross entropy of ``targets`` at each row of f32 ``logits`` (S, V),
+    as logsumexp minus the target's logit; under ``--tp`` ``logits`` is this
+    rank's block of the vocabulary (``transformer._unembed``), and the max,
+    the sum of exponentials and the target's logit are reduced over the tp
+    group, so no rank gathers the whole (S, V)."""
+    import torch
+
+    from ecg_byte_tpu_torch.parallel import distributed, mesh
+
+    g = mesh.grid()
+    lo = g.t * -(-vocab // g.tp)
+    local = targets - lo
+    held = (local >= 0) & (local < logits.shape[-1])
+    lab = torch.where(held, logits.gather(1, local.clamp(0, logits.shape[-1] - 1)[:, None])[:, 0],
+                      0.0)
+    m = logits.amax(-1)
+    if g.tp > 1:
+        distributed.all_reduce_(m, g.tp_group, "max")
+    se = torch.exp(logits - m[:, None]).sum(-1)
+    if g.tp > 1:
+        distributed.all_reduce_(se, g.tp_group)
+        distributed.all_reduce_(lab, g.tp_group)
+    return m + torch.log(se) - lab
+
+
+def _tp_prompt(root, vocab, merges, tok, dev):
+    """The first test record as the CLI's serving prompt, left-padded to its
+    bucket: (ids, mask), (1, S)."""
+    import numpy as np
+    import torch
+
+    from ecg_byte_tpu_torch.data import DataConfig, ECGTokenDataset
+    from ecg_byte_tpu_torch.utils.file_utils import align_signal_text_files
+
+    data = os.path.join(root, "data")
+    sigs, texts = align_signal_text_files(f"{data}/ptb_500/ecg/test", f"{data}/ptb_500/text/test")
+    item = ECGTokenDataset(sigs[:1], texts[:1], vocab, merges, tokenizer=tok,
+                           args=DataConfig(percentiles=f"{data}/ptb_500_dataset_stats.npy",
+                                           inference=True))[0]
+    n = len(item["tokenized_signal"])
+    s = bucket(n)
+    ids = np.concatenate([np.full(s - n, tok.pad_token_id), item["tokenized_signal"]])
+    mask = np.concatenate([np.zeros(s - n), np.ones(n)])
+    return (torch.from_numpy(ids).long()[None].to(dev),
+            torch.from_numpy(mask).to(torch.int32)[None].to(dev))
+
+
+def tp_decode_run(params, config, ids, mask, new_tokens):
+    """Greedy decode of the prompt on this rank's tp group (one process
+    without one): (tokens (new_tokens,), the prefill's whole last-position
+    logits (1, 1, V) on the host)."""
+    import torch
+
+    from ecg_byte_tpu_torch.infer import greedy_generate
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    tokens = greedy_generate(params, config, ids, mask, max_new_tokens=new_tokens,
+                             eos_token_id=-1, pad_token_id=0)[0]
+    with torch.inference_mode():
+        cache = T.init_kv_cache(config, 1, ids.shape[1], ids.device)
+        logits, _, _ = T.prefill(params, config, ids, mask, cache)
+        logits = T.gather_vocab(logits, config.vocab_size)
+    return tokens.cpu(), logits[None].float().cpu()
+
+
+def grid_rank(roots, g, dev="cuda"):
+    """One rank of phase 19's harness (four ranks).  On T = 2 x F = 2: the
+    main path's step at B x 1024 and at B1 x 4096 (:func:`grid_lm_run`) at
+    ``g.layers`` layers, the kernels each launched; on the card the step's
+    ms (CUDA events) and the ms of its tp, fsdp and data-group collectives
+    (one step's, :func:`recorded_collectives`, replayed alone).  Then on T
+    = 2 (dp 2 x tp 2) greedy decode of the serving prompt at the model's
+    depth (:func:`tp_decode_run`), with its launches.  ``roots``: ((root,
+    vocab, merges) of the 1,024 and of the 4,096-token data).  ``dev="cpu"``:
+    the checks alone, for a rehearsal."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.common import build_model
+    from ecg_byte_tpu_torch.parallel import Rows, distributed, mesh, sharding
+    from ecg_byte_tpu_torch.parallel.batches import shard_rows
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+        shard_train_state,
+    )
+
+    timed = dev == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if timed else torch.device(dev)
+    out = {"rank": distributed.rank(), "seconds": {}}
+    t0 = time.perf_counter()
+    grid = mesh.init(GRID_TP, GRID_FSDP)
+    for key, (root, vocab, merges), n, pad in (("lm", roots[0], g.batch, g.pad_to_max),
+                                               ("long", roots[1], 1, g.long_pad_to_max)):
+        params, config, lora, batch = _grid_model(root, vocab, merges, g, dev, g.layers, n, pad)
+        before = launches()
+        out[key] = grid_lm_run(params, config, lora, batch)
+        out[f"{key}_launches"] = {k: v - before[k] for k, v in launches().items()}
+        if timed and key == "lm":
+            opt = make_optimizer(config.hidden_size, 500)
+            state = create_train_state(config, opt, torch.Generator(device=dev), peft=True,
+                                       params=params, lora=_map_tree(lambda t: t.clone(), lora))
+            state = shard_train_state(state, opt)
+            step, gen = make_train_step(config, opt), torch.Generator().manual_seed(0)
+            rows = Rows.stride(n, grid.data_world, grid.data_rank)
+            local, n_valid = shard_rows(batch, rows), int((batch["labels"][:, 1:] != -100).sum())
+            log = []
+            with recorded_collectives(log):  # the warm-up step
+                step(state, local, gen, rows, n_valid)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(2):
+                step(state, local, gen, rows, n_valid)
+            end.record()
+            torch.cuda.synchronize()
+            out["step_ms"] = start.elapsed_time(end) / 2
+            kinds = {id(grid.tp_group): "tp", id(grid.fsdp_group): "fsdp",
+                     id(grid.data_group): "data", id(grid.dp_group): "data"}
+            out["collectives"] = replay_collectives(log, lambda grp: kinds.get(id(grp), "host"),
+                                                    repeats=1)
+            del state
+        del params, lora, batch
+        if timed:
+            torch.cuda.empty_cache()
+        out["seconds"][key] = time.perf_counter() - t0
+    mesh.reset()
+    mesh.init(GRID_TP, 1)  # dp 2 x tp 2: each tp group decodes the prompt
+    root, vocab, merges = roots[0]
+    params, config, tok = build_model(g.llm, vocab, dev)
+    params = sharding.shard_tree(params, sharding.param_splits(params))
+    ids, mask = _tp_prompt(root, vocab, merges, tok, dev)
+    before = launches()
+    out["decode"] = tp_decode_run(params, config, ids, mask, g.new_tokens)
+    out["decode_launches"] = {k: v - before[k] for k, v in launches().items()}
+    out["decode_cache_heads"] = config.num_kv_heads // mesh.tp_size()
+    out["seconds"]["decode"] = time.perf_counter() - t0
+    return out
+
+
+def grid_phase(root, vocab, merges, long, g=GRID, dev="cuda"):
+    """Phase 19: ``--tp`` and ``--fsdp`` on the card, the ranks sharing it
+    over gloo.  ``cli.main --dis --gpus 0,0 --tp 2`` and ``--fsdp 2``, each
+    with exact launch counts per rank (:func:`check_dis_ranks`), its
+    checkpoint the whole tree in the one-process shapes, served by
+    ``cli.main --inference``; the four-rank harness (:func:`grid_rank`)
+    whose steps are held to one process and f32 by
+    :func:`hold_train_paths`, and whose tp decode is held by
+    :func:`hold_logits` and :func:`check_tp_stream`.  The one-process tree
+    is phase 17's W = 1 checkpoint, in the same run directory.  ``long``:
+    (root, vocab, merges) of the 4,096-token data.  Returns the launch
+    counts by path and the numbers.  (``dev="cpu"`` with a tiny ``Grid`` rehearses it
+    on the CPU, with ``N_TRAIN``, ``N_VAL``, ``_cli_args``,
+    ``check_launch_counts``, ``hold_train_paths``, ``hold_logits`` and
+    ``serve_phase`` patched.)"""
+    import torch
+
+    from ecg_byte_tpu_torch.cli import main as cli_main
+    from ecg_byte_tpu_torch.cli.common import _PRESETS, build_model
+    from ecg_byte_tpu_torch.models.lora import leaves
+    from ecg_byte_tpu_torch.parallel.spawn import spawn
+
+    phase(f"19. --tp / --fsdp: cli.main --dis --gpus 0,0 at --tp 2 and at --fsdp 2, B{g.batch} x "
+          f"{g.pad_to_max + 4}; a T = {GRID_TP} x F = {GRID_FSDP} harness at {g.layers} layers "
+          f"(B{g.batch} x {g.pad_to_max + 4}, B1 x {g.long_pad_to_max + 4}); tp decode, "
+          f"{g.new_tokens} tokens")
+    t_phase = time.perf_counter()
+    cpu = dev == "cpu"
+    extra = ["--device", "cpu"] if cpu else []
+    L = _PRESETS[g.llm]().num_layers
+    n_train, n_val = (max(1, int(n * 0.25)) for n in (N_TRAIN, N_VAL))  # --toy
+    numbers, by_path = {}, {}
+    main_args = _cli_args() + ["--model", g.llm, "--peft", "--dev", "--toy", "--batch_size",
+                               str(g.batch), "--pad_to_max", str(g.pad_to_max)]
+    args = cli_main.get_args(main_args)
+    args.epochs = 2  # --dev, as cli.main.run sets it
+    best = os.path.join(root, cli_main.make_run_dir(args), "best_model.pt")
+    one = torch.load(best, map_location="cpu", weights_only=True)["state"]
+    shapes = {name: [tuple(t.shape) for t in leaves(one[name])] for name in ("trainable", "base")}
+    del one
+    for key, flags, replay in (("grid_tp", ["--tp", "2"], False),
+                               ("grid_fsdp", ["--fsdp", "2"], True)):
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.chdir(root):
+            out = cli_main.main(main_args + ["--dis", "--gpus", "0,0", "--ports", "0"] + flags
+                                + extra)
+        wall = time.perf_counter() - t0
+        assert launches() == dict.fromkeys(SOURCES, 0), "this process launched a kernel"
+        assert [r["backend"] for r in out["ranks"]] == ["gloo"] * 2, out["ranks"]
+        # every rank takes every step (T = 2: the same rows; F = 2: a rank
+        # without rows runs a row no loss counts)
+        want = {**dis_train_counts(L, rank_steps(n_train, g.batch, 1, 0),
+                                   rank_steps(n_val, g.batch, 1, 0), replay=replay),
+                "bpe_match": 2, "bpe_chain": 2}
+        check_dis_ranks(out, [want] * 2, f"cli.main --dis {' '.join(flags)}")
+        s = out["training"]
+        numbers[f"{key}_ms_per_step_host"] = s["seconds"] / s["steps"] * 1e3
+        print(f"{key}: {s['steps']} steps, train loss {s['train_loss']}, val loss "
+              f"{s['val_loss']}; launches {[r['launches'] for r in out['ranks']]}; written "
+              f"{[r['written'] for r in out['ranks']]}; "
+              f"{numbers[f'{key}_ms_per_step_host']:.1f} ms a step with its data and evaluation "
+              f"(host clock); wall {wall:.1f} s")
+        by_path[key] = {k: sum(r["launches"][k] for r in out["ranks"]) for k in SOURCES}
+        saved = torch.load(os.path.join(root, out["training"]["directory"], "best_model.pt"),
+                           map_location="cpu", weights_only=True)["state"]
+        got = {name: [tuple(t.shape) for t in leaves(saved[name])] for name in ("trainable", "base")}
+        assert got == shapes, f"{key}: the checkpoint is not the one-process tree"
+        del saved
+        serve = dataclasses.replace(SERVE_GRID, key=f"serve_{key}",
+                                    serve_title=f"19. serve {key}'s checkpoint")
+        by_path[serve.key], numbers[f"serve_{key}_ms_per_token"] = serve_phase(
+            root, os.path.basename(out["training"]["directory"]), serve)
+
+    # the four-rank harness, against one process and f32
+    t0 = time.perf_counter()
+    roots = ((root, vocab, merges), long)
+    harness = spawn(grid_rank, (roots, g, dev), world=GRID_TP * GRID_FSDP,
+                    devices=None if cpu else [0] * (GRID_TP * GRID_FSDP), timeout_s=600)
+    print(f"harness: {len(harness)} ranks (gloo) in {time.perf_counter() - t0:.1f} s; rank 0's "
+          f"clock at the end of each part: {harness[0]['seconds']}")
+    for r in harness:
+        for key, kernels in (("lm", ("prefill_attention", "prefill_attention_bwd", "rmsnorm",
+                                      "rmsnorm_bwd")),
+                             ("long", ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                                       "rmsnorm_bwd")),
+                             ("decode", ("prefill_attention", "decode_attention", "rmsnorm"))):
+            counts = r[f"{key}_launches"]
+            if not cpu:
+                assert all(counts[k] > 0 for k in kernels), (r["rank"], key, counts)
+        # greedy_generate's prefill and new_tokens - 1 steps, and the prefill
+        # whose logits are held
+        want = {"prefill_attention": 2 * L, "decode_attention": L * (g.new_tokens - 1),
+                "rmsnorm": (2 * L + 1) * (g.new_tokens + 1)}
+        check_launch_counts(r["decode_launches"], want, f"tp decode, rank {r['rank']}")
+        by_path.setdefault("grid_harness", dict.fromkeys(SOURCES, 0))
+        for key in ("lm_launches", "long_launches", "decode_launches"):
+            for k in SOURCES:
+                by_path["grid_harness"][k] += r[key][k]
+        assert r["decode_cache_heads"] == _PRESETS[g.llm]().num_kv_heads // GRID_TP
+        if "step_ms" in r:
+            numbers[f"harness_rank{r['rank']}_step_ms"] = r["step_ms"]
+            col = r["collectives"]
+            for kind, (ms, n) in col.items():
+                numbers[f"harness_rank{r['rank']}_{kind}_ms"] = ms
+            print(f"T = {GRID_TP} x F = {GRID_FSDP} train step B{g.batch} x {g.pad_to_max + 4}, "
+                  f"{g.layers} layers, rank {r['rank']}: {r['step_ms']:.2f} ms (CUDA events); its "
+                  "collectives replayed alone: " + ", ".join(
+                      f"{kind} {ms:.2f} ms ({n} calls, {100 * ms / r['step_ms']:.1f}%)"
+                      for kind, (ms, n) in col.items()))
+    for key, (data, pad, n) in (("lm", ((root, vocab, merges), g.pad_to_max, g.batch)),
+                                ("long", (long, g.long_pad_to_max, 1))):
+        params, config, lora, batch = _grid_model(*data, g, torch.device(dev), g.layers, n, pad)
+        one = grid_lm_run(params, config, lora, batch)
+        with plain_path():
+            f32 = lambda t: t.float()  # noqa: E731
+            ref = grid_lm_run(_map_tree(f32, params), config.replace(dtype="float32"),
+                              _map_tree(f32, lora), batch)
+        del params, lora, batch
+        if not cpu:
+            torch.cuda.empty_cache()
+
+        def flat(res):
+            rows = sorted(res[1], key=lambda x: x[0])
+            return (res[0], torch.cat([x[1] for x in rows]), torch.cat([x[2] for x in rows]),
+                    res[2])
+
+        assert all(r[key][0] == harness[0][key][0] for r in harness), [r[key][0] for r in harness]
+        kern = (harness[0][key][0], *(torch.cat([x[j] for x in sorted(
+            [c for r in harness if r["rank"] % GRID_TP == 0 for c in r[key][1]],
+            key=lambda c: c[0])]) for j in (1, 2)), harness[0][key][2])
+        one, ref = flat(one), flat(ref)
+        print(f"{key} step: T = {GRID_TP} x F = {GRID_FSDP} loss {kern[0]:.6f}, one process "
+              f"{one[0]:.6f}, f32 {ref[0]:.6f}; against one process: " + ", ".join(
+                  f"{k} {(torch.linalg.vector_norm(kern[3][k] - one[3][k]) / torch.linalg.vector_norm(one[3][k])).item():.2e}"
+                  for k in one[3]))
+        print("errors against f32 (the grid in the kernel path's place / one process):")
+        hold_train_paths([kern], [one], [ref])
+
+    print(f"the one-process and f32 steps held, {time.perf_counter() - t_phase:.1f} s into "
+          "the phase")
+    # tp decode against one process: the prefill logits and the streams
+    params, config, tok = build_model(g.llm, vocab, torch.device(dev))
+    ids, mask = _tp_prompt(root, vocab, merges, tok, torch.device(dev))
+    one_tokens, one_logits = tp_decode_run(params, config, ids, mask, g.new_tokens)
+    with plain_path():
+        f32 = lambda t: t.float()  # noqa: E731
+        params32 = _map_tree(f32, params)
+        _, ref_logits = tp_decode_run(params32, config.replace(dtype="float32"), ids, mask, 1)
+        del params32
+    margins = teacher_margins(params, config, ids, mask, one_tokens)
+    del params
+    bound = 2 * (one_logits - ref_logits).abs().max().item()
+    for r in harness:
+        tokens, logits = r["decode"]
+        print(f"tp decode, rank {r['rank']}: prompt {ids.shape[1]} tokens, tokens "
+              f"{tokens.tolist()}; one process {one_tokens.tolist()}")
+        hold_logits(logits, one_logits, ref_logits)
+        check_tp_stream(tokens, one_tokens, margins, bound)
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {json.dumps(numbers)}; phase wall {numbers['wall_s']:.1f} s")
+    return by_path, numbers
+
+
+def teacher_margins(params, config, ids, mask, tokens):
+    """One process's top-2 logit margin at each step of its greedy
+    ``tokens`` on the prompt (prefill, then each token fed back)."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    s, n = ids.shape[1], len(tokens)
+    dev = ids.device
+    with torch.inference_mode():
+        cache = T.init_kv_cache(config, 1, s + n, dev)
+        logits, cache, pos = T.prefill(params, config, ids, mask, cache)
+        out = [logits]
+        cache_mask = torch.cat([mask, torch.zeros(1, n, dtype=torch.int32, device=dev)], 1)
+        pos = pos.to(torch.int32)
+        for k in range(n - 1):
+            cache_mask[:, s + k] = 1
+            logits, cache = T.decode_step(params, config, tokens[k:k + 1].to(dev), pos, s + k,
+                                          cache, cache_mask)
+            out.append(logits)
+            pos = pos + 1
+        top = torch.stack(out)[:, 0].float().topk(2, -1).values
+    return (top[:, 0] - top[:, 1]).cpu().tolist()
+
+
+SERVE_GRID = ServePath(
+    "serve_grid", "19. serve: cli.main --inference --peft --toy on a grid's checkpoint",
+    "", ("--toy",), NUM_MERGES, {"prefill_attention": LAYERS}, {"decode_attention": LAYERS},
+    NORMS, records=max(1, int(N_TEST * 0.25)), min_prompt=1024)
+
+
 def main() -> int:
     import torch
 
@@ -4744,6 +5275,8 @@ def main() -> int:
         by_path.update(ddp_counts)
         slice_counts, sl = slice_phase(root, vocab, merges, train["checkpoint"])
         by_path.update(slice_counts)
+        grid_counts, grid = grid_phase(root, vocab, merges, (long_root, long_vocab, long_merges))
+        by_path.update(grid_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
                 "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax"):
         assert mod not in sys.modules, f"{mod} was imported"
@@ -4786,6 +5319,12 @@ def main() -> int:
           f"{SLICE.interp_pad_to_max + 4}, peak {sl['interp_peak_gib']:.2f} GiB; translation "
           f"{sl['sentences_per_s']:.1f} sentences/s, {sl['marian_step_ms']:.3f} ms a decode step "
           f"at B32 (host clock); phase 18 {sl['wall_s']:.1f} s")
+    h = [grid.get(f"harness_rank{r}_step_ms") for r in range(GRID_TP * GRID_FSDP)]
+    print(f"--tp / --fsdp: harness step at T = {GRID_TP} x F = {GRID_FSDP}, {GRID.layers} layers, "
+          f"B{GRID.batch} x {GRID.pad_to_max + 4}: {h} ms a rank (CUDA events); rank 0's "
+          f"collectives: tp {grid['harness_rank0_tp_ms']:.2f} ms, fsdp "
+          f"{grid['harness_rank0_fsdp_ms']:.2f} ms, data {grid['harness_rank0_data_ms']:.2f} ms; "
+          f"phase 19 {grid['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,24 +44,38 @@ _PRESETS = {
 NOT_PORTED = {
     "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
                "the first benchmark PR)",
-    "tp": "tensor parallelism (the JAX mesh's tp axis) under --dis, ROADMAP.md section 1, "
-          "item 8",
-    "fsdp": "ZeRO-3 sharding (the JAX mesh's fsdp axis) under --dis, ROADMAP.md section 1, "
-            "item 8",
 }
-# mesh sizes: 1 is data parallelism alone, and without --dis the JAX CLI
-# leaves them unused (a one-device mesh)
-_MESH_AXES = ("tp", "fsdp")
 
 
 def refuse_unported(args) -> None:
     """Exit naming the ROADMAP.md item of a flag the port does not have yet."""
     for flag, where in NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if flag in _MESH_AXES:
-            value = getattr(args, "dis", False) and value is not None and value > 1
-        if value:
+        if getattr(args, flag, None):
             raise SystemExit(f"--{flag} is not ported yet: {where}")
+
+
+def model_config(model_name: Optional[str], hf_weights: Optional[str] = None):
+    """The config ``build_model`` builds, without its weights (before the
+    ECG tokens grow the vocabulary)."""
+    if hf_weights:
+        from ecg_byte_tpu_torch.models.hf_loader import config_from_hf
+
+        return config_from_hf(hf_weights)
+    if model_name not in _PRESETS:
+        raise ValueError(f"unknown model {model_name!r}; options: {sorted(_PRESETS)} "
+                         "or pass --hf_weights for a local checkpoint")
+    return _PRESETS[model_name]()
+
+
+def check_tp(config, tp: int) -> None:
+    """Exit unless ``tp`` divides the KV heads, the query heads and the MLP
+    width: the attention kernels take whole KV groups a rank
+    (``ecg_byte_tpu/ops/flash_attention.py:404-408`` keeps whole groups per
+    shard; ``resident_attention_sharded`` shards KH over tp)."""
+    for what, n in (("num_kv_heads", config.num_kv_heads), ("num_heads", config.num_heads),
+                    ("intermediate_size", config.intermediate_size)):
+        if n % tp:
+            raise SystemExit(f"--tp {tp} must divide the model's {what} ({n})")
 
 
 def set_seed(seed: int) -> None:

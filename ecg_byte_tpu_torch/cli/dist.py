@@ -11,7 +11,13 @@ processes:
   reference spawns them (main.py:356-364);
 - ``--batch_size`` stays the global batch: each rank takes ``batch_size /
   world`` rows of it, and the training loops take the steps every rank
-  agrees on (``parallel/batches.py``).
+  agrees on (``parallel/batches.py``);
+- ``--tp T`` and ``--fsdp F`` (``cli.main``) lay the ranks out as the JAX
+  mesh (``parallel/mesh.py``): each rank then takes ``batch_size / (dp *
+  F)`` rows, the ranks of a tp group the same ones.  :func:`launch`
+  refuses, before any rank starts, a T that does not divide the model's
+  KV heads, heads and MLP width, a T * F that does not divide the world,
+  and a global batch that dp * F does not divide.
 
 Serving ignores ``--dis``, as the JAX CLI uses its mesh only for training.
 """
@@ -24,7 +30,7 @@ from typing import Callable
 
 import torch
 
-from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel import distributed, mesh
 from ecg_byte_tpu_torch.parallel.batches import check_batch
 from ecg_byte_tpu_torch.parallel.spawn import spawn
 
@@ -47,14 +53,26 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(entry: Callable, args):
+def grid_sizes(args):
+    """(T, F) of ``args`` (1, 1 for a CLI without the flags)."""
+    return getattr(args, "tp", 1) or 1, getattr(args, "fsdp", 1) or 1
+
+
+def launch(entry: Callable, args, config=None):
     """Run ``entry(args)`` on every rank of ``--dis`` and return rank 0's
     result with ``"ranks"``: every rank's result, each with its ``rank``,
     ``device``, ``backend``, ``launches`` (the kernels its run launched,
     ``ops.launch_counts``) and ``written`` (the checkpoint roles it
-    wrote).  A rank that raises ends the run (``parallel/spawn.py``)."""
+    wrote).  A rank that raises ends the run (``parallel/spawn.py``).
+    ``config``: the model's, checked against ``--tp``."""
+    from ecg_byte_tpu_torch.cli.common import check_tp
+
     world = world_size(args)
-    check_batch(args.batch_size, world)
+    tp, fsdp = grid_sizes(args)
+    if config is not None:
+        check_tp(config, tp)
+    mesh.check_grid(world, tp, fsdp)
+    check_batch(args.batch_size, world, tp)
     cpu = args.device is not None and torch.device(args.device).type == "cpu"
     gpus = _gpus(args)
     if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
@@ -65,6 +83,7 @@ def launch(entry: Callable, args):
             _cuda_or_exit()
             torch.cuda.set_device(devices[local])
         distributed.init(int(os.environ["RANK"]), world, backend, "env://")
+        mesh.init(tp, fsdp)
         try:
             result = _rank(entry, args, devices[local], backend)
         finally:
@@ -86,6 +105,7 @@ def _cuda_or_exit():
 
 
 def _spawned(entry, args, gpus, backend):
+    mesh.init(*grid_sizes(args))
     return _rank(entry, args, gpus[distributed.rank()], backend)
 
 
@@ -96,11 +116,12 @@ def _rank(entry, args, gpu: int, backend: str):
     cpu = args.device is not None and torch.device(args.device).type == "cpu"
     if not cpu:
         args.device = f"cuda:{gpu}"
-    world = distributed.world()
+    world, g = distributed.world(), mesh.grid()
     if distributed.is_primary():
-        print(f"--dis: {world} ranks, backend {backend} (NCCL where each rank has a GPU of its "
-              f"own, else gloo), global batch {args.batch_size} = {world} x "
-              f"{args.batch_size // world}, collective timeout {distributed.TIMEOUT_S} s")
+        print(f"--dis: {world} ranks as dp {g.dp} x fsdp {g.fsdp} x tp {g.tp}, backend "
+              f"{backend} (NCCL where each rank has a GPU of its own, else gloo), global batch "
+              f"{args.batch_size} = {g.data_world} x {args.batch_size // g.data_world}, "
+              f"collective timeout {distributed.TIMEOUT_S} s")
     print(f"--dis: rank {distributed.rank()} on {args.device or 'cuda'}")
     launched, written = launch_counts(), len(checkpoint.written)
     result = entry(args)

@@ -31,7 +31,11 @@ global batch, each rank takes ``batch_size / world`` of its rows, and every
 step, loss, skip, early stop and checkpoint is the one process's on the
 same global batches.  Under ``torchrun`` each process is a rank; else one
 process per device of ``--gpus`` (``--gpus 0,0`` puts two ranks on one
-card, over gloo).  Serving ignores ``--dis``.
+card, over gloo).  ``--tp T`` and ``--fsdp F`` lay the ranks out as the JAX
+mesh's (dp, fsdp, tp) axes (``parallel/mesh.py``): tensor parallelism
+over T adjacent ranks and ZeRO-3 over F, the global batch split over the
+dp x F ranks that hold different rows; the checkpoint is the whole tree.
+Serving ignores ``--dis``.
 
 Examples:
   python -m ecg_byte_tpu_torch.cli.main --model llama-3.2-1b --dataset ptb_500 \
@@ -42,6 +46,9 @@ Examples:
       --percentiles ./data/ptb_500_dataset_stats.npy --checkpoint <cfg-dir-name>
   python -m ecg_byte_tpu_torch.cli.main --dis --gpus 0,1,2,3 --model llama-3.2-1b \
       --dataset ptb_500 --tokenizer_check tokenizer_3500 \
+      --percentiles ./data/ptb_500_dataset_stats.npy --peft --batch_size 8 --pad_to_max 1020
+  python -m ecg_byte_tpu_torch.cli.main --dis --gpus 0,1,2,3 --tp 2 --fsdp 2 \
+      --model llama-3.2-1b --dataset ptb_500 --tokenizer_check tokenizer_3500 \
       --percentiles ./data/ptb_500_dataset_stats.npy --peft --batch_size 8 --pad_to_max 1020
 """
 
@@ -62,6 +69,7 @@ from ecg_byte_tpu_torch.cli.common import (
     build_model,
     make_log_fn,
     make_run_dir,
+    model_config,
     refuse_unported,
     set_seed,
 )
@@ -84,7 +92,12 @@ from ecg_byte_tpu_torch.train.checkpoint import (
 )
 from ecg_byte_tpu_torch.train.runner import trainer, validater
 from ecg_byte_tpu_torch.train.scheduler import make_optimizer
-from ecg_byte_tpu_torch.train.step import create_train_state, make_eval_step, make_train_step
+from ecg_byte_tpu_torch.train.step import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    shard_train_state,
+)
 from ecg_byte_tpu_torch.utils.file_utils import (
     align_signal_text_files,
     ensure_directory_exists,
@@ -186,7 +199,7 @@ def main(argv=None):
     args = get_args(argv)
     refuse_unported(args)
     if args.dis and not args.inference:
-        return dist.launch(run, args)
+        return dist.launch(run, args, config=model_config(args.model, args.hf_weights))
     return run(args)
 
 
@@ -329,6 +342,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
                                params=params)
     del params
     distributed.broadcast_(lora_lib.leaves(state.trainable))  # every rank from rank 0's
+    state = shard_train_state(state, optimizer)  # --tp / --fsdp: this rank's shards
     print(f"Trainable parameters: {count_params(state.trainable)}")
     _install_sigterm_handler()
     directory_path = make_run_dir(args)
@@ -379,7 +393,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     # the first), and --resume starts after the recorded number, so it
     # skips an epoch where the reference does
     primary = distributed.is_primary()  # under --dis rank 0 alone writes
-    last_completed = snapshot_state(state) if primary else None
+    last_completed = snapshot_state(state)  # None on every rank but 0
     last_completed_epoch = start_epoch
     failed = False
     t0 = time.perf_counter()
@@ -403,8 +417,7 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
             if log_fn:
                 log_fn({"train_epoch_loss": train_dic["average_loss"],
                         "val_epoch_loss": val_dic["average_loss"], "epoch": epoch})
-            if primary:
-                last_completed = snapshot_state(state)
+            last_completed = snapshot_state(state)
             last_completed_epoch = epoch
             # the losses are global, so the ranks agree; one all-reduced
             # flag makes sure of it

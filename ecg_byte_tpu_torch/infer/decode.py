@@ -10,6 +10,14 @@ serves with the adapters attached; ``int8_kv`` keeps the cache in int8
 (``--int8_decode``, with an int8 weight tree from ``models/quantized.py``).
 ``inputs_embeds`` is the two-stage path: the prompt goes in as spliced
 embeddings and the continuation as token ids.
+
+On tp-sharded parameters (``parallel/sharding.py``, every rank of a tp
+group calling it on the same prompts) it decodes inside the group: each
+rank holds its KV heads in the cache, the prefill and decode kernels run
+on its heads, and each token is the vocab-parallel argmax
+(``transformer.vocab_argmax``), so every rank emits the one-process
+stream.  A library path: ``cli.main --inference`` serves on one process,
+as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -69,7 +77,7 @@ def greedy_generate(
                             dtype=torch.int8 if int8_kv else None)
     logits, cache, next_pos = T.prefill(params, config, input_ids, attn_mask, cache, lora=lora,
                                         inputs_embeds=inputs_embeds)
-    cur = torch.argmax(logits, -1).to(torch.int32)
+    cur = T.vocab_argmax(logits, config.vocab_size).to(torch.int32)
     done = cur == eos_token_id
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32, device=device)
     out[:, 0] = cur
@@ -89,7 +97,7 @@ def greedy_generate(
         logits, cache = T.decode_step(
             params, config, cur, positions, write_idx, cache, cache_mask, lora=lora
         )
-        nxt = torch.argmax(logits, -1).to(torch.int32)
+        nxt = T.vocab_argmax(logits, config.vocab_size).to(torch.int32)
         nxt = torch.where(done, pad_token_id, nxt)
         out[:, step] = nxt
         done = done | (nxt == eos_token_id)

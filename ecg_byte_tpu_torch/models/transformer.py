@@ -32,6 +32,21 @@ head); prefill attention still reads the fresh K/V, only the cache copy is
 quantized.  An int8 serving tree (``models/quantized.py``:
 ``weight_q``/``weight_scale`` entries, ``lm_head_q``/``lm_head_scale``) goes
 through ``ops/int8_linear``.
+
+Under ``--tp`` (``parallel/mesh.py``) a rank holds its blocks of the tree
+(``parallel/sharding.py``): q/k/v and gate/up are column-parallel and make
+this rank's heads and MLP columns as contiguous tensors, o and down are
+row-parallel and their outputs summed over the tp group
+(``reduce_from_tp``), and the input of each column group passes through
+``copy_to_tp``, so every tp rank holds the same hidden states and the same
+gradients of what it holds whole.  Attention runs on the rank's H/T query
+and KH/T KV heads, with no collective inside.  The embedding is a masked
+lookup of this rank's vocabulary rows, summed over tp; the logits are this
+rank's columns, the cross entropy and the greedy argmax reduced over tp.
+Under ``--fsdp`` each layer's weights (and the embedding, for each use)
+are gathered over the fsdp group (``sharding.gather_fsdp``) and the layer
+runs under ``torch.utils.checkpoint``, so the gathered weights are freed
+after its forward and gathered again for its backward.
 """
 
 from __future__ import annotations
@@ -45,7 +60,8 @@ import torch.nn.functional as F
 
 from ecg_byte_tpu_torch.models.config import TransformerConfig
 from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant, rmsnorm
-from ecg_byte_tpu_torch.parallel.distributed import Rows
+from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
+from ecg_byte_tpu_torch.parallel.distributed import Rows, copy_to_tp, reduce_from_tp
 
 Params = Dict[str, Any]
 
@@ -227,12 +243,19 @@ class _Dropout:
         if seed is not None and self.rate > 0.0:
             self.gen = torch.Generator(device=device).manual_seed(seed)
 
-    def __call__(self, x):
+    def __call__(self, x, cols: Optional[Tuple[int, int]] = None):
+        """``cols``: (the whole width, the first column) where ``x`` holds a
+        tp rank's columns of the input: the mask is drawn for the whole
+        width, as one process draws it, and this rank's columns kept."""
         if self.gen is None:
             return x
         rows = self.rows if self.rows is not None else Rows.whole(x.shape[0])
-        u = rows.take(torch.rand((rows.total,) + tuple(x.shape[1:]), generator=self.gen,
-                                 device=x.device))
+        shape = [rows.total, *x.shape[1:]]
+        if cols:
+            shape[-1] = cols[0]
+        u = rows.take(torch.rand(shape, generator=self.gen, device=x.device))
+        if cols:
+            u = u[..., cols[1]:cols[1] + x.shape[-1]]
         return torch.where(u < 1.0 - self.rate, x / (1.0 - self.rate), 0.0)
 
 
@@ -240,37 +263,80 @@ def _lora_out(xa, b, config: TransformerConfig):
     return (xa @ b) * (config.lora_alpha / config.lora_rank)
 
 
+def _lora_in(x, a, drop: _Dropout, cols=None):
+    """The adapter's rank-space product ``x @ a`` with its dropout: "rank"
+    masks the (B, S, r) product, "input" (HF PEFT) the adapter's input."""
+    if drop.style == "rank":
+        return drop(x @ a)
+    return (drop(x) if cols is None else drop(x, cols)) @ a
+
+
 def _proj(x, layer_p, name, lora_p, config: TransformerConfig, drop: _Dropout):
     """Dense projection with the LoRA overlay of ``name`` if it has one."""
     y = _linear(x, layer_p[name])
     if lora_p is not None and name in lora_p:
         a, b = lora_p[name]["a"], lora_p[name]["b"]  # (in, r), (r, out)
-        if drop.style == "rank":  # mask the (B, S, r) adapter activations
-            xa = drop(x @ a)
-        else:  # "input": HF PEFT, mask the adapter's input rows
-            xa = drop(x) @ a
-        y = y + _lora_out(xa, b, config)
+        y = y + _lora_out(_lora_in(x, a, drop), b, config)
     return y
+
+
+def _lora_rank_space(xa):
+    """A column group's rank-space product ``x @ a``, the same on every tp
+    rank: each rank's B reads it, so its gradient (and A's) is the sum of
+    the ranks' parts (``copy_to_tp``)."""
+    return copy_to_tp(xa)
 
 
 def _proj_group(x, layer_p, names: Sequence[str], lora_p, config: TransformerConfig,
                 drop: _Dropout):
     """Projections sharing input ``x``; their LoRA A-products fused into one
-    product against the concatenated A, one dropout mask for the group."""
+    product against the concatenated A, one dropout mask for the group.
+
+    Under ``--tp`` they are column-parallel: this rank's output columns of
+    each (its heads, its MLP columns), from ``copy_to_tp(x)``.  A is whole
+    and B this rank's columns, so the rank-space product passes through
+    ``copy_to_tp`` too: its gradient, and A's, sums the ranks' parts."""
+    x_in = copy_to_tp(x)
     use_lora = lora_p is not None and all(n in lora_p for n in names)
     if use_lora:
         a_cat = torch.cat([lora_p[n]["a"] for n in names], dim=-1)
-        xa = drop(x @ a_cat) if drop.style == "rank" else drop(x) @ a_cat
+        xa = _lora_rank_space(_lora_in(x, a_cat, drop))
         r = config.lora_rank
     outs = []
     for i, name in enumerate(names):
+        y = _linear(x_in, layer_p[name])
         if use_lora:
-            y = _linear(x, layer_p[name])
             y = y + _lora_out(xa[..., i * r:(i + 1) * r], lora_p[name]["b"], config)
-        else:
-            y = _proj(x, layer_p, name, lora_p, config, drop)
+        elif lora_p is not None and name in lora_p:
+            ab = lora_p[name]
+            y = y + _lora_out(_lora_rank_space(_lora_in(x, ab["a"], drop)), ab["b"], config)
         outs.append(y)
     return outs
+
+
+def _row(x, layer_p, name, lora_p, config: TransformerConfig, drop: _Dropout):
+    """o or down.  One process: :func:`_proj`.  Under ``--tp``
+    row-parallel: ``x`` is this rank's input columns (its heads, its MLP
+    columns), the weight's matching columns make a partial output, summed
+    over the tp group before the bias.  LoRA's A is this rank's rows, so
+    ``x @ a`` is partial too and is summed before the "rank" dropout and B;
+    the "input" mask is this rank's columns of the whole input's."""
+    t = mesh.tp_size()
+    if t == 1:
+        return _proj(x, layer_p, name, lora_p, config, drop)
+    p = layer_p[name]
+    y = reduce_from_tp(F.linear(x, p["weight"]))
+    if p.get("bias") is not None:
+        y = y + p["bias"]
+    if lora_p is not None and name in lora_p:
+        a, b = lora_p[name]["a"], lora_p[name]["b"]
+        if drop.style == "rank":
+            xa = drop(reduce_from_tp(x @ a))
+        else:
+            w = x.shape[-1]
+            xa = reduce_from_tp(_lora_in(x, a, drop, (w * t, w * mesh.tp_rank())))
+        y = y + _lora_out(xa, b, config)
+    return y
 
 
 def _block(config: TransformerConfig, h, layer_p: Params, rope, attn_fn,
@@ -278,33 +344,51 @@ def _block(config: TransformerConfig, h, layer_p: Params, rope, attn_fn,
     """One transformer block; ``attn_fn(q, k, v) -> (B, S, H, D)``."""
     c = config
     drop = drop if drop is not None else _Dropout(c, None, None)
+    layer_p = sharding.gather_layer(layer_p)  # --fsdp: this layer's weights, whole
     b, s, _ = h.shape
     hn = _norm(h, layer_p["attn_norm"], layer_p.get("attn_norm_bias"), c)
     q, k, v = _proj_group(hn, layer_p, ("q_proj", "k_proj", "v_proj"), lora_p, c, drop)
-    q = q.view(b, s, c.num_heads, c.head_dim)
-    k = k.view(b, s, c.num_kv_heads, c.head_dim)
-    v = v.view(b, s, c.num_kv_heads, c.head_dim)
+    # this rank's heads under --tp (H / T and KH / T), every head otherwise
+    q = q.view(b, s, -1, c.head_dim)
+    k = k.view(b, s, -1, c.head_dim)
+    v = v.view(b, s, -1, c.head_dim)
     if rope is not None:
         q = _apply_rope(q, *rope)
         k = _apply_rope(k, *rope)
-    attn = attn_fn(q, k, v).reshape(b, s, c.qkv_dim)
-    h = h + _proj(attn, layer_p, "o_proj", lora_p, c, drop)
+    attn = attn_fn(q, k, v).reshape(b, s, -1)
+    h = h + _row(attn, layer_p, "o_proj", lora_p, c, drop)
 
     hn = _norm(h, layer_p["mlp_norm"], layer_p.get("mlp_norm_bias"), c)
     if "gate_proj" in layer_p:
         gate, up = _proj_group(hn, layer_p, ("gate_proj", "up_proj"), lora_p, c, drop)
         inner = _act(gate, c.hidden_act) * up
     else:
-        inner = _act(_proj(hn, layer_p, "up_proj", lora_p, c, drop), c.hidden_act)
-    return h + _proj(inner, layer_p, "down_proj", lora_p, c, drop)
+        (up,) = _proj_group(hn, layer_p, ("up_proj",), lora_p, c, drop)
+        inner = _act(up, c.hidden_act)
+    return h + _row(inner, layer_p, "down_proj", lora_p, c, drop)
+
+
+def _lookup(table, ids, vocab: int):
+    """``table[ids]``.  Under ``--tp`` ``table`` is this rank's block of the
+    vocabulary: the ids it holds are looked up, the others give zero rows,
+    and the sum over the tp group is every row (``reduce_from_tp``)."""
+    table = sharding.gather_fsdp(table)
+    if mesh.tp_size() == 1:
+        return table[ids]
+    lo, hi = sharding.vocab_range(table.shape[0], vocab)
+    local = ids - lo
+    held = (local >= 0) & (local < hi - lo)
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return reduce_from_tp(torch.where(held[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                        device=rows.device)))
 
 
 def _embed(params, config: TransformerConfig, input_ids, positions):
-    h = params["embed"][input_ids]
+    h = _lookup(params["embed"], input_ids, config.vocab_size)
     if config.embed_scale:
         h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
     if config.learned_pos_embeddings:
-        h = h + params["pos_embed"][positions]
+        h = h + sharding.gather_fsdp(params["pos_embed"])[positions]
     return h
 
 
@@ -318,17 +402,60 @@ def _inputs_to_hidden(params, config: TransformerConfig, input_ids, positions, i
     if config.embed_scale:
         h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
     if config.learned_pos_embeddings:
-        h = h + params["pos_embed"][positions]
+        h = h + sharding.gather_fsdp(params["pos_embed"])[positions]
     return h
 
 
+def _head(params, config: TransformerConfig):
+    """The (V, D) output head, whole over fsdp; under ``--tp`` this rank's
+    vocabulary rows without the padding of the last block, and the first
+    of them: ``(head, lo)``."""
+    head = params["embed"] if config.tie_word_embeddings else params["lm_head"]
+    head = sharding.gather_fsdp(head)
+    if mesh.tp_size() == 1:
+        return head, 0
+    lo, hi = sharding.vocab_range(head.shape[0], config.vocab_size)
+    return head[:hi - lo], lo
+
+
 def _unembed(params, config: TransformerConfig, h):
+    """f32 logits; under ``--tp`` this rank's vocabulary columns
+    (:func:`vocab_argmax`, :func:`gather_vocab`)."""
     hn = _norm(h, params["final_norm"], params.get("final_norm_bias"), config)
     if "lm_head_q" in params:  # int8 serving copy
         return int8_linear.int8_linear(hn, params["lm_head_q"], params["lm_head_scale"],
                                        out_dtype=torch.float32)
-    head = params["embed"] if config.tie_word_embeddings else params["lm_head"]
-    return F.linear(hn, head).float()
+    head, _ = _head(params, config)
+    return F.linear(copy_to_tp(hn), head).float()
+
+
+def vocab_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``argmax(-1)`` of logits that are, under ``--tp``, this rank's block
+    of a vocabulary of ``vocab`` (:func:`_unembed`): the largest value and
+    then the lowest index holding it, reduced over the tp group, as
+    ``torch.argmax`` picks the first of equal maxima."""
+    if mesh.tp_size() == 1:
+        return torch.argmax(logits, -1)
+    g = mesh.grid()
+    idx = torch.argmax(logits, -1)
+    val = logits.gather(-1, idx[..., None])[..., 0]
+    top = distributed.all_reduce_(val.clone(), g.tp_group, "max")
+    lo = g.t * -(-vocab // g.tp)
+    cand = torch.where(val == top, idx + lo, torch.iinfo(torch.int64).max)
+    return distributed.all_reduce_(cand, g.tp_group, "min")
+
+
+def gather_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The whole vocabulary's logits from each tp rank's columns (no
+    gradient; every rank of the tp group takes part)."""
+    if mesh.tp_size() == 1:
+        return logits
+    g = mesh.grid()
+    pad = -(-vocab // g.tp) - logits.shape[-1]
+    if pad:
+        logits = F.pad(logits, (0, pad), value=-math.inf)
+    parts = distributed.all_gather(logits.detach().contiguous(), g.tp_group)
+    return torch.cat(parts.unbind(0), -1)[..., :vocab]
 
 
 def _rope_for(config: TransformerConfig, positions):
@@ -431,7 +558,9 @@ def forward(
             return _block(c, h, layer_p, rope, attn_fn, lora_p,
                           _Dropout(c, seed, h.device, rows))
 
-        if remat == "full" and torch.is_grad_enabled():
+        # --fsdp: the layer's gathered weights live for its forward alone and
+        # are gathered again when the backward replays it
+        if (remat == "full" or mesh.fsdp_size() > 1) and torch.is_grad_enabled():
             h = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
         else:
             h = layer(h)
@@ -514,33 +643,56 @@ class _DenseCE(torch.autograd.Function):
     writes dlogits in h2's dtype before the dX product.  ``head`` is the
     (V, D) embedding or LM head; its gradient is computed only where it
     trains.
+
+    ``tp``: (the first vocabulary row of ``head``, the tp group) where
+    ``head`` is a tp rank's block of the vocabulary (vocab-parallel, as
+    Megatron's cross entropy): the max, the sum of exponentials and the
+    label's logit are reduced over the group, and dh2 is this block's part
+    (``h2`` comes through ``copy_to_tp``, which sums the parts).
     """
 
     @staticmethod
-    def forward(ctx, h2, head, labels, count):
+    def forward(ctx, h2, head, labels, count, tp=None):
         logits = F.linear(h2, head).float()  # (M, V)
         valid = labels != -100
         safe = torch.where(valid, labels, 0).long()
-        m = logits.amax(dim=-1)
-        lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
-        lab = logits.gather(1, safe[:, None])[:, 0]
         ctx.count = _count(valid, count)
+        if tp is None:
+            m = logits.amax(dim=-1)
+            lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
+            lab = logits.gather(1, safe[:, None])[:, 0]
+            held = valid
+        else:
+            lo, group = tp
+            safe = safe - lo
+            held = valid & (safe >= 0) & (safe < head.shape[0])
+            safe = safe.clamp(0, max(head.shape[0] - 1, 0))
+            m = distributed.all_reduce_(logits.amax(dim=-1), group, "max")
+            se = distributed.all_reduce_(torch.exp(logits - m[:, None]).sum(dim=-1), group)
+            lse = m + torch.log(se)
+            lab = distributed.all_reduce_(
+                torch.where(held, logits.gather(1, safe[:, None])[:, 0], 0.0), group)
         loss = torch.where(valid, lse - lab, 0.0).sum() / ctx.count
         centered = (logits - lse[:, None]).to(torch.bfloat16)
-        ctx.save_for_backward(h2, head, centered, safe, valid)
+        ctx.save_for_backward(h2, head, centered, safe, valid, held)
         return loss
 
     @staticmethod
     def backward(ctx, gbar):
-        h2, head, centered, safe, valid = ctx.saved_tensors
+        h2, head, centered, safe, valid, held = ctx.saved_tensors
         probs = torch.exp(centered.float())
-        probs[torch.arange(probs.shape[0], device=probs.device), safe] -= 1.0  # - onehot
+        probs[torch.arange(probs.shape[0], device=probs.device), safe] -= held.float()  # - onehot
         coeff = torch.where(valid, gbar / ctx.count, 0.0)
         dlogits = (probs * coeff[:, None]).to(h2.dtype)
         del probs
         dh2 = dlogits @ head
         dhead = dlogits.T @ h2 if ctx.needs_input_grad[1] else None
-        return dh2, dhead, None, None
+        return dh2, dhead, None, None, None
+
+
+def _tp_arg(lo):
+    g = mesh.grid()
+    return (lo, g.tp_group) if g.tp > 1 else None
 
 
 def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch.Tensor,
@@ -549,13 +701,14 @@ def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch
     of ``causal_lm_loss(_unembed(hidden), labels)`` with the bf16 backward
     of :class:`_DenseCE` (the final norm's gradient flows by autograd).
     ``count``: the labelled tokens of the global batch (``--dis``): the
-    loss is then this batch's sum over it."""
+    loss is then this batch's sum over it.  Under ``--tp`` vocab-parallel
+    (:class:`_DenseCE`)."""
     c = config
     hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
-    head = params["embed"] if c.tie_word_embeddings else params["lm_head"]
+    head, lo = _head(params, c)
     d = hn.shape[-1]
-    h2 = hn[:, :-1].reshape(-1, d)
-    return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1), count)
+    h2 = copy_to_tp(hn[:, :-1].reshape(-1, d))
+    return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1), count, _tp_arg(lo))
 
 
 def _ce_tile(h2, head_tile, safe, lo, m_run, l_run, lab_run):
@@ -577,20 +730,29 @@ def chunked_lm_loss(params: Params, config: TransformerConfig, hidden: torch.Ten
     running logsumexp, and the label logit picked in its tile.  Each tile
     is replayed in the backward (``torch.utils.checkpoint``), so peak
     memory is O(B * S * chunk).  Equal to the dense loss up to f32
-    logsumexp rounding.  ``count`` as in :func:`lm_loss_from_hidden`."""
+    logsumexp rounding.  ``count`` as in :func:`lm_loss_from_hidden`.
+    Under ``--tp`` the tiles are this rank's block of the vocabulary
+    (``ecg_byte_tpu/models/transformer.py:934-943``): its running max, sum
+    and label logit are combined over the tp group at the end."""
     c = config
     hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
-    head = params["embed"] if c.tie_word_embeddings else params["lm_head"]  # (V, D)
-    h2 = hn[:, :-1].reshape(-1, hn.shape[-1])
+    head, v_lo = _head(params, c)  # (V, D), this rank's rows under --tp
+    h2 = copy_to_tp(hn[:, :-1].reshape(-1, hn.shape[-1]))
     shift = labels[:, 1:].reshape(-1)
     valid = shift != -100
-    safe = torch.where(valid, shift, 0).long()
+    safe = torch.where(valid, shift, 0).long() - v_lo
     m = torch.full((h2.shape[0],), -math.inf, device=h2.device)
     l_run = torch.zeros(h2.shape[0], device=h2.device)
     lab = torch.zeros(h2.shape[0], device=h2.device)
     for lo in range(0, head.shape[0], chunk):
         m, l_run, lab = torch.utils.checkpoint.checkpoint(
             _ce_tile, h2, head[lo:lo + chunk], safe, lo, m, l_run, lab, use_reentrant=False)
+    if mesh.tp_size() > 1:
+        # the max is a shift: its gradient cancels, so it is taken detached
+        g = mesh.grid()
+        top = distributed.all_reduce_(m.detach().clone(), g.tp_group, "max")
+        l_run = reduce_from_tp(l_run * torch.exp(m - top))
+        m, lab = top, reduce_from_tp(lab)
     nll = m + torch.log(l_run) - lab
     return torch.where(valid, nll, 0.0).sum() / _count(valid, count)
 
@@ -608,8 +770,11 @@ def init_kv_cache(
     ``cache["k"][i]``.  ``dtype=torch.int8`` is the int8 serving cache: it
     adds ``k_scale`` and ``v_scale`` of (L, B, S_max, KH) bf16, set to 1
     (not 0: unfilled slots are masked, but a 0 scale would still make
-    0 * -inf NaNs if a backend reordered the mask)."""
-    shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
+    0 * -inf NaNs if a backend reordered the mask).  Under ``--tp`` it
+    holds this rank's KV heads."""
+    # under --tp this rank's KV heads
+    shape = (config.num_layers, batch, max_len, config.num_kv_heads // mesh.tp_size(),
+             config.head_dim)
     dt = dtype or _dtype(config)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),

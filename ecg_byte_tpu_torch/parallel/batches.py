@@ -14,6 +14,10 @@ a rank's batches into the steps one process takes on the global batches:
   rows.
 
 One process runs the same code with ``world == 1`` (``Rows.whole``).
+Under ``--tp`` and ``--fsdp`` the rows shard over the data group
+(``parallel/mesh.py``, the JAX ``batch_spec`` over dp x fsdp): ``world``
+and ``rank`` here are the data world and this rank's place in it, and the
+ranks of one tp group take the same rows.
 """
 
 from __future__ import annotations
@@ -24,24 +28,32 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from ecg_byte_tpu_torch.data.loader import DataLoader, collate
-from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel import distributed, mesh
 from ecg_byte_tpu_torch.parallel.distributed import Rows
 
 
-def check_batch(batch_size: int, world: int) -> int:
-    """The rows of a rank: ``--batch_size`` is the global batch."""
-    if batch_size % world:
+def check_batch(batch_size: int, world: int, tp: int = 1) -> int:
+    """The rows of a rank: ``--batch_size`` is the global batch, split over
+    the data world (``world`` ranks, ``world / tp`` of them holding
+    different rows)."""
+    data = world // tp
+    if batch_size % data:
+        if tp == 1:
+            raise SystemExit(f"--batch_size {batch_size} is the global batch; --dis over "
+                             f"{world} ranks needs a multiple of {world}")
         raise SystemExit(f"--batch_size {batch_size} is the global batch; --dis over {world} "
-                         f"ranks needs a multiple of {world}")
-    return batch_size // world
+                         f"ranks at --tp {tp} splits it over dp x fsdp = {data} ranks and "
+                         f"needs a multiple of {data}")
+    return batch_size // data
 
 
 def make_loader(dataset, batch_size: int, **kw) -> DataLoader:
     """This rank's loader of a global batch ``batch_size``: its stride
-    shard of each (shuffled) epoch, ``batch_size / world`` rows a batch."""
-    world = distributed.world()
+    shard of each (shuffled) epoch, ``batch_size / data world`` rows a
+    batch."""
+    world = mesh.data_world()
     return DataLoader(dataset, batch_size=check_batch(batch_size, world),
-                      num_shards=world, shard_index=distributed.rank(), with_kept=True, **kw)
+                      num_shards=world, shard_index=mesh.data_rank(), with_kept=True, **kw)
 
 
 @dataclasses.dataclass
@@ -76,8 +88,10 @@ def steps(loader: DataLoader, measure: Callable[[Dict], Tuple[int, int]]
     ``measure(batch) -> (labelled tokens, tokens)`` of a batch.  Every rank
     runs ``ceil(N / global batch)`` steps.  The items each rank lost, its
     labelled tokens and its tokens are summed over the ranks in one host
-    all-reduce."""
-    world, rank = distributed.world(), distributed.rank()
+    all-reduce over every rank, to which the first rank of each tp group
+    alone brings its counts (the others hold the same rows)."""
+    world, rank = mesh.data_world(), mesh.data_rank()
+    counts = int(mesh.tp_rank() == 0)
     n, per = len(loader.dataset), loader.batch_size * world
     template = None
     it = iter(loader)
@@ -89,7 +103,7 @@ def steps(loader: DataLoader, measure: Callable[[Dict], Tuple[int, int]]
         for j, g in enumerate(mine):
             lost[g] = int(j not in kept)
         valid, tokens = measure(batch) if batch is not None else (0, 0)
-        *lost, valid, tokens = distributed.agree(lost + [valid, tokens])
+        *lost, valid, tokens = distributed.agree([counts * x for x in lost + [valid, tokens]])
         total = size - sum(lost)
         if total == 0:
             yield None

@@ -20,6 +20,13 @@ make its step compute that same function:
   group, so a decision taken on the host (skip a batch, stop early) is the
   same on every rank without a device sync.
 
+Under ``--tp`` and ``--fsdp`` (``parallel/mesh.py``) the collectives take a
+group: Megatron's two operators :func:`copy_to_tp` (the identity forward,
+an all-reduce of the gradient over the tp group) and :func:`reduce_from_tp`
+(an all-reduce forward, the identity backward), and :func:`all_gather` and
+:func:`reduce_scatter` over a group, each chosen by the group's backend
+before the call (:func:`_gathers_natively`).
+
 Without :func:`init`, ``world() == 1`` and every collective is the
 identity, so one process runs the same code on ``Rows.whole(batch)``; a
 group of one rank runs the collectives (``--dis`` at W = 1).  The backend rule is :func:`choose_backend`.
@@ -107,6 +114,9 @@ def init(rank: int, world: int, backend: str, init_method: str) -> None:
 
 def shutdown() -> None:
     global _ctx
+    from ecg_byte_tpu_torch.parallel import mesh
+
+    mesh.reset()
     if _ctx is not None:
         _ctx = None
         dist.destroy_process_group()
@@ -148,13 +158,23 @@ def any_rank(flag: bool) -> bool:
     return agree([int(bool(flag))])[0] > 0
 
 
-def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """A copy of ``x`` summed over the ranks (no gradient)."""
+def sum_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A copy of ``x`` summed over the ranks of ``group`` (default every
+    rank; no gradient)."""
     if _ctx is None:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` summed over the data group (the ranks that hold
+    different rows: under ``--tp`` the ranks of one tp group hold the same
+    rows and the same share of a loss)."""
+    from ecg_byte_tpu_torch.parallel import mesh
+
+    return sum_over_ranks(x, mesh.grid().data_group)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
@@ -216,46 +236,163 @@ def gather_rows(x: torch.Tensor, rows: Rows) -> torch.Tensor:
     return x if _ctx is None else _GatherRows.apply(x, rows)
 
 
-def reduce_gradients_(params: Sequence[torch.Tensor], *scalars: torch.Tensor
-                      ) -> List[torch.Tensor]:
+def reduce_gradients_(params: Sequence[torch.Tensor], *scalars: torch.Tensor,
+                      groups: Optional[Sequence[object]] = None) -> List[torch.Tensor]:
     """Sum every ``.grad`` of ``params`` over the ranks, in place, in flat
     f32 buffers of at most ``BUCKET_ELEMENTS``, and return ``scalars``
-    summed with them.  A gradient that is None on every rank (a parameter
-    no loss reads) stays None, so the optimizer skips it as in one
-    process; a rank without rows sends zeros for the others."""
+    summed with them.  ``groups``: the group each gradient sums over
+    (default the data group: ``parallel/mesh.py``); the scalars sum over
+    the data group.  A gradient that is None on every rank (a parameter no
+    loss reads) stays None, so the optimizer skips it as in one process; a
+    rank without rows sends zeros for the others."""
     if _ctx is None:
         return list(scalars)
+    from ecg_byte_tpu_torch.parallel import mesh
+
+    data = mesh.grid().data_group
+    groups = list(groups) if groups is not None else [data] * len(params)
     present = agree([int(p.grad is not None) for p in params])
-    held = [p for p, n in zip(params, present) if n]
-    buckets, cur, size = [], [], 0
-    for p in held:
-        if cur and size + p.numel() > BUCKET_ELEMENTS:
-            buckets.append(cur)
-            cur, size = [], 0
-        cur.append(p)
-        size += p.numel()
-    buckets.append(cur)
+    by_group = {id(data): (data, [])}  # the data group first: it carries the scalars
+    for p, g, n in zip(params, groups, present):
+        if n:
+            by_group.setdefault(id(g), (g, []))[1].append(p)
     out = []
-    for i, bucket in enumerate(buckets):
-        parts = [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
-                 for p in bucket]
-        last = i == len(buckets) - 1
-        if last:
-            dev = bucket[0].device if bucket else scalars[0].device
-            parts += [s.detach().float().reshape(1).to(dev) for s in scalars]
-        flat = torch.cat(parts)
-        dist.all_reduce(flat)
-        offset = 0
-        for p in bucket:
-            g = flat[offset:offset + p.numel()].view(p.shape).to(p.dtype)
-            offset += p.numel()
-            if p.grad is None:
-                p.grad = g
-            else:
-                p.grad.copy_(g)
-        if last:
-            out = [flat[offset + j] for j in range(len(scalars))]
+    for key, (group, held) in by_group.items():
+        buckets, cur, size = [], [], 0
+        for p in held:
+            if cur and size + p.numel() > BUCKET_ELEMENTS:
+                buckets.append(cur)
+                cur, size = [], 0
+            cur.append(p)
+            size += p.numel()
+        buckets.append(cur)
+        for i, bucket in enumerate(buckets):
+            parts = [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+                     for p in bucket]
+            last = key == id(data) and i == len(buckets) - 1
+            if last:
+                dev = bucket[0].device if bucket else scalars[0].device
+                parts += [s.detach().float().reshape(1).to(dev) for s in scalars]
+            flat = torch.cat(parts)
+            dist.all_reduce(flat, group=group)
+            offset = 0
+            for p in bucket:
+                g = flat[offset:offset + p.numel()].view(p.shape).to(p.dtype)
+                offset += p.numel()
+                if p.grad is None:
+                    p.grad = g
+                else:
+                    p.grad.copy_(g)
+            if last:
+                out = [flat[offset + j] for j in range(len(scalars))]
     for p, n in zip(params, present):
         if not n:
             p.grad = None
     return out
+
+
+# --- collectives on a group (--tp, --fsdp) ----------------------------------
+
+def group_size(group) -> int:
+    return 1 if _ctx is None else dist.get_world_size(group)
+
+
+def _gathers_natively(group) -> bool:
+    """NCCL has the all-gather and reduce-scatter into one tensor; gloo runs
+    them as an all-reduce of a zero-filled buffer, the form it also runs on
+    CUDA tensors."""
+    return dist.get_backend(group) == "nccl"
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x`` of ``group`` in group-rank order (no
+    gradient)."""
+    n = group_size(group)
+    if n == 1:
+        return x[None]
+    x = x.contiguous()
+    if _gathers_natively(group):
+        out = x.new_empty((n,) + tuple(x.shape))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    out = x.new_zeros((n,) + tuple(x.shape))
+    out[dist.get_rank(group)] = x
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slot of ``x`` (n, ...) summed over ``group`` (no
+    gradient)."""
+    n = group_size(group)
+    if n == 1:
+        return x[0]
+    x = x.contiguous()
+    if _gathers_natively(group):
+        out = x.new_empty(tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    y = x.clone()
+    dist.all_reduce(y, group=group)
+    return y[dist.get_rank(group)]
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced (``"sum"``, ``"max"``, ``"min"``) over ``group`` in
+    place (no gradient); returns it."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, op=_OPS[op], group=group)
+    return x
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_group():
+    from ecg_byte_tpu_torch.parallel import mesh
+
+    g = mesh.grid()
+    return g.tp_group if g.tp > 1 else None
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every rank of the tp group) as the input of this
+    rank's part of a product: the identity forward; its gradient, the sum
+    of the parts' gradients, all-reduced over the tp group.  The identity
+    without ``--tp``."""
+    g = _tp_group()
+    return x if g is None else _CopyToTp.apply(x, g)
+
+
+def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the tp group of this rank's partial ``x``; the gradient
+    of a loss that every rank of the group computes alike passes through
+    unchanged (not summed: ``all_reduce_sum`` would scale it by T).  The
+    identity without ``--tp``."""
+    g = _tp_group()
+    return x if g is None else _ReduceFromTp.apply(x, g)

@@ -23,6 +23,15 @@ optimizer keeps pointing at the tensors it updates.
 Under ``--dis`` rank 0 alone writes, and the other ranks wait for it at a
 barrier (reference main.py:311-316); ``wait=False`` leaves the barrier out,
 for a save on the way out of a failed run, whose peers may be gone.
+
+Under ``--tp`` and ``--fsdp`` the state is this rank's shards
+(``parallel/sharding.py``): every rank takes part in gathering the whole
+tree, Adam's moments included, and rank 0 writes the tree one process
+writes, so ``cli.main --inference`` serves it and any grid resumes it;
+loading takes this rank's shards of the whole tree, by the target's
+splits.  A LoRA run's frozen base is not gathered: rank 0 writes its host
+copy (``TrainState.whole_base``).  A failed run cannot gather (its peers may be gone): its crash
+save is the last epoch boundary's host snapshot, which every rank gathered.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ecg_byte_tpu_torch.models.lora import leaves
-from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
 
 # the largest host snapshot taken; only a full fine-tune's state exceeds it
 SNAPSHOT_LIMIT_BYTES = 2 << 30
@@ -45,25 +54,41 @@ def checkpoint_path(directory: str, role: str) -> str:
     return os.path.join(directory, f"{role}.pt")
 
 
+def _whole_optimizer(state) -> Dict[str, Any]:
+    """The optimizer's state dict, each moment (Adam's, shaped like its
+    param) gathered whole by its param's split."""
+    sd = state.optimizer.state_dict()
+    params = leaves(state.trainable)
+    return {**sd, "state": {
+        i: {k: sharding.gather(sharding.mark(v, params[i]))
+            if isinstance(v, torch.Tensor) and v.dim() else v for k, v in s.items()}
+        for i, s in sd["state"].items()}}
+
+
 def _payload(state, mutable_only: bool) -> Dict[str, Any]:
+    """The train state as one process holds it: under --tp or --fsdp
+    gathered from the shards, every rank taking part."""
     out = {
-        "trainable": state.trainable,
-        "optimizer": state.optimizer.state_dict(),
+        "trainable": sharding.gather_tree(state.trainable),
+        "optimizer": _whole_optimizer(state),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step,
     }
     if not mutable_only:
-        out["base"] = state.base
+        # under --tp / --fsdp rank 0 holds the frozen base whole on the host
+        out["base"] = (state.whole_base if state.base is not None and mesh.grid().sharded
+                       else sharding.gather_tree(state.base))
     return out
 
 
-def _to_host(tree):
+def host_copy(tree):
+    """A copy of a tree of tensors in host memory."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: host_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
+        return type(tree)(host_copy(v) for v in tree)
     return tree
 
 
@@ -78,13 +103,18 @@ class HostSnapshot(NamedTuple):
 def snapshot_state(state) -> Optional[HostSnapshot]:
     """Copy the mutable part of ``state`` to host memory: {trainable,
     optimizer, scheduler, step} under LoRA training, everything otherwise.
-    None when that exceeds ``SNAPSHOT_LIMIT_BYTES``."""
+    None when that exceeds ``SNAPSHOT_LIMIT_BYTES``, and on every rank but
+    rank 0 (under --tp or --fsdp after taking part in the gather)."""
     mutable_only = state.base is not None
+    if not mesh.grid().sharded and not distributed.is_primary():
+        return None
     payload = _payload(state, mutable_only)
+    if not distributed.is_primary():
+        return None
     nbytes = sum(t.numel() * t.element_size() for t in leaves(payload))
     if nbytes > SNAPSHOT_LIMIT_BYTES:
         return None
-    return HostSnapshot(_to_host(payload), mutable_only, nbytes)
+    return HostSnapshot(host_copy(payload), mutable_only, nbytes)
 
 
 def _save(directory: str, role: str, payload, epoch: int, mutable_only: bool,
@@ -121,7 +151,8 @@ def save_crash_checkpoint(directory: str, state, fallback: Optional[HostSnapshot
     the host snapshot of the last epoch boundary.  Under LoRA training both
     carry only the mutable part.  Returns ``"live"``, ``"snapshot"`` or
     ``"none"`` (nothing savable)."""
-    if state_is_alive(state):
+    # a failed run's peers may be gone: shards cannot be gathered
+    if state_is_alive(state) and (wait or not mesh.grid().sharded):
         save_checkpoint(directory, "crash_model", state, epoch=epoch,
                         mutable_only=state.base is not None, wait=wait)
         return "live"
@@ -153,6 +184,20 @@ def _copy_into(dst, src, where: str) -> None:
             dst.copy_(src)
 
 
+def _local(src, dst):
+    """``src`` (a whole tree) as the shards ``dst`` holds: each tensor's
+    block by its target's split (``src`` itself where ``dst`` is whole)."""
+    if isinstance(dst, dict) and isinstance(src, dict):
+        return {k: _local(src[k], dst[k]) if k in dst else src[k] for k in src}
+    if isinstance(dst, list) and isinstance(src, list):
+        return [_local(s, d) for s, d in zip(src, dst)] + src[len(dst):]
+    if isinstance(dst, torch.Tensor) and isinstance(src, torch.Tensor):
+        split, shape = sharding.split_of(dst)
+        if shape is not None and tuple(src.shape) == shape:
+            return sharding.shard(src, split)
+    return src
+
+
 def _read(directory: str, role: str, device, peft: bool) -> Dict[str, Any]:
     """``{directory}/{role}.pt`` on ``device``, refused unless it was saved
     in the same mode (LoRA or full fine-tune) as ``peft`` says."""
@@ -171,10 +216,20 @@ def load_checkpoint(directory: str, role: str, target):
     device = leaves(target.trainable)[0].device
     ckpt = _read(directory, role, device, peft=target.base is not None)
     state = ckpt["state"]
-    _copy_into(target.trainable, state["trainable"], f"{role}.trainable")
+    _copy_into(target.trainable, _local(state["trainable"], target.trainable),
+               f"{role}.trainable")
     if not ckpt["mutable_only"] and target.base is not None:
-        _copy_into(target.base, state["base"], f"{role}.base")
-    target.optimizer.load_state_dict(state["optimizer"])
+        _copy_into(target.base, _local(state["base"], target.base), f"{role}.base")
+        if target.whole_base is not None:
+            target.whole_base = host_copy(state["base"])
+    optimizer = state["optimizer"]
+    if mesh.grid().sharded:
+        params = leaves(target.trainable)
+        optimizer = {**optimizer, "state": {
+            i: {k: sharding.shard(v, sharding.split_of(params[i])[0])
+                if isinstance(v, torch.Tensor) and v.dim() else v for k, v in s.items()}
+            for i, s in optimizer["state"].items()}}
+    target.optimizer.load_state_dict(optimizer)
     target.scheduler.load_state_dict(state["scheduler"])
     target.step = int(state["step"])
     target.in_step = False

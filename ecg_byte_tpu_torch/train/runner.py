@@ -15,7 +15,8 @@ The batches come as the steps every rank agrees on
 (``parallel/batches.steps``, with the caller's ``measure`` of a batch's
 labelled tokens and tokens): a batch is skipped on every rank or on none,
 the step's loss is the global mean, the validation loss of a window is
-summed over the ranks before the host reads it, and the token counts are
+summed over the data group (the ranks that hold different rows) before
+the host reads it, and the token counts are
 global, so under ``--dis`` every rank logs and returns the same numbers.
 """
 
@@ -112,4 +113,4 @@ def validater(state, eval_fn: Callable, dataloader, *, measure: Measure, epoch: 
     return _run_epoch(dataloader, lambda batch, item: eval_fn(state, batch, item.rows,
                                                               item.n_valid),
                       measure, dev=dev, log_fn=log_fn, log_every=log_every, key="val", epoch=epoch,
-                      reduce=distributed.sum_over_ranks)
+                      reduce=distributed.sum_over_data)

@@ -17,7 +17,7 @@ choice made there with ``torch.where``, so the step needs no host sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,18 +35,43 @@ def noam_schedule(d_model: int, warmup_steps: int) -> Callable[[int], float]:
     return schedule
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         shards: Optional[Sequence[Tuple[str, ...]]] = None) -> torch.Tensor:
     """Scale ``grads`` in place to global norm ``max_norm`` if it is above;
-    returns the norm (a device scalar)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
-    )
+    returns the norm (a device scalar).
+
+    ``shards``: for each gradient, the mesh groups (``"tp"``, ``"fsdp"``)
+    whose ranks hold its other blocks (``sharding.norm_groups``; None:
+    every gradient whole).  Its squared norm is then summed over them, and
+    a gradient every rank holds whole is counted once."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]
+    if shards is not None and any(shards):
+        norm = _sharded_norm(norms, shards)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     below = norm < max_norm
     div = torch.where(below, 1.0, norm)
     mul = torch.where(below, 1.0, torch.full_like(norm, max_norm))
     for g in grads:
         g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
     return norm
+
+
+def _sharded_norm(norms, shards) -> torch.Tensor:
+    from ecg_byte_tpu_torch.parallel import distributed, mesh
+
+    g = mesh.grid()
+    zero = norms[0].new_zeros(())
+    sq = {k: zero for k in ((), ("tp",), ("fsdp",), ("tp", "fsdp"))}
+    for n, s in zip(norms, shards):
+        sq[tuple(s)] = sq[tuple(s)] + n.square()
+    over_tp = torch.stack([sq[("tp",)], sq[("tp", "fsdp")]])
+    if g.tp > 1:
+        distributed.all_reduce_(over_tp, g.tp_group)
+    over_fsdp = torch.stack([sq[("fsdp",)], over_tp[1]])
+    if g.fsdp > 1:
+        distributed.all_reduce_(over_fsdp, g.fsdp_group)
+    return torch.sqrt(sq[()] + over_tp[0] + over_fsdp.sum())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,8 +11,16 @@ Under ``--dis`` a step takes a rank's rows of the global batch
 loss is the rank's sum over that count, the gradients are summed over the
 ranks before the clip by global norm (optax's chain clips the global
 gradient), and the loss returned is the global mean.  So every rank takes
-the step one process takes on the global batch.  The tensor and FSDP
-sharding of the JAX mesh are not here (``ROADMAP.md`` section 1, item 8).
+the step one process takes on the global batch.
+
+Under ``--tp`` and ``--fsdp`` (``parallel/mesh.py``) the state is this
+rank's shards (:func:`shard_train_state`, the JAX ``shard_state``): the
+model code's collectives make every rank of a tp group compute the loss
+and the whole gradient of what it holds whole, so no gradient is summed
+over tp; the gradients sum over the data group only (an fsdp shard's over
+the dp group, its gather's backward having reduce-scattered it over the
+fsdp group); the clip's norm sums each shard's squares over the ranks
+that hold the other blocks, and Adam and Noam step on the shards.
 """
 
 from __future__ import annotations
@@ -26,8 +34,9 @@ import torch
 from ecg_byte_tpu_torch.models import lora as lora_lib
 from ecg_byte_tpu_torch.models import transformer as T
 from ecg_byte_tpu_torch.models.config import TransformerConfig
-from ecg_byte_tpu_torch.parallel import distributed
+from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
 from ecg_byte_tpu_torch.parallel.distributed import Rows
+from ecg_byte_tpu_torch.train.checkpoint import host_copy
 from ecg_byte_tpu_torch.train.scheduler import OptimizerSpec, clip_by_global_norm_
 
 Params = Dict[str, Any]
@@ -38,7 +47,10 @@ class TrainState:
     """Everything a step mutates.  ``base`` holds the frozen parameters
     when only LoRA trains; otherwise ``trainable`` is the full tree and
     ``base`` is None.  ``in_step`` is True while a step is updating the
-    tensors in place, so a crash save can tell a half-updated state."""
+    tensors in place, so a crash save can tell a half-updated state.
+    ``whole_base``: under ``--tp`` / ``--fsdp`` LoRA training, rank 0's
+    host copy of the frozen base, whole, which its checkpoints write
+    without gathering it again (``train/checkpoint.py``)."""
 
     trainable: Params
     base: Optional[Params]
@@ -46,6 +58,7 @@ class TrainState:
     scheduler: Any
     step: int = 0
     in_step: bool = False
+    whole_base: Optional[Params] = None
 
     def full_params(self) -> Params:
         return self.base if self.base is not None else self.trainable
@@ -81,6 +94,30 @@ def create_train_state(config: TransformerConfig, optimizer: OptimizerSpec,
     return TrainState(trainable=trainable, base=base, optimizer=opt, scheduler=sched)
 
 
+def shard_train_state(state: TrainState, optimizer: OptimizerSpec) -> TrainState:
+    """This rank's shards of a fresh one-process state (every rank drew the
+    same one), by the JAX specs (``parallel/sharding.py``), with the
+    optimizer built anew on them; the state itself where T = F = 1."""
+    if not mesh.grid().sharded:
+        return state
+    whole_base = None
+    if state.base is not None:
+        if distributed.is_primary():
+            whole_base = host_copy(state.base)
+        base = sharding.shard_tree(state.base, sharding.param_splits(state.base))
+        trainable = sharding.shard_tree(state.trainable, sharding.lora_splits(state.trainable))
+    else:
+        base, trainable = None, sharding.shard_tree(state.trainable,
+                                                    sharding.param_splits(state.trainable))
+    for t in lora_lib.leaves(base):
+        t.requires_grad_(False)
+    for t in lora_lib.leaves(trainable):
+        t.requires_grad_(True)
+    opt, sched = optimizer.build(lora_lib.leaves(trainable))
+    return TrainState(trainable=trainable, base=base, optimizer=opt, scheduler=sched,
+                      step=state.step, whole_base=whole_base)
+
+
 def _batch_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
     def t(x, dtype):
         x = torch.from_numpy(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
@@ -94,11 +131,26 @@ def _batch_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _no_rows(batch: Dict[str, torch.Tensor], rows: Optional[Rows]):
+    """A row that no loss counts (labels -100), for a rank without rows of
+    the global batch under ``--fsdp``: its forward and backward take part
+    in the fsdp group's gathers and add exact zeros."""
+    s = batch["input_ids"].shape[1]
+    dev = batch["input_ids"].device
+    out = {"input_ids": torch.zeros((1, s), dtype=torch.long, device=dev),
+           "attn_mask": torch.ones((1, s), dtype=torch.int32, device=dev),
+           "labels": torch.full((1, s), -100, dtype=torch.long, device=dev),
+           "position_ids": torch.arange(s, device=dev)[None]}
+    return out, Rows(rows.total, (0,)) if rows is not None else None
+
+
 def _loss_from_batch(config, params, lora, batch, dropout_generator, remat="none", rows=None,
                      n_valid=None):
     if batch["input_ids"].shape[0] == 0:  # a rank without rows of the global batch
-        T.dropout_seeds(config, len(params["layers"]), lora, dropout_generator)
-        return None
+        if mesh.fsdp_size() == 1:
+            T.dropout_seeds(config, len(params["layers"]), lora, dropout_generator)
+            return None
+        batch, rows = _no_rows(batch, rows)
     hidden = T.forward(
         params, config, batch["input_ids"], batch.get("attn_mask"), batch.get("position_ids"),
         lora=lora, dropout_generator=dropout_generator, return_hidden=True, remat=remat,
@@ -126,7 +178,8 @@ def gradients(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional[
     else:
         loss.backward()
         loss = loss.detach()
-    (loss,) = distributed.reduce_gradients_(trainable, loss)
+    groups = [sharding.grad_group(t) for t in trainable] if mesh.grid().sharded else None
+    (loss,) = distributed.reduce_gradients_(trainable, loss, groups=groups)
     return loss
 
 
@@ -137,7 +190,9 @@ def apply_step(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional
     the global gradient), the optimizer and the schedule.  Returns the
     loss (the global mean), detached."""
     loss = gradients(trainable, loss_fn)
-    clip_by_global_norm_([t.grad for t in trainable if t.grad is not None], clip_norm)
+    held = [t for t in trainable if t.grad is not None]
+    clip_by_global_norm_([t.grad for t in held], clip_norm,
+                         [sharding.norm_groups(t) for t in held])
     optimizer.step()
     scheduler.step()
     return loss

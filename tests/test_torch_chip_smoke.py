@@ -1197,3 +1197,130 @@ def test_slice_phase_rehearsal(tmp_path, monkeypatch):
     assert out["sentences_per_s"] > 0 and out["interp_ms_per_record"] > 0
     reports = chip_smoke.german_reports(64)
     assert len(set(reports)) == 64 and all(r.endswith(".") for r in reports)
+
+
+# ------------------------------------------------------------------ phase 19
+
+_GRID = dict(llm="tiny-llama", batch=4, pad_to_max=508, long_pad_to_max=1020, layers=2,
+             new_tokens=4)
+
+
+@pytest.fixture(scope="module")
+def grid_rehearsal(tmp_path_factory):
+    """Phase 19 whole on the CPU at tiny sizes: the two grid CLI runs (each
+    checkpoint served by ``cli.main --inference``), the four-rank harness
+    and the tp decode, with the one-process ``cli.main`` run of phase 17
+    before it.  The hold functions record what they were given (in f32
+    the one-process run is the f32 reference itself, so the 1.25x rules
+    have no plain error to scale) and the launch counts are not held (no
+    kernel launches on the CPU)."""
+    from ecg_byte_tpu_torch.cli import main as cli_main
+
+    root = str(tmp_path_factory.mktemp("grid"))
+    vocab, merges = chip_smoke.make_data(root, n_train=7, n_val=3, n_test=2, seg_len=60,
+                                         num_merges=30)
+    held, served = {"train": [], "logits": []}, []
+    args = ["--model", "tiny-llama", "--dataset", "ptb_500", "--tokenizer_check", "tokenizer_30",
+            "--num_merges", "30", "--percentiles", "data/ptb_500_dataset_stats.npy"]
+
+    def serve(root_, checkpoint, path):
+        with chip_smoke.contextlib.chdir(root_):
+            out = cli_main.main(args + ["--device", "cpu", "--inference", "--dev", "--peft",
+                                        "--toy", "--checkpoint", checkpoint])
+        served.append(out["serving"]["records"])
+        return dict.fromkeys(chip_smoke.SOURCES, 0), out["serving"]["decode_ms_per_step"]
+
+    patches = dict(N_TRAIN=7, N_VAL=3, N_TEST=2, _cli_args=lambda: list(args),
+                   check_launch_counts=lambda *a: None, serve_phase=serve,
+                   hold_train_paths=lambda k, p, r: held["train"].append((k, p, r)),
+                   hold_logits=lambda k, p, r: held["logits"].append((k, p, r)))
+    saved = {k: getattr(chip_smoke, k) for k in patches}
+    for k, v in patches.items():
+        setattr(chip_smoke, k, v)
+    sys.path.insert(0, REPO)
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # a torch thread a rank
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)  # phase 17's W = 1 checkpoint: the one-process tree
+        cli_main.main(args + ["--device", "cpu", "--peft", "--dev", "--toy", "--batch_size", "4",
+                              "--pad_to_max", "508"])
+        os.chdir(cwd)
+        by_path, numbers = chip_smoke.grid_phase(root, vocab, merges, (root, vocab, merges),
+                                                 chip_smoke.Grid(**_GRID), dev="cpu")
+    finally:
+        os.chdir(cwd)
+        sys.path.remove(REPO)
+        for k, v in saved.items():
+            setattr(chip_smoke, k, v)
+        if threads is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    return by_path, numbers, held, served
+
+
+def test_grid_phase_rehearsal(grid_rehearsal):
+    """Phase 19 ran every path: both CLI grids (each checkpoint the
+    one-process tree's shapes, rank 0 alone writing, served), the harness's
+    two steps held to one process (loss 1e-5, every LoRA group 1e-5 in the
+    2-norm) and the tp decode held to one process's logits (1e-5 of the
+    largest)."""
+    by_path, numbers, held, served = grid_rehearsal
+    assert set(by_path) == {"grid_tp", "grid_fsdp", "serve_grid_tp", "serve_grid_fsdp",
+                            "grid_harness"}
+    assert served == [5, 5] and numbers["wall_s"] > 0  # a record, 5 seeds
+    assert len(held["train"]) == 2 and len(held["logits"]) == 4  # two steps; four ranks decode
+    for (kern,), (one,), _ in held["train"]:
+        assert abs(kern[0] - one[0]) <= 1e-5 * abs(one[0])
+        assert kern[1].shape == one[1].shape and kern[2].shape == one[2].shape
+        for k, g in one[3].items():
+            assert (torch.linalg.vector_norm(kern[3][k] - g) / torch.linalg.vector_norm(g)) < 1e-5
+    for kern, one, _ in held["logits"]:
+        assert (kern - one).abs().max() <= 1e-5 * one.abs().max()
+
+
+def test_grid_step_check_refuses_a_gradient_scaled_by_t(grid_rehearsal):
+    """The harness's step held by hold_train_paths beside a plain path 1e-3
+    from f32: the grid's own result passes; with its gradients scaled by T
+    (a row-parallel sum whose backward sums too) it is refused."""
+    _, _, held, _ = grid_rehearsal
+    (kern,), (one,), _ = held["train"][0]
+    gen = torch.Generator().manual_seed(0)
+
+    def noisy(t):
+        return t + 1e-3 * t.abs().max() * torch.randn(t.shape, generator=gen)
+
+    plain = (one[0] * (1 + 1e-3), noisy(one[1]), noisy(one[2]),
+             {k: noisy(g) for k, g in one[3].items()})
+    chip_smoke.hold_train_paths([kern], [plain], [one])
+    scaled = (*kern[:3], {k: chip_smoke.GRID_TP * g for k, g in kern[3].items()})
+    with pytest.raises(AssertionError, match="gradient groups"):
+        chip_smoke.hold_train_paths([scaled], [plain], [one])
+
+
+def test_grid_rank_check_refuses_a_count_off_by_one_and_a_write_by_rank_1():
+    """The --fsdp CLI run's counts (each layer's forward again in its
+    backward): exact per rank, and rank 0 alone writing."""
+    want = chip_smoke.dis_train_counts(16, 4, 2, replay=True)
+    assert want["prefill_attention"] == 16 * (4 + 2 + 4)
+    assert want["rmsnorm"] == 33 * 6 + 32 * 4 and want["rmsnorm_bwd"] == 32 * 4
+    chip_smoke.check_dis_ranks(_dis_out([dict(want), dict(want)]), [want] * 2, "F = 2")
+    off = [dict(want), dict(want)]
+    off[1]["rmsnorm"] -= 1
+    with pytest.raises(AssertionError, match="rank 1: rmsnorm launched"):
+        chip_smoke.check_dis_ranks(_dis_out(off), [want] * 2, "F = 2")
+    both = _dis_out([dict(want), dict(want)])
+    both["ranks"][1]["written"] = ["best_model"]
+    with pytest.raises(AssertionError, match="written"):
+        chip_smoke.check_dis_ranks(both, [want] * 2, "F = 2")
+
+
+def test_tp_stream_check_refuses_a_parting_at_a_wide_margin():
+    """Equal streams pass; streams that part where one process's top-2
+    margin is within the logits bound (a near tie) pass, at that step; a
+    parting where the margin is wider is refused."""
+    assert chip_smoke.check_tp_stream([5, 6, 7], [5, 6, 7], [1.0] * 3, 0.1) is None
+    assert chip_smoke.check_tp_stream([5, 6, 8], [5, 6, 7], [1.0, 1.0, 0.05], 0.1) == 2
+    with pytest.raises(AssertionError, match="parts at step 1"):
+        chip_smoke.check_tp_stream([5, 9, 7], [5, 6, 7], [1.0, 0.5, 1.0], 0.1)

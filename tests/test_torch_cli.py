@@ -86,19 +86,22 @@ def test_inference_cli_on_cpu(workdir):
 
 
 @pytest.mark.parametrize(
-    "extra,message",
+    "argv,message",
     [
-        ([], "no CUDA device"),  # no --device and no card: no CPU fallback
+        (ARGS, "no CUDA device"),  # no --device and no card: no CPU fallback
         # int8 serving quantizes merged weights only (the JAX CLI's rule)
-        (["--device", "cpu", "--peft", "--checkpoint", "ckpt_lora", "--int8_decode",
-          "--no_merge_lora"], "--int8_decode requires merged adapters; drop --no_merge_lora"),
-        # --dis is data parallelism; the mesh's tp axis is not ported
-        (["--device", "cpu", "--dis", "--tp", "2"], "ROADMAP.md section 1, item 8"),
+        (ARGS + ["--device", "cpu", "--peft", "--checkpoint", "ckpt_lora", "--int8_decode",
+                 "--no_merge_lora"],
+         "--int8_decode requires merged adapters; drop --no_merge_lora"),
+        # training under --dis --tp: T must divide the KV heads (tiny-llama's 2),
+        # refused before any rank starts (serving ignores --dis)
+        (TRAIN + ["--dis", "--gpus", "0,0,0,0", "--tp", "4"],
+         "--tp 4 must divide the model's num_kv_heads (2)"),
     ],
     ids=["no-device", "int8", "dis"],
 )
-def test_cli_refuses(workdir, extra, message):
-    r = _run(ARGS + extra, workdir)
+def test_cli_refuses(workdir, argv, message):
+    r = _run(argv, workdir)
     assert r.returncode != 0
     assert message in r.stderr
 

@@ -11,8 +11,9 @@ cpu --gpus 0,0``) against one process.
   batch it shares trains the rest, and the losses are one process's;
 - a rank that raises at its second step ends the run with an error within
   60 s (the others are ended, not left waiting in a collective);
-- ``--tp 2`` and ``--fsdp 2`` under ``--dis``, and a global batch the ranks
-  cannot split, are refused with their messages;
+- a ``--tp`` that does not divide the KV heads, an ``--fsdp`` that does not
+  divide the ranks, and a global batch the ranks cannot split, are refused
+  with their messages;
 - ``cli.pretrain --model resnet`` (synced BatchNorm, gathered MERL losses)
   and ``cli.finetune`` (the fusion LLM): the saved trees within 1e-5 of
   their largest, the losses within rtol 1e-5.
@@ -180,8 +181,8 @@ def test_cli_dis_rank_that_raises_ends_the_run(run_in):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--tp", "2"], "--tp is not ported yet"),
-    (["--fsdp", "2"], "--fsdp is not ported yet"),
+    (["--tp", "3"], r"--tp 3 must divide the model's num_kv_heads \(2\)"),
+    (["--fsdp", "3"], "--tp 1 x --fsdp 3 = 3 must divide the 2 ranks of --dis"),
     (["--batch_size", "3"], "--batch_size 3 is the global batch; --dis over 2 ranks needs a "
                             "multiple of 2"),
 ], ids=["tp", "fsdp", "indivisible-batch"])

@@ -14,7 +14,11 @@ resnet --tiny``, ``cli.finetune`` on its checkpoint and ``--inference``,
 and the CLIP and ViT image pipelines; and this PR's modules:
 ``translate_reports`` with a random Marian directory written by
 ``chip_smoke``, ``cli.interp_analysis``, ``cli.token_distribution`` and
-``cli.track_bpe_encoding``.  No source line imports JAX or the
+``cli.track_bpe_encoding``; and the ``--tp`` / ``--fsdp`` grid
+(``parallel/mesh.py``, ``parallel/sharding.py``): two gloo ranks, each
+blocking the same packages before it imports the port, take LoRA and full
+fine-tune steps at T = 2 and at F = 2, save the whole checkpoint and
+decode at T = 2.  No source line imports JAX or the
 JAX package, nor scikit-learn, pandas, pywt, wfdb, Pillow or optax."""
 
 import os
@@ -23,6 +27,45 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# a rank of the grid check: it blocks the packages before it imports the
+# port, takes steps at T = 2 and F = 2, saves and decodes
+_RANK = r"""
+import sys, tempfile
+BLOCKED = BLOCKED_
+assert not [m for m in BLOCKED if m in sys.modules]
+for mod in BLOCKED:
+    sys.modules[mod] = None
+import torch
+from ecg_byte_tpu_torch.infer import greedy_generate
+from ecg_byte_tpu_torch.models import tiny_test_config
+from ecg_byte_tpu_torch.models.lora import leaves
+from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
+from ecg_byte_tpu_torch.train import checkpoint
+from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+from ecg_byte_tpu_torch.train.step import create_train_state, make_train_step, shard_train_state
+torch.set_num_threads(1)
+config = tiny_test_config("llama", vocab_size=301)
+opt = make_optimizer(config.hidden_size, 2)
+ids = torch.randint(0, 301, (2, 16), generator=torch.Generator().manual_seed(0))
+batch = {"input_ids": ids, "attn_mask": torch.ones(2, 16, dtype=torch.int32), "labels": ids}
+for tp, fsdp in ((2, 1), (1, 2)):
+    mesh.init(tp, fsdp)
+    for peft in (True, False):
+        state = create_train_state(config, opt, torch.Generator().manual_seed(0), peft=peft)
+        state = shard_train_state(state, opt)
+        rows = distributed.Rows.stride(2, mesh.data_world(), mesh.data_rank())
+        local = {k: v[list(rows.index)] for k, v in batch.items()}
+        state, loss = make_train_step(config, opt)(state, local, None, rows, 30)
+        assert torch.isfinite(loss)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_checkpoint(d, "best_model", state)
+    if tp == 2:
+        out = greedy_generate(state.trainable, config, ids, max_new_tokens=3)
+        assert out.shape == (2, 3)
+    mesh.reset()
+assert all(sys.modules[m] is None for m in BLOCKED)
+"""
 
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys, tempfile
@@ -128,6 +171,9 @@ ids = torch.randint(0, config.vocab_size, (2, 16))
 batch = {"input_ids": ids, "attn_mask": torch.ones(2, 16, dtype=torch.int32), "labels": ids}
 state, loss = make_train_step(config, opt)(state, batch, torch.Generator().manual_seed(1))
 assert state.step == 1 and torch.isfinite(loss)
+from ecg_byte_tpu_torch.parallel.spawn import spawn
+done = spawn(exec, (RANK_CODE.replace("BLOCKED_", repr(BLOCKED)), {}), world=2, timeout_s=120)
+assert done == [None, None]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert loaded == sorted(BLOCKED), loaded
 assert all(sys.modules[m] is None for m in BLOCKED)
@@ -138,7 +184,8 @@ print("modules", len(names))
 def test_port_imports_and_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     env.pop("ECG_BYTE_TEXT_TOKENIZER", None)
-    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+    script = _SCRIPT.replace("RANK_CODE", repr(_RANK))
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[-1]) >= 30
