@@ -161,35 +161,55 @@ Phases, each printing its own lines, in the order they run:
     fusion) and its gradient all-reduce timed with CUDA events, at W = 2
     and (the main path) at W = 1 over NCCL.
 
-18. ``cli.main --peft --dev`` at its default ``--pad_to_max 1000`` (S
-    1004: the resident kernels through the padding), exact launch counts,
-    and its train step held to the plain path and f32 as phase 7 holds
-    phase 6's; ``cli.interp_analysis`` on phase 6's checkpoint at
-    ``--pad_to_max 1020`` (S 1024) from the device token cache, exact
-    launch counts, the streamed layer and head mean held to the eager
-    stack's, its rows and pad columns (check_attention_mean) and the kernel
-    path's mean to 1.25x the plain path's distance from f32, ms a record
-    and peak memory; ``translate_reports`` on 64 German sentences with a
-    size-exact random opus-mt-de-en directory (write_random_marian: 73.9M
-    f32 parameters), held to the port's CPU run of the same directory
+18. ``cli.main --peft --dev`` at its default ``--pad_to_max 1000`` (S 1004:
+    the resident kernels through the padding) with ``--profile`` and
+    ``ECG_BYTE_LOG_MEMORY=1``, exact launch counts, the trace's kernel
+    events by wrapper equal to the counters of its epoch loop
+    (check_trace_counts: the resident forward and backward and both RMSNorm
+    kernels named), its three memory readings in order and within the card's
+    memory (check_memory_lines), and its train step held to the plain path
+    and f32 as phase 7 holds phase 6's; ``cli.interp_analysis`` on phase 6's
+    checkpoint at ``--pad_to_max 1020`` (S 1024) from the device token
+    cache, exact launch counts, the streamed layer and head mean held to the
+    eager stack's, its rows and pad columns (check_attention_mean) and the
+    kernel path's mean to 1.25x the plain path's distance from f32, ms a
+    record and peak memory; ``translate_reports`` on 64 German sentences
+    with a size-exact random opus-mt-de-en directory (write_random_marian:
+    73.9M f32 parameters), held to the port's CPU run of the same directory
     (check_marian_streams: teacher-forced logits within MARIAN_TOL, greedy
     streams equal up to a near tie), sentences/s and ms a decode step;
-    ``cli.token_distribution`` and ``cli.track_bpe_encoding`` on the
-    ptb_500 files, without matplotlib.
-19. ``--tp`` and ``--fsdp`` (ranks sharing the card over gloo):
-    ``cli.main --dis --gpus 0,0 --tp 2`` and ``--fsdp 2`` at B4 x 1024,
-    exact launch counts per rank (under F = 2 each layer's forward runs
-    again in its backward), rank 0 alone writing the whole tree, each
-    checkpoint in the one-process shapes and served by ``cli.main
-    --inference``; a four-rank harness on T = 2 x F = 2 at full width and
-    4 layers whose steps at B4 x 1024 (resident kernels) and B1 x 4096
-    (flash kernels) are held to the one-process step and f32 by
-    :func:`hold_train_paths`, with each rank's step ms and the ms of its
-    tp, fsdp and data-group collectives (replayed alone); tensor-parallel
-    greedy decode at T = 2 on 16 layers, its prefill logits held by
+    ``cli.token_distribution`` and ``cli.track_bpe_encoding`` on the ptb_500
+    files, without matplotlib.
+19. ``--tp`` and ``--fsdp`` (ranks sharing the card over gloo): ``cli.main
+    --dis --gpus 0,0 --tp 2`` and ``--fsdp 2`` at B4 x 1024, exact launch
+    counts per rank (under F = 2 each layer's forward runs again in its
+    backward), rank 0 alone writing the whole tree, each checkpoint in the
+    one-process shapes and served by ``cli.main --inference``; a four-rank
+    harness on T = 2 x F = 2 at full width and 2 layers (cut from 4 to make
+    room for phase 20) whose steps at B4 x 1024 (resident kernels) and B1 x
+    4096 (flash kernels) are held to the one-process step and f32 by
+    :func:`hold_train_paths`, with each rank's step ms and the ms of its tp,
+    fsdp and data-group collectives (replayed alone); tensor-parallel greedy
+    decode at T = 2 on 4 layers (cut from 16), its prefill logits held by
     :func:`hold_logits` and its tokens to one process's
     (:func:`check_tp_stream`).  Phase 3 holds the attention kernels at a
     rank's T = 2 heads (16/4).
+20. The norm-folded path (``transformer.fold_norm_scales``) on Llama-3.2-1B
+    at full width with its norm weights moved off 1: one LoRA step at B4 x
+    1024 on the folded tree and on the classic one, with RMSNorm once a
+    forward and once a backward (2L + 1 and 2L on the classic tree) and
+    every other kernel as often (check_folded_counts); the folded step held
+    by :func:`hold_train_paths` to its plain versions and the folded tree
+    in f32, and the folded tree in f32 to the classic tree in f32 beside
+    the classic kernel path; both steps timed; greedy decode of the serving
+    prompt on both trees in bf16 and with the int8 copy and cache, each
+    folded stream held to the classic one by :func:`check_tp_stream`, and
+    both trees' logits teacher-forced on the classic stream held by
+    :func:`hold_folded_logits` against each tree in f32.
+
+``python3 chip_smoke.py --blame`` runs phases 1 and 2 and then
+:func:`blame_phase` alone: a diagnostic that prints, holds nothing and
+prints no result line.
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
@@ -205,8 +225,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import glob
+import io
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -371,8 +395,12 @@ LONG_TRAIN_CHECK = TrainCheck(
     ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"))
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    """A phase's heading, with the script's seconds so far (host clock)."""
+    print(f"\n== {name} [at {time.perf_counter() - _START:.1f} s]", flush=True)
 
 
 # ------------------------------------------------------------------ helpers
@@ -2358,10 +2386,11 @@ def append_then_kernel(q, k_cache, v_cache, valid_mask, k_scale=None, v_scale=No
 append_then_kernel.launches = append_then_kernel.int8_launches = 0
 
 
-def decode_device_time(run, params, config, s, label, steps=16):
+def decode_device_time(run, params, config, s, label, steps=8):
     """Device time and device launches of a decode step of ``run`` after a
     prompt bucketed to ``s``: ``torch.profiler`` over ``steps``
-    teacher-forced steps after the prefill, the kernels' (and copies')
+    teacher-forced steps after the prefill (cut from 16: the profiler took
+    most of phases 5, 9 and 12), the kernels' (and copies')
     device time summed and their launches counted; beside it the wall time
     of the same steps (host clock, the profiler's overhead included).  Once
     as the decode step runs, once with the append before the kernel
@@ -2433,8 +2462,6 @@ def train_paths_phase(root, vocab, merges, check, model=MODEL, dev="cuda"):
     import torch
 
     from ecg_byte_tpu_torch.cli.common import build_model
-    from ecg_byte_tpu_torch.models import lora as lora_lib
-    from ecg_byte_tpu_torch.models import transformer as T
     from ecg_byte_tpu_torch.train.step import _batch_tensors
 
     phase(check.title)
@@ -2447,36 +2474,9 @@ def train_paths_phase(root, vocab, merges, check, model=MODEL, dev="cuda"):
                                            check.pad_to_max), dev)
     assert items["input_ids"].shape == (check.items, s), items["input_ids"].shape
     batches = [{k: v[i:i + 1] for k, v in items.items()} for i in range(check.items)]
-    loras = []
-    for i in range(check.items):
-        gen = torch.Generator(device=dev).manual_seed(2 + i)
-        lora = lora_lib.init_lora(config, gen, dev)
-        for layer in lora["layers"]:  # B != 0, so that dA != 0
-            for ab in layer.values():
-                ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
-                    ab["b"].dtype)
-        loras.append(lora)
-    names = [(name, k) for name in loras[0]["layers"][0] for k in ("a", "b")]
-
+    loras = [random_lora(config, 2 + i, dev) for i in range(check.items)]
     def run(params, lora, config, batch):
-        """(loss, cross entropies at the labelled and at the valid
-        positions, LoRA gradients), dropout off."""
-        lora = _map_tree(lambda t: t.detach().clone().requires_grad_(True), lora)
-        hidden = T.forward(params, config, batch["input_ids"], batch["attn_mask"],
-                           batch["position_ids"], lora=lora, return_hidden=True)
-        loss = T.lm_loss_from_hidden(params, config, hidden, batch["labels"])
-        loss.backward()
-        with torch.no_grad():
-            logits = T._unembed(params, config, hidden)[0, :-1]
-            lse = torch.logsumexp(logits, -1)
-            labels, nxt = batch["labels"][0, 1:], batch["input_ids"][0, 1:]
-            ce_lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
-            ce_all = lse - logits.gather(1, nxt[:, None])[:, 0]
-            del logits
-        grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
-                                             for layer in lora["layers"]]) for n, k in names}
-        return (loss.item(), ce_lab[labels != -100], ce_all[batch["attn_mask"][0, 1:].bool()],
-                grads)
+        return lora_loss_and_grads(params, lora, config, batch)[0]
 
     before = launches()
     kern = [run(params, lora, config, batch) for lora, batch in zip(loras, batches)]
@@ -2497,11 +2497,75 @@ def train_paths_phase(root, vocab, merges, check, model=MODEL, dev="cuda"):
     hold_train_paths(kern, plain, ref)
 
 
-def hold_train_paths(kern, plain, ref):
+def path_error_ratios(kern, plain, ref):
+    """A step's distance from ``ref`` over ``plain``'s (each ``(loss, cross
+    entropies at the labelled and at the valid positions, {group:
+    gradient})``, as :func:`lora_loss_and_grads` returns them): the cross
+    entropies', and the largest and the smallest of the gradient groups'."""
+    import torch
+
+    def ratio(j, g=None):
+        k, p, r = (x[j] if g is None else x[j][g] for x in (kern, plain, ref))
+        dk, dp = (torch.linalg.vector_norm(a - r).item() for a in (k, p))
+        return dk / dp if dp else (0.0 if dk == 0 else math.inf)
+
+    groups = [ratio(3, g) for g in ref[3]]
+    return {"ce_labelled": ratio(1), "ce_valid": ratio(2), "grad_max": max(groups),
+            "grad_min": min(groups)}
+
+
+def random_lora(config, seed, dev):
+    """Adapters of ``lora.init_lora`` from a generator seeded with ``seed``,
+    B drawn too (1e-2 N(0, 1)), so that dA != 0."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import lora as lora_lib
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lora = lora_lib.init_lora(config, gen, dev)
+    for layer in lora["layers"]:
+        for ab in layer.values():
+            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
+                ab["b"].dtype)
+    return lora
+
+
+def lora_loss_and_grads(params, lora, config, batch):
+    """One forward and backward of the LoRA loss on ``batch``, dropout off:
+    ((loss, cross entropies at the labelled and at the valid positions,
+    {LoRA gradient group: flat f32 gradient}), the kernels that forward and
+    backward launched)."""
+    import torch
+
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    lora = _map_tree(lambda t: t.detach().clone().requires_grad_(True), lora)
+    before = launches()
+    hidden = T.forward(params, config, batch["input_ids"], batch["attn_mask"],
+                       batch["position_ids"], lora=lora, return_hidden=True)
+    loss = T.lm_loss_from_hidden(params, config, hidden, batch["labels"])
+    loss.backward()
+    counts = {k: n - before[k] for k, n in launches().items()}
+    with torch.no_grad():
+        logits = T._unembed(params, config, hidden)[:, :-1]
+        lse = torch.logsumexp(logits, -1)
+        labels, nxt = batch["labels"][:, 1:], batch["input_ids"][:, 1:]
+        ce_lab = lse - logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        ce_all = lse - logits.gather(-1, nxt[..., None])[..., 0]
+        del logits
+    names = [(name, k) for name in lora["layers"][0] for k in ("a", "b")]
+    grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
+                                         for layer in lora["layers"]]) for n, k in names}
+    return (loss.item(), ce_lab[labels != -100], ce_all[batch["attn_mask"][:, 1:].bool()],
+            grads), counts
+
+
+def hold_train_paths(kern, plain, ref, held=("labelled", "valid")):
     """The rules of :func:`train_paths_phase` on its runs: each a list over
     items of (loss, cross entropies at the labelled and at the valid
     positions, {gradient group: flat f32 gradient}), with the kernels, the
-    plain versions and in f32."""
+    plain versions and in f32.  ``held``: the positions whose pooled cross
+    entropy is held (both are printed)."""
     import torch
 
     def rel(a, b):
@@ -2543,7 +2607,8 @@ def hold_train_paths(kern, plain, ref):
     # the rule of phase 5: the kernel path no further from f32 than 1.25x
     # the plain path's own bf16 error
     assert not too_far, f"items {too_far}: loss further from f32 than its bound"
-    for what, (_, ek, ep) in ce.items():
+    for what in held:
+        _, ek, ep = ce[what]
         assert ek <= 1.25 * ep, f"cross entropy at the {what} positions: {ek:.3e} vs plain {ep:.3e}"
     bad = [name for name, (ek, ep) in grads.items() if ek > 1.25 * ep]
     assert not bad, f"gradient groups further from f32 than 1.25x the plain path: {bad}"
@@ -3921,19 +3986,11 @@ def check_dis_ranks(out, expected, what):
 def _ddp_lm_model(root, vocab, merges, ddp, dev):
     """The main path's random model (seed 0), LoRA adapters with B != 0, and
     the step check's global batch (``ddp.batch`` training items)."""
-    import torch
-
     from ecg_byte_tpu_torch.cli.common import build_model
-    from ecg_byte_tpu_torch.models import lora as lora_lib
     from ecg_byte_tpu_torch.train.step import _batch_tensors
 
     params, config, tok = build_model(ddp.llm, vocab, dev)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    lora = lora_lib.init_lora(config, gen, dev)
-    for layer in lora["layers"]:  # B != 0, so that dA != 0
-        for ab in layer.values():
-            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
-                ab["b"].dtype)
+    lora = random_lora(config, 2, dev)
     batch = _batch_tensors(_training_items(root, vocab, merges, tok, ddp.batch, ddp.pad_to_max),
                            dev)
     return params, config, lora, batch
@@ -4497,6 +4554,73 @@ def check_marian_streams(tokens, card, cpu, eos, pad, tol=MARIAN_TOL):
     return d, bound, held, ties
 
 
+# the CUDA kernel that runs once for each launch its wrapper counts, by the
+# demangled name torch.profiler records: the attention forwards, the dQ
+# kernel of each backward (its dK/dV kernel follows it), the RMSNorm row
+# kernels (rmsnorm_dw_sum_kernel follows a backward only where w trains)
+TRACE_KERNELS = {
+    "prefill_attention": r"fwd::fwd_kernel<\d+, (false|\(bool\)0)>",
+    "prefill_attention_bwd": r"bwd::dq_kernel<\d+, (false|\(bool\)0)>",
+    "flash_attention": r"fwd::fwd_kernel<\d+, (true|\(bool\)1)>",
+    "flash_attention_bwd": r"bwd::dq_kernel<\d+, (true|\(bool\)1)>",
+    "rmsnorm": r"rmsnorm_fwd_kernel<",
+    "rmsnorm_bwd": r"rmsnorm_bwd_kernel<",
+}
+# ECG_BYTE_LOG_MEMORY=1: cli.main's readings of a training run, in order
+# (ecg_byte_tpu/cli/main.py:174-178, :194-195, :394-395)
+MEMORY_TAGS = ("after model build + ECG-token resize",
+               "after train-state creation (params + opt state)", "after first training epoch")
+
+
+class _Tee(io.TextIOBase):
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def trace_kernel_counts(path):
+    """The CUDA kernel events of a Chrome trace file (``--profile``): their
+    count by wrapper (:data:`TRACE_KERNELS`), and every kernel event's
+    name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {k: sum(bool(re.search(p, n)) for n in names) for k, p in TRACE_KERNELS.items()}, names
+
+
+def check_trace_counts(traced, counts, dev):
+    """The kernels a trace holds, by wrapper, equal the wrappers' counts of
+    the traced run; on the card the trace names the resident forward and
+    backward and both RMSNorm kernels."""
+    for name, n in traced.items():
+        assert n == counts[name], f"the trace holds {n} {name} kernels, the counter {counts[name]}"
+    if str(dev).startswith("cuda"):
+        missing = [k for k in ("prefill_attention", "prefill_attention_bwd", "rmsnorm",
+                               "rmsnorm_bwd") if not traced[k]]
+        assert not missing, f"the trace names no {missing} kernel"
+
+
+def check_memory_lines(text, total, tags=MEMORY_TAGS):
+    """``ECG_BYTE_LOG_MEMORY=1``'s lines in ``text``: the readings ``tags``,
+    in order, each a byte count in (0, total]; returns the counts."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("[memory] ")]
+    got = tuple(ln[len("[memory] "):].split(": ", 1)[0] for ln in lines)
+    assert got == tuple(tags), f"memory readings {got}, expected {tags}"
+    values = [int(ln.rsplit("(", 1)[1].split()[0]) for ln in lines]
+    assert all(0 < v <= total for v in values), f"memory readings {values} not in (0, {total}]"
+    return values
+
+
 def slice_phase(root, vocab, merges, checkpoint, sl=SLICE, dev="cuda"):
     """Phase 18: (a) ``cli.main --peft --dev`` at its default --pad_to_max
     1000 (S 1004, through ``attention.resident_padded``): exact launch
@@ -4548,23 +4672,46 @@ def slice_phase(root, vocab, merges, checkpoint, sl=SLICE, dev="cuda"):
     by_path, out = {}, {}
     layers = _PRESETS[sl.model]().num_layers
 
-    # (a) training at the CLI's default --pad_to_max: S 1004 through the padding
+    # (a) training at the CLI's default --pad_to_max: S 1004 through the padding,
+    # traced (--profile) and with the memory readings (ECG_BYTE_LOG_MEMORY=1);
+    # on --toy's quarter of the records, cut from all of them to hold the
+    # script's time with the trace added
     zero_launches()
     t0 = time.perf_counter()
-    with contextlib.chdir(root), contextlib.redirect_stdout(sys.stderr):
+    log = io.StringIO()
+    with contextlib.chdir(root), contextlib.redirect_stdout(_Tee(sys.stderr, log)), \
+            mock.patch.dict(os.environ, {"ECG_BYTE_LOG_MEMORY": "1"}):
         summary = cli_main.main(["--model", sl.model, *data_args, *dev_args, "--peft", "--dev",
-                                 "--batch_size", str(sl.batch)])["training"]
+                                 "--toy", "--batch_size", str(sl.batch), "--profile",
+                                 "profile"])["training"]
     sync()
     counts = by_path["train_pad1000"] = launches()
-    steps, evals = summary["steps"], -(-N_VAL // sl.batch) * 2
+    steps, evals = summary["steps"], -(-max(1, int(N_VAL * 0.25)) // sl.batch) * 2  # --toy
     check_launch_counts(counts, {
         "prefill_attention": layers * (steps + evals), "prefill_attention_bwd": layers * steps,
         "rmsnorm": (2 * layers + 1) * (steps + evals), "rmsnorm_bwd": 2 * layers * steps,
         "bpe_match": 2, "bpe_chain": 2}, "18a cli.main --pad_to_max 1000")
     assert all(np.isfinite(summary["train_loss"] + summary["val_loss"])), summary
-    print(f"18a cli.main --peft --dev --batch_size {sl.batch} (default --pad_to_max 1000): "
-          f"{steps} train steps and {evals} eval steps at S {s_train}, {time.perf_counter() - t0:.1f} s; "
+    run_s = time.perf_counter() - t0
+    print(f"18a cli.main --peft --dev --toy --batch_size {sl.batch} --profile (default --pad_to_max "
+          f"1000): {steps} train steps and {evals} eval steps at S {s_train}, {run_s:.1f} s; "
           f"train loss {summary['train_loss']}, val loss {summary['val_loss']}; launches {counts}")
+    # the trace holds the epoch loop: every launch but the token cache's
+    t0 = time.perf_counter()
+    (trace_path,) = glob.glob(os.path.join(root, "profile", "rank0.*.pt.trace.json"))
+    traced, names = trace_kernel_counts(trace_path)
+    check_trace_counts(traced, counts, dev)
+    total = (torch.cuda.get_device_properties(dev).total_memory if cuda
+             else os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+    memory = check_memory_lines(log.getvalue(), total)
+    assert "Profiler trace written to profile" in log.getvalue()
+    print(f"18a --profile: {trace_path[len(root) + 1:]}, {os.path.getsize(trace_path) / 1e6:.1f} "
+          f"MB, {len(names)} kernel events, {len(set(names))} kernels; by wrapper {traced}, equal "
+          f"to the counters less the token cache's; read in {time.perf_counter() - t0:.1f} s; "
+          f"ECG_BYTE_LOG_MEMORY: {memory} bytes (of {total}); the port's kernels in it: "
+          f"{sorted({n for n in names if any(re.search(p, n) for p in TRACE_KERNELS.values())})}")
+    out.update(profiled_run_s=run_s, trace_mb=os.path.getsize(trace_path) / 1e6,
+               memory_bytes=memory)
     train_paths_phase(root, vocab, merges, TrainCheck(
         f"18a. train-step kernel path vs plain path at B1 x {s_train} (S not a multiple of 16: "
         "the padded route)", 1000, ("prefill_attention", "prefill_attention_bwd", "rmsnorm",
@@ -4733,7 +4880,10 @@ class Grid:
     batch: int = 4  # the global batch of the CLI runs and of the harness's B x 1024 step
     pad_to_max: int = 1020  # S 1024, as phase 6
     long_pad_to_max: int = 4092  # S 4096, as phase 10: the flash kernels
-    layers: int = 4  # the harness's depth (the decode check's: the model's)
+    # the harness's depth, and the tp decode check's: cut from 4 and from the
+    # model's 16 to hold the script's time with phase 20 added
+    layers: int = 2
+    decode_layers: int = 4
     new_tokens: int = 16
 
 
@@ -4743,18 +4893,20 @@ GRID_TP, GRID_FSDP = 2, 2  # the harness's grid: four ranks on one card
 _GROUP_KINDS = ("tp", "fsdp", "data", "host")
 
 
-def check_tp_stream(tp, one, margins, bound):
+def check_tp_stream(tp, one, margins, bound, what=("tp", "one process")):
     """The token stream of a tp group against one process's: equal, or where
     they part, one process's top-2 margin at that step (``margins[k]``) no
     wider than ``bound``, the logits' own error (a near tie flips either
-    way).  Returns the first step where they part (None: equal)."""
+    way).  Returns the first step where they part (None: equal).  ``what``
+    names the two paths (phase 20: the folded and the classic tree)."""
     tp, one = [int(t) for t in tp], [int(t) for t in one]
     if tp == one:
         return None
+    path, ref = what
     k = next(i for i, (a, b) in enumerate(zip(tp, one)) if a != b)
-    print(f"tp stream parts from one process's at step {k}: one process's top-2 margin "
+    print(f"{path} stream parts from {ref}'s at step {k}: {ref}'s top-2 margin "
           f"{margins[k]:.4e} against the logits bound {bound:.4e}")
-    assert margins[k] <= bound, (f"the tp stream parts at step {k}, where one process's top-2 "
+    assert margins[k] <= bound, (f"the {path} stream parts at step {k}, where {ref}'s top-2 "
                                  f"margin {margins[k]:.4e} is wider than {bound:.4e}")
     return k
 
@@ -4810,24 +4962,22 @@ def replay_collectives(log, kind_of, repeats=3):
     return out
 
 
+def cut_depth(params, config, layers):
+    """``params`` and ``config`` cut to their first ``layers`` layers (all
+    of them where the model has fewer)."""
+    n = min(layers, config.num_layers)
+    return {**params, "layers": params["layers"][:n]}, config.replace(num_layers=n)
+
+
 def _grid_model(root, vocab, merges, g, dev, layers, n, pad_to_max):
     """The main path's random model (seed 0) cut to ``layers``, LoRA adapters
     with B != 0 (seed 2), and ``n`` training items at ``pad_to_max``."""
-    import torch
-
     from ecg_byte_tpu_torch.cli.common import build_model
-    from ecg_byte_tpu_torch.models import lora as lora_lib
     from ecg_byte_tpu_torch.train.step import _batch_tensors
 
     params, config, tok = build_model(g.llm, vocab, dev)
-    params = {**params, "layers": params["layers"][:layers]}
-    config = config.replace(num_layers=layers)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    lora = lora_lib.init_lora(config, gen, dev)
-    for layer in lora["layers"]:  # B != 0, so that dA != 0
-        for ab in layer.values():
-            ab["b"] = (1e-2 * torch.randn(ab["b"].shape, generator=gen, device=dev)).to(
-                ab["b"].dtype)
+    params, config = cut_depth(params, config, layers)
+    lora = random_lora(config, 2, dev)
     batch = _batch_tensors(_training_items(root, vocab, merges, tok, n, pad_to_max), dev)
     return params, config, lora, batch
 
@@ -4964,8 +5114,8 @@ def grid_rank(roots, g, dev="cuda"):
     ``g.layers`` layers, the kernels each launched; on the card the step's
     ms (CUDA events) and the ms of its tp, fsdp and data-group collectives
     (one step's, :func:`recorded_collectives`, replayed alone).  Then on T
-    = 2 (dp 2 x tp 2) greedy decode of the serving prompt at the model's
-    depth (:func:`tp_decode_run`), with its launches.  ``roots``: ((root,
+    = 2 (dp 2 x tp 2) greedy decode of the serving prompt at
+    ``g.decode_layers`` layers (:func:`tp_decode_run`), with its launches.  ``roots``: ((root,
     vocab, merges) of the 1,024 and of the 4,096-token data).  ``dev="cpu"``:
     the checks alone, for a rehearsal."""
     import torch
@@ -5023,6 +5173,7 @@ def grid_rank(roots, g, dev="cuda"):
     mesh.init(GRID_TP, 1)  # dp 2 x tp 2: each tp group decodes the prompt
     root, vocab, merges = roots[0]
     params, config, tok = build_model(g.llm, vocab, dev)
+    params, config = cut_depth(params, config, g.decode_layers)
     params = sharding.shard_tree(params, sharding.param_splits(params))
     ids, mask = _tp_prompt(root, vocab, merges, tok, dev)
     before = launches()
@@ -5057,8 +5208,8 @@ def grid_phase(root, vocab, merges, long, g=GRID, dev="cuda"):
 
     phase(f"19. --tp / --fsdp: cli.main --dis --gpus 0,0 at --tp 2 and at --fsdp 2, B{g.batch} x "
           f"{g.pad_to_max + 4}; a T = {GRID_TP} x F = {GRID_FSDP} harness at {g.layers} layers "
-          f"(B{g.batch} x {g.pad_to_max + 4}, B1 x {g.long_pad_to_max + 4}); tp decode, "
-          f"{g.new_tokens} tokens")
+          f"(B{g.batch} x {g.pad_to_max + 4}, B1 x {g.long_pad_to_max + 4}); tp decode at "
+          f"{g.decode_layers} layers, {g.new_tokens} tokens")
     t_phase = time.perf_counter()
     cpu = dev == "cpu"
     extra = ["--device", "cpu"] if cpu else []
@@ -5125,8 +5276,9 @@ def grid_phase(root, vocab, merges, long, g=GRID, dev="cuda"):
                 assert all(counts[k] > 0 for k in kernels), (r["rank"], key, counts)
         # greedy_generate's prefill and new_tokens - 1 steps, and the prefill
         # whose logits are held
-        want = {"prefill_attention": 2 * L, "decode_attention": L * (g.new_tokens - 1),
-                "rmsnorm": (2 * L + 1) * (g.new_tokens + 1)}
+        ld = min(g.decode_layers, L)
+        want = {"prefill_attention": 2 * ld, "decode_attention": ld * (g.new_tokens - 1),
+                "rmsnorm": (2 * ld + 1) * (g.new_tokens + 1)}
         check_launch_counts(r["decode_launches"], want, f"tp decode, rank {r['rank']}")
         by_path.setdefault("grid_harness", dict.fromkeys(SOURCES, 0))
         for key in ("lm_launches", "long_launches", "decode_launches"):
@@ -5176,6 +5328,7 @@ def grid_phase(root, vocab, merges, long, g=GRID, dev="cuda"):
           "the phase")
     # tp decode against one process: the prefill logits and the streams
     params, config, tok = build_model(g.llm, vocab, torch.device(dev))
+    params, config = cut_depth(params, config, g.decode_layers)
     ids, mask = _tp_prompt(root, vocab, merges, tok, torch.device(dev))
     one_tokens, one_logits = tp_decode_run(params, config, ids, mask, g.new_tokens)
     with plain_path():
@@ -5200,6 +5353,19 @@ def grid_phase(root, vocab, merges, long, g=GRID, dev="cuda"):
 def teacher_margins(params, config, ids, mask, tokens):
     """One process's top-2 logit margin at each step of its greedy
     ``tokens`` on the prompt (prefill, then each token fed back)."""
+    return top2_margins(teacher_logits(params, config, ids, mask, tokens))
+
+
+def top2_margins(logits):
+    """The top-2 margin of each row of (steps, V) logits."""
+    top = logits.topk(2, -1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def teacher_logits(params, config, ids, mask, tokens, cache_dtype=None):
+    """The f32 logits (len(tokens), V) on the host of the prompt (prefill)
+    and of each of ``tokens`` but the last fed back (decode steps), with a
+    KV cache of ``cache_dtype`` (None: the model's)."""
     import torch
 
     from ecg_byte_tpu_torch.models import transformer as T
@@ -5207,7 +5373,7 @@ def teacher_margins(params, config, ids, mask, tokens):
     s, n = ids.shape[1], len(tokens)
     dev = ids.device
     with torch.inference_mode():
-        cache = T.init_kv_cache(config, 1, s + n, dev)
+        cache = T.init_kv_cache(config, 1, s + n, dev, dtype=cache_dtype)
         logits, cache, pos = T.prefill(params, config, ids, mask, cache)
         out = [logits]
         cache_mask = torch.cat([mask, torch.zeros(1, n, dtype=torch.int32, device=dev)], 1)
@@ -5218,14 +5384,503 @@ def teacher_margins(params, config, ids, mask, tokens):
                                           cache, cache_mask)
             out.append(logits)
             pos = pos + 1
-        top = torch.stack(out)[:, 0].float().topk(2, -1).values
-    return (top[:, 0] - top[:, 1]).cpu().tolist()
+    return torch.stack(out)[:, 0].float().cpu()
 
 
 SERVE_GRID = ServePath(
     "serve_grid", "19. serve: cli.main --inference --peft --toy on a grid's checkpoint",
     "", ("--toy",), NUM_MERGES, {"prefill_attention": LAYERS}, {"decode_attention": LAYERS},
     NORMS, records=max(1, int(N_TEST * 0.25)), min_prompt=1024)
+
+
+# ------------------------------------------- phase 20: norm-folded, and profiled
+
+
+@dataclasses.dataclass(frozen=True)
+class Fold:
+    """The sizes of phase 20: full width on the card (the defaults), tiny for
+    a rehearsal on the CPU."""
+
+    model: str = MODEL
+    batch: int = 4  # the LoRA step at B4 x 1024, phase 6's shape
+    pad_to_max: int = 1020
+    new_tokens: int = 32  # each greedy stream
+    # the norm weights moved off 1 by this times N(0, 1), as
+    # tests/test_norm_fold.py:_setup moves them (a fold by 1 moves nothing)
+    norm_shift: float = 0.3
+
+
+FOLD = Fold()
+
+
+def off_one_norms(params, seed, shift):
+    """``params`` with every RMSNorm weight plus ``shift`` N(0, 1) draws
+    (a generator seeded with ``seed`` on the weights' device)."""
+    import torch
+
+    gen = torch.Generator(device=params["final_norm"].device).manual_seed(seed)
+
+    def moved(w):
+        return (w.float() + shift * torch.randn(w.shape, generator=gen, device=w.device)).to(
+            w.dtype)
+
+    layers = [{**layer, "attn_norm": moved(layer["attn_norm"]),
+               "mlp_norm": moved(layer["mlp_norm"])} for layer in params["layers"]]
+    return {**params, "layers": layers, "final_norm": moved(params["final_norm"])}
+
+
+def _nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def check_forced_argmax(logits, tokens, margins, bound, what):
+    """Teacher-forced on the reference's greedy ``tokens``, (steps, V)
+    ``logits`` of another path: at each step its argmax is the reference's
+    token, or the reference's top-2 margin there (``margins[k]``) is within
+    ``bound``, the logits' own error.  Returns the steps where they
+    differ."""
+    got = logits.argmax(-1).tolist()
+    differ = [k for k, (a, b) in enumerate(zip(got, tokens)) if a != int(b)]
+    wide = [(k, margins[k]) for k in differ if margins[k] > bound]
+    assert not wide, f"{what}: argmax differs at (step, margin) {wide}, wider than {bound:.4e}"
+    return differ
+
+
+# phase 20b: the folded tree's served logits no further from the folded
+# tree in f32 than this times the classic tree's from the classic tree in
+# f32 (the rule of phases 5 and 9 for a kernel path against its plain one)
+FOLD_LOGITS_RATIO = 1.25
+
+
+def hold_folded_logits(kern, ref, ratio, what):
+    """Teacher-forced (steps, V) logits of a served path (``kern[tree]``)
+    and of the same tree in f32 on the plain versions (``ref[tree]``), for
+    the classic and the folded tree, on one stream.  Distances are the
+    largest over the steps of max|d|/max|ref|.  Held: (i) the folded path
+    no further from its tree in f32 than ``ratio`` x the classic path from
+    its; (ii) the fold itself, the folded tree in f32 against the classic
+    tree in f32, within 1.25x the classic path's distance (the fold's bf16
+    weights move the function less than the served arithmetic does).
+    Returns the distances and the classic path's largest |d| from f32 in
+    the prefill's row."""
+    import torch
+
+    def dist(a, b):
+        return step_errors(a[:, None], b[:, None]).max().item()
+
+    assert all(torch.isfinite(x).all() for x in (*kern.values(), *ref.values()))
+    d = {"classic_vs_f32": dist(kern["classic"], ref["classic"]),
+         "folded_vs_f32": dist(kern["folded"], ref["folded"]),
+         "fold_in_f32": dist(ref["folded"], ref["classic"]),
+         "folded_vs_classic_f32": dist(kern["folded"], ref["classic"]),
+         "classic_prefill_abs": (kern["classic"][0] - ref["classic"][0]).abs().max().item()}
+    c = max(d["classic_vs_f32"], 1e-30)
+    print(f"{what}: {len(kern['classic'])} teacher-forced rows, worst max|d|/max|f32|: classic "
+          f"path vs classic f32 {d['classic_vs_f32']:.3e}; folded path vs folded f32 "
+          f"{d['folded_vs_f32']:.3e} (ratio {d['folded_vs_f32'] / c:.3f}, held <= {ratio}); "
+          f"folded f32 vs classic f32 {d['fold_in_f32']:.3e} (ratio {d['fold_in_f32'] / c:.3f}, "
+          f"held <= 1.25); folded path vs classic f32 {d['folded_vs_classic_f32']:.3e} (ratio "
+          f"{d['folded_vs_classic_f32'] / c:.3f}, printed)")
+    assert d["folded_vs_f32"] <= ratio * d["classic_vs_f32"], \
+        f"{what}: the folded path further from its f32 tree than {ratio}x the classic path"
+    assert d["fold_in_f32"] <= 1.25 * d["classic_vs_f32"], \
+        f"{what}: the fold moves the f32 logits more than 1.25x the classic path's error"
+    return d
+
+
+def check_folded_counts(folded, classic, per_norm, what):
+    """A folded path launches what the classic path launches, but RMSNorm:
+    ``per_norm`` (kernel -> (folded, classic)) exactly."""
+    for name, n in classic.items():
+        want = per_norm[name] if name in per_norm else (n, n)
+        assert (folded[name], n) == want, \
+            f"{what}: {name} launched {folded[name]} folded and {n} classic times, expected {want}"
+
+
+def fold_phase(root, vocab, merges, f=FOLD, dev="cuda"):
+    """Phase 20: the norm-folded path (``transformer.fold_norm_scales``) on
+    the card.  (a) One LoRA step at B4 x 1024 on the folded tree and on the
+    classic one, both on the kernels: RMSNorm once a forward and once a
+    backward on the folded tree (2L + 1 and 2L on the classic one), every
+    other kernel as often.  :func:`hold_train_paths` holds (i) the folded
+    step on the kernels to its plain versions and the folded tree in f32
+    (the rule of phases 7 and 13 on the loss, the labelled positions and
+    every LoRA group), and (ii) the folded tree in f32 to the classic tree
+    in f32, within 1.25x of the classic kernel path's distance from it: the
+    fold's bf16 weights move the function less than bf16 arithmetic does.
+    (iii) The folded kernel path's distance from the classic tree in f32
+    over the classic kernel path's is printed, not held: the fold rounds
+    w W to bf16 and JAX's order rounds each product, the row scale and
+    their product to bf16, so it exceeds 1.25 (ROADMAP.md, limits of the
+    checks).  Then each train step timed, in turns.  (b) Greedy decode of
+    the first test record (the serving bucket) on both trees, bf16 and the
+    int8 copy with the int8 KV cache.  Teacher-forced on the classic
+    stream (the prefill and each fed-back token), each tree's served
+    logits against the same tree in f32 on the plain versions
+    (:func:`hold_folded_logits`): the folded path within
+    ``FOLD_LOGITS_RATIO`` x the classic path's distance, and the folded
+    tree in f32 within 1.25x of it from the classic tree in f32.  Each
+    folded stream equals the classic one, or parts where the classic
+    tree's top-2 margin is within twice its prefill logits' largest error
+    (:func:`check_tp_stream`, phase 19's rule), and teacher-forced the
+    folded tree's argmax differs only at such steps
+    (:func:`check_forced_argmax`).  Returns the launch counts by path and
+    the numbers.  (``dev="cpu"`` with a tiny ``Fold`` rehearses
+    it on the CPU, with ``hold_train_paths`` patched.)"""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.common import build_model
+    from ecg_byte_tpu_torch.infer import greedy_generate
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.models.quantized import quantize_lm_int8
+    from ecg_byte_tpu_torch.train.scheduler import make_optimizer
+    from ecg_byte_tpu_torch.train.step import (
+        _batch_tensors,
+        create_train_state,
+        make_train_step,
+    )
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    s = f.pad_to_max + 4
+    phase(f"20. norm-folded: a LoRA step at B{f.batch} x {s} and greedy decode (bf16, int8) on "
+          "fold_norm_scales' tree against the classic tree")
+    if cuda:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    params, config, tok = build_model(f.model, vocab, dev)
+    params = off_one_norms(params, 0, f.norm_shift)
+    fparams, fconfig = T.fold_norm_scales(params, config)
+    L = config.num_layers
+    assert fconfig.norm_folded and config.tie_word_embeddings  # Llama-3.2-1B keeps final_norm
+    by_path, numbers = {}, {}
+
+    # (a) the LoRA step
+    batch = _batch_tensors(_training_items(root, vocab, merges, tok, f.batch, f.pad_to_max), dev)
+    assert batch["input_ids"].shape == (f.batch, s), batch["input_ids"].shape
+    lora = random_lora(config, 2, dev)
+    zero_launches()
+    folded, by_path["fold_train"] = lora_loss_and_grads(fparams, lora, fconfig, batch)
+    classic, by_path["fold_train_classic"] = lora_loss_and_grads(params, lora, config, batch)
+    refs = {}
+    with plain_path():
+        folded_plain, _ = lora_loss_and_grads(fparams, lora, fconfig, batch)
+        f32 = lambda t: t.float()  # noqa: E731
+        for key, (p, c) in (("folded", (fparams, fconfig)), ("classic", (params, config))):
+            p32 = _map_tree(f32, p)
+            refs[key], _ = lora_loss_and_grads(p32, _map_tree(f32, lora),
+                                               c.replace(dtype="float32"), batch)
+            del p32
+    per_norm = {"rmsnorm": (1, 2 * L + 1), "rmsnorm_bwd": (1, 2 * L)} if cuda else {}
+    check_folded_counts(by_path["fold_train"], by_path["fold_train_classic"], per_norm,
+                        "20a LoRA step")
+    print(f"20a: the LoRA step at B{f.batch} x {s}, launches folded "
+          f"{_nonzero(by_path['fold_train'])}, classic {_nonzero(by_path['fold_train_classic'])}")
+    # the rule of phases 7 and 13 on the loss, the cross entropy pooled at
+    # the labelled positions and every LoRA group.  At the valid positions
+    # the kernel path of either tree sits ~1.5-1.6x the plain path's
+    # distance under these moved norms (PERF.md, section 6), printed.
+    print("20a (i) the folded step on the kernels and on the plain versions, against the "
+          "folded tree in f32 (the rule of phases 7 and 13 on the folded tree):")
+    hold_train_paths([folded], [folded_plain], [refs["folded"]], held=("labelled",))
+    print("20a (ii) the fold itself: the folded tree in f32 in the kernel path's place, against "
+          "the classic tree in f32, beside the classic kernel path (the fold's bf16 weights move "
+          "the function less than bf16 arithmetic does):")
+    hold_train_paths([refs["folded"]], [classic], [refs["classic"]])
+    ratios = path_error_ratios(folded, classic, refs["classic"])
+    numbers["folded_vs_classic_error_ratios"] = ratios
+    print("20a (iii) the folded step on the kernels against the classic tree in f32, over the "
+          "classic kernel path's distance (not held: the fold rounds w W to bf16 and scales each "
+          "product in bf16 after its rounding): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ratios.items()))
+    del folded, folded_plain, classic, refs
+    if cuda:
+        optimizer = make_optimizer(config.hidden_size, 500)
+        trees = {"classic": (params, config), "folded": (fparams, fconfig)}
+        ms = {}
+        for key in ("classic", "folded", "folded", "classic"):
+            p, c = trees[key]
+            torch.cuda.empty_cache()  # each turn from the same allocator state
+            state = create_train_state(c, optimizer, torch.Generator(device=dev).manual_seed(0),
+                                       peft=True, params=p)
+            _, step_ms, _ = time_train_step(make_train_step(c, optimizer), state, batch,
+                                            torch.Generator().manual_seed(1), key)
+            ms.setdefault(key, []).append(step_ms)
+            del state
+        for key, v in ms.items():
+            numbers[f"train_{key}_ms"] = sum(v) / len(v)
+            numbers[f"train_{key}_ms_turns"] = v
+        print(f"20a train step B{f.batch} x {s} (CUDA events, in turns classic, folded, folded, "
+              f"classic): folded {ms['folded']} ms, classic {ms['classic']} "
+              f"ms; means {numbers['train_folded_ms']:.2f} and {numbers['train_classic_ms']:.2f}")
+    del batch, lora
+
+    # (b) greedy decode, bf16 and the int8 copy
+    ids, mask = _tp_prompt(root, vocab, merges, tok, dev)
+    for key, int8 in (("bf16", False), ("int8", True)):
+        trees = {"classic": (params, config), "folded": (fparams, fconfig)}
+        if int8:
+            trees = {k: (quantize_lm_int8(p, c), c) for k, (p, c) in trees.items()}
+        out = {}
+        for name, (p, c) in trees.items():
+            zero_launches()
+            stats = {}
+            tokens = greedy_generate(p, c, ids, mask, max_new_tokens=f.new_tokens,
+                                     eos_token_id=-1, pad_token_id=0, int8_kv=int8,
+                                     stats=stats)[0].cpu()
+            by_path[f"fold_serve_{key}" + ("" if name == "folded" else "_classic")] = launches()
+            out[name] = (tokens, stats)
+        per_norm = {"rmsnorm": (f.new_tokens, (2 * L + 1) * f.new_tokens)} if cuda else {}
+        check_folded_counts(by_path[f"fold_serve_{key}"], by_path[f"fold_serve_{key}_classic"],
+                            per_norm, f"20b greedy decode, {key}")
+        # both trees teacher-forced on the classic tree's stream: row 0 the prefill
+        classic_tokens = out["classic"][0]
+        forced = {name: teacher_logits(p, c, ids, mask, classic_tokens,
+                                       cache_dtype=torch.int8 if int8 else None)
+                  for name, (p, c) in trees.items()}
+        assert forced["classic"].argmax(-1).tolist() == classic_tokens.tolist()
+        # each tree in f32 (its bf16 weights in f32, an f32 cache) on the
+        # plain versions over the same stream
+        with plain_path():
+            ref = {}
+            for name, (p, c) in (("classic", (params, config)), ("folded", (fparams, fconfig))):
+                p32 = _map_tree(lambda t: t.float(), p)
+                ref[name] = teacher_logits(p32, c.replace(dtype="float32"), ids, mask,
+                                           classic_tokens)
+                del p32
+        d = hold_folded_logits(forced, ref, FOLD_LOGITS_RATIO, f"20b {key}")
+        numbers.update({f"decode_{key}_{k}": v for k, v in d.items()})
+        margins = top2_margins(forced["classic"])
+        bound = 2 * d["classic_prefill_abs"]
+        print(f"20b {key}: prompt {ids.shape[1]} tokens; streams folded "
+              f"{out['folded'][0].tolist()}, classic {classic_tokens.tolist()}; the classic "
+              f"tree's top-2 margins {[round(m, 4) for m in margins]}")
+        parted = check_tp_stream(out["folded"][0], classic_tokens, margins, bound,
+                                 ("folded", "the classic tree"))
+        differ = check_forced_argmax(forced["folded"], classic_tokens, margins, bound,
+                                     f"20b {key}, the folded tree teacher-forced")
+        print(f"20b {key}: teacher-forced on the classic stream, the folded tree's argmax "
+              f"differs at steps {differ} of {len(classic_tokens)}, each where the classic "
+              f"tree's top-2 margin is within the bound {bound:.4e}")
+        numbers[f"decode_{key}_forced_differ"] = len(differ)
+        for name, (_, st) in out.items():
+            numbers[f"decode_{key}_{name}_ms_per_token"] = (
+                1e3 * st["decode_s"] / max(st["decode_steps"], 1))
+        numbers[f"decode_{key}_parted_at"] = parted
+        print(f"20b {key} decode (host clock): folded "
+              f"{numbers[f'decode_{key}_folded_ms_per_token']:.3f} ms/token, classic "
+              f"{numbers[f'decode_{key}_classic_ms_per_token']:.3f}; launches folded "
+              f"{_nonzero(by_path[f'fold_serve_{key}'])}, classic "
+              f"{_nonzero(by_path[f'fold_serve_{key}_classic'])}")
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {json.dumps(numbers)}; phase wall {numbers['wall_s']:.1f} s")
+    return by_path, numbers
+
+
+def _recorded_calls(name, calls):
+    """A stand-in for the kernel ``name``'s plain version that keeps a copy
+    of each call's arguments in ``calls``."""
+    plain = {"prefill_attention": _plain_attention, "rmsnorm": _plain_rmsnorm}[name]
+
+    def call(*args):
+        calls.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args))
+        return plain(*args)
+    return call
+
+
+def _plain_attention(qg, k, v, mask):
+    from ecg_byte_tpu_torch.ops.attention import grouped_attention
+
+    return grouped_attention(qg, k, v, mask)
+
+
+def _reordered_attention(qg, k, v, mask):
+    """The plain attention with each q.k summed over the head dimension in
+    reverse order: as exact as the plain version, its f32 sums rounded
+    otherwise, so a few probabilities round to the other bf16 neighbour."""
+    return _plain_attention(qg.flip(-1), k.flip(-1), v, mask).contiguous()
+
+
+def _emulated_attention(qg, k, v, mask, *, online=True, tile=64):
+    """The plain attention with the resident kernel's softmax arithmetic in
+    PyTorch: p = 2^((s - m) log2 e) x (1 / l), and with ``online`` the row
+    sum l as the kernel's first pass forms it, over ``tile`` keys at a time
+    rescaled by 2^((m_old - m_new) log2 e) as the running max m steps
+    (without, the sum of the final terms)."""
+    import torch
+
+    ct, log2e = torch.float32, 1.4426950408889634
+    b, s, kh, g, d = qg.shape
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
+    ok = torch.ones((s, s), dtype=torch.bool, device=qg.device).tril()
+    ok = ok & mask[:, None, None, None, :].bool()
+    logits = logits.masked_fill(~ok, -1e30)
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp2((logits - m) * log2e)
+    if online:
+        run_m = torch.full_like(m, -1e30)
+        l = torch.zeros_like(m)
+        for t0 in range(0, s, tile):
+            part = logits[..., t0:t0 + tile]
+            m_new = torch.maximum(run_m, part.amax(-1, keepdim=True))
+            l = l * torch.exp2((run_m - m_new) * log2e) + torch.exp2(
+                (part - m_new) * log2e).sum(-1, keepdim=True)
+            run_m = m_new
+    else:
+        l = e.sum(-1, keepdim=True)
+    p = (e * (1 / l)).to(qg.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(ct), v.to(ct))
+    return out.to(qg.dtype).contiguous()
+
+
+def _tensor_core_pv(qg, k, v, mask):
+    """The plain attention with P.V as a bf16 product on the tensor cores
+    (cuBLAS, f32 accumulators, bf16 out) in place of the f32 product."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops.attention import grouped_probs
+
+    return torch.einsum("bkgqs,bskd->bqkgd", grouped_probs(qg, k, mask), v).contiguous()
+
+
+def _plain_rmsnorm(x, w, eps):
+    from ecg_byte_tpu_torch.ops.rmsnorm import rmsnorm_plain
+
+    return rmsnorm_plain(x, w, eps)
+
+
+# attention without a kernel, each as exact as the plain version per call:
+# its q.k sums reordered; the kernel's softmax arithmetic with the final
+# row sum; the kernel's softmax arithmetic with its first pass's row sum;
+# P.V accumulated on the tensor cores
+_ATTENTION_WITNESSES = {
+    "reordered": _reordered_attention,
+    "kernel softmax, exact sum": functools.partial(_emulated_attention, online=False),
+    "kernel softmax, online sum": _emulated_attention,
+    "P.V on the tensor cores": _tensor_core_pv,
+}
+
+
+def per_call_errors(name, calls):
+    """For each recorded call of the forward kernel ``name``: the kernel's
+    and the plain version's distance from the same call in f64 over the
+    rows of valid positions, |d|/|f64|, the kernel's from the plain
+    version's, and the share of output elements where the two differ; a
+    witness of ``_ATTENTION_WITNESSES`` in the kernel's place, with the
+    share where it differs from the kernel: [(kernel, plain, kernel vs
+    plain, share, share vs the kernel)]."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops import attention_resident, rmsnorm
+
+    out = []
+    for args in calls:
+        f64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                    for a in args)
+        if name in _ATTENTION_WITNESSES or name == "prefill_attention":
+            card = attention_resident.resident_attention(*args)
+            kern = card if name == "prefill_attention" else _ATTENTION_WITNESSES[name](*args)
+            plain, ref = _plain_attention(*args), _plain_attention(*f64)
+            rows = args[3][0].bool()  # B1: the valid query positions
+            kern, plain, ref, card = (x[:, rows] for x in (kern, plain, ref, card))
+        else:
+            kern = card = rmsnorm.rmsnorm(*args)
+            plain, ref = _plain_rmsnorm(*args), _plain_rmsnorm(*f64)
+        n = torch.linalg.vector_norm(ref).item()
+        out.append(tuple(torch.linalg.vector_norm(x.double() - ref).item() / n
+                         for x in (kern, plain))
+                   + (torch.linalg.vector_norm((kern - plain).double()).item() / n,
+                      (kern != plain).float().mean().item(), (kern != card).float().mean().item()))
+    return out
+
+
+def blame_phase(root, vocab, merges, f=FOLD, items=4, dev="cuda"):
+    """``python3 chip_smoke.py --blame``: which kernel takes the LoRA step's
+    kernel path away from f32 at the valid positions when the norm weights
+    are off 1 (phase 20's trees).  Phase 7's ``items`` items at B1 x 1024,
+    each with its own LoRA B: for the norms moved by ``f.norm_shift`` and
+    at 1, the classic and the folded tree on the kernels, then with one
+    kernel at a time on the card and the others plain, each step's
+    distance from the tree in f32 over the plain path's
+    (:func:`path_error_ratios`); the same ratio for attention without a
+    kernel (``_ATTENTION_WITNESSES``: the plain version with its q.k sums
+    reordered, with the kernel's softmax arithmetic, with P.V on the tensor
+    cores);
+    and the folded tree's plain path over the classic tree's, from the
+    classic tree in f32.  First every call of the two forward kernels in
+    item 0's classic step (norms moved), the kernel (and the witnesses)
+    and plain against the same call in f64
+    (:func:`per_call_errors`).  Prints;
+    holds nothing."""
+    import torch
+
+    from ecg_byte_tpu_torch.cli.common import build_model
+    from ecg_byte_tpu_torch.models import transformer as T
+    from ecg_byte_tpu_torch.ops import attention_resident, rmsnorm
+    from ecg_byte_tpu_torch.train.step import _batch_tensors
+
+    phase(f"blame: the LoRA step's kernels one at a time, {items} items at B1 x "
+          f"{f.pad_to_max + 4}, norm weights moved by {f.norm_shift} N(0, 1) and at 1")
+    dev = torch.device(dev)
+    base, config, tok = build_model(f.model, vocab, dev)
+    data = _batch_tensors(_training_items(root, vocab, merges, tok, items, f.pad_to_max), dev)
+    batches = [{k: v[i:i + 1] for k, v in data.items()} for i in range(items)]
+    loras = [random_lora(config, 2 + i, dev) for i in range(items)]
+    train = ("prefill_attention", "prefill_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+    f32 = lambda t: t.float()  # noqa: E731
+
+    def pooled(params, config, kernels=train, attention=None):
+        ls = loras if config.dtype != "float32" else [_map_tree(f32, lo) for lo in loras]
+        # the backward kernel takes the forward's output, which the plain
+        # forward leaves strided
+        plain_fwd = mock.patch.object(attention_resident, "resident_attention",
+                                      attention or (lambda *a: _plain_attention(*a).contiguous()))
+        with plain_path([k for k in SOURCES if k not in kernels]), \
+                (contextlib.nullcontext() if "prefill_attention" in kernels else plain_fwd):
+            xs = [lora_loss_and_grads(params, lo, config, b)[0] for lo, b in zip(ls, batches)]
+        return (sum(x[0] for x in xs), torch.cat([x[1] for x in xs]),
+                torch.cat([x[2] for x in xs]), {g: torch.cat([x[3][g] for x in xs])
+                                                 for g in xs[0][3]})
+
+    params = off_one_norms(base, 0, f.norm_shift)
+    for name, module, attr in (("prefill_attention", attention_resident, "resident_attention"),
+                               ("rmsnorm", rmsnorm, "rmsnorm")):
+        calls = []
+        with plain_path(), mock.patch.object(module, attr, _recorded_calls(name, calls)):
+            lora_loss_and_grads(params, loras[0], config, batches[0])
+        for name in (name, *_ATTENTION_WITNESSES) if module is attention_resident else (name,):
+            errs = per_call_errors(name, calls)
+            mean = [sum(e[j] for e in errs) / len(errs) for j in range(5)]
+            print(f"{name}, item 0's classic step at shift {f.norm_shift}, {len(errs)} calls: "
+                  "per call |d|/|f64| kernel / plain, kernel vs plain, share of elements unequal "
+                  "to plain, to the kernel "
+                  f"{[' / '.join(f'{x:.3e}' for x in e) for e in errs]}; mean "
+                  f"{' / '.join(f'{x:.3e}' for x in mean)}", flush=True)
+        del calls
+    for shift in (f.norm_shift, 0.0):
+        params = off_one_norms(base, 0, shift) if shift else base
+        fparams, fconfig = T.fold_norm_scales(params, config)
+        runs = {}
+        for tree, (p, c) in (("classic", (params, config)), ("folded", (fparams, fconfig))):
+            ref = runs[tree, "f32"] = pooled(_map_tree(f32, p), c.replace(dtype="float32"), ())
+            plain = runs[tree, "plain"] = pooled(p, c, ())
+            for on in (train,) + tuple((k,) for k in train):
+                r = path_error_ratios(pooled(p, c, on), plain, ref)
+                print(f"shift {shift}, {tree} tree, on the card {'all' if on == train else on[0]}"
+                      ": kernel / plain distance from f32: " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+            # witnesses without any kernel, everything else plain
+            for name, fn in _ATTENTION_WITNESSES.items():
+                r = path_error_ratios(pooled(p, c, (), fn), plain, ref)
+                print(f"shift {shift}, {tree} tree, no kernel, attention {name}: its distance "
+                      "from f32 over the plain path's: " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+        # the fold's own arithmetic, no kernel: both trees on the plain versions
+        r = path_error_ratios(runs["folded", "plain"], runs["classic", "plain"],
+                              runs["classic", "f32"])
+        print(f"shift {shift}, folded plain / classic plain distance from the classic tree in "
+              "f32: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+        del runs, fparams
 
 
 def main() -> int:
@@ -5237,6 +5892,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, smi = device_phase()
     build_phase()
+    if sys.argv[1:] == ["--blame"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            blame_phase(root, *make_data(root))
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.perf_counter()
         vocab, merges = make_data(root)
@@ -5277,6 +5936,8 @@ def main() -> int:
         by_path.update(slice_counts)
         grid_counts, grid = grid_phase(root, vocab, merges, (long_root, long_vocab, long_merges))
         by_path.update(grid_counts)
+        fold_counts, fold = fold_phase(root, vocab, merges)
+        by_path.update(fold_counts)
     for mod in ("jax", "ecg_byte_tpu", "safetensors", "tokenizers", "transformers", "regex",
                 "ml_dtypes", "sklearn", "pandas", "pywt", "wfdb", "PIL", "optax"):
         assert mod not in sys.modules, f"{mod} was imported"
@@ -5325,6 +5986,14 @@ def main() -> int:
           f"collectives: tp {grid['harness_rank0_tp_ms']:.2f} ms, fsdp "
           f"{grid['harness_rank0_fsdp_ms']:.2f} ms, data {grid['harness_rank0_data_ms']:.2f} ms; "
           f"phase 19 {grid['wall_s']:.1f} s")
+    print(f"norm-folded: train step B{FOLD.batch} x {FOLD.pad_to_max + 4} "
+          f"{fold['train_folded_ms']:.2f} ms (classic {fold['train_classic_ms']:.2f}; CUDA "
+          f"events); decode {fold['decode_bf16_folded_ms_per_token']:.3f} ms/token bf16 "
+          f"(classic {fold['decode_bf16_classic_ms_per_token']:.3f}), "
+          f"{fold['decode_int8_folded_ms_per_token']:.3f} int8 (classic "
+          f"{fold['decode_int8_classic_ms_per_token']:.3f}; host clock); phase 20 "
+          f"{fold['wall_s']:.1f} s; 18a traced with --profile in {sl['profiled_run_s']:.1f} s, "
+          f"{sl['trace_mb']:.1f} MB")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

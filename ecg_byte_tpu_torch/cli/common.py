@@ -40,20 +40,6 @@ _PRESETS = {
 }
 
 
-# options the port does not have yet -> the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "profile": "the torch profiler, with the port's bench (ROADMAP.md section 1, "
-               "the first benchmark PR)",
-}
-
-
-def refuse_unported(args) -> None:
-    """Exit naming the ROADMAP.md item of a flag the port does not have yet."""
-    for flag, where in NOT_PORTED.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag} is not ported yet: {where}")
-
-
 def model_config(model_name: Optional[str], hf_weights: Optional[str] = None):
     """The config ``build_model`` builds, without its weights (before the
     ECG tokens grow the vocabulary)."""

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ecg_byte_tpu_torch.cli import dist
-from ecg_byte_tpu_torch.cli.common import build_model, make_log_fn, refuse_unported, set_seed
+from ecg_byte_tpu_torch.cli.common import build_model, make_log_fn, set_seed
 from ecg_byte_tpu_torch.cli.pretrain import backbone_configs, to_device
 from ecg_byte_tpu_torch.data.loader import DataLoader
 from ecg_byte_tpu_torch.data.two_stage import ECGCLIPFinetune, TwoStageConfig
@@ -160,7 +160,6 @@ def main(argv=None):
     with every rank's in ``"ranks"``: ``cli/dist.launch``), inference the
     serving records and the statistical analysis."""
     args = get_args(argv)
-    refuse_unported(args)
     if args.dis and not args.inference:
         return dist.launch(run, args)
     return run(args)

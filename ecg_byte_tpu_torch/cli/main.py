@@ -23,8 +23,17 @@ loss record, the per-seed result JSONs).
 Training encodes every record once, before the first step, into a token
 cache on the run's device (the BPE kernels on the card); ``--online_encode``
 encodes each item on the host instead, with the same token streams.
-Serving encodes on the host, as the JAX CLI does.  Options the port does
-not have yet exit with the ``ROADMAP.md`` item that brings them.
+Serving encodes on the host, as the JAX CLI does.
+
+``--profile DIR`` records the epoch loop, from before the first epoch to the
+crash save, with ``torch.profiler`` (``utils/profiling.trace``: CPU
+activity, and the card's kernels on the card) into one Chrome trace file in
+DIR, ``rank<r>.<pid>.<ms>.pt.trace.json`` (under ``--dis`` one a rank);
+Perfetto (ui.perfetto.dev), ``chrome://tracing`` or TensorBoard's profiler
+plugin open it.  ``ECG_BYTE_LOG_MEMORY=1`` prints the bytes live on the
+device (``utils/profiling.log_live_bytes``) where the JAX CLI prints its
+readings: after the model is built, after the train state is made, and
+after the first training epoch.
 
 ``--dis`` trains data-parallel (``cli/dist.py``): ``--batch_size`` is the
 global batch, each rank takes ``batch_size / world`` of its rows, and every
@@ -55,6 +64,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import signal
@@ -70,7 +80,6 @@ from ecg_byte_tpu_torch.cli.common import (
     make_log_fn,
     make_run_dir,
     model_config,
-    refuse_unported,
     set_seed,
 )
 from ecg_byte_tpu_torch.data import DataConfig, DataLoader, ECGTokenDataset
@@ -98,6 +107,7 @@ from ecg_byte_tpu_torch.train.step import (
     make_train_step,
     shard_train_state,
 )
+from ecg_byte_tpu_torch.utils import profiling
 from ecg_byte_tpu_torch.utils.file_utils import (
     align_signal_text_files,
     ensure_directory_exists,
@@ -144,7 +154,9 @@ def get_args(argv=None):
                         help='a local HF checkpoint directory (config.json, '
                              '*.safetensors, tokenizer.json): its weights and '
                              'tokenizer replace --model\'s preset')
-    parser.add_argument('--profile', type=str, default=None)
+    parser.add_argument('--profile', type=str, default=None,
+                        help='write a torch.profiler trace of the epoch loop into '
+                             'this directory (one file a rank)')
     parser.add_argument('--resume', type=str, default=None)
     parser.add_argument('--eval_batch_size', type=int, default=1,
                         help='inference decode batch: rows decode '
@@ -161,6 +173,10 @@ def get_args(argv=None):
                              'device before training; the token streams are '
                              'the same')
     return parser.parse_args(argv)
+
+
+def _log_memory() -> bool:
+    return os.environ.get("ECG_BYTE_LOG_MEMORY") == "1"
 
 
 def _install_sigterm_handler():
@@ -197,7 +213,6 @@ def main(argv=None):
     per-record timings and generated token ids, and the statistical
     analysis."""
     args = get_args(argv)
-    refuse_unported(args)
     if args.dis and not args.inference:
         return dist.launch(run, args, config=model_config(args.model, args.hf_weights))
     return run(args)
@@ -225,6 +240,8 @@ def run(args):
     print(f"Model {args.model}: vocab={config.vocab_size} "
           f"hidden={config.hidden_size} layers={config.num_layers} on {device} "
           f"(build {time.perf_counter() - t0:.1f}s)")
+    if _log_memory():
+        profiling.log_live_bytes("after model build + ECG-token resize", device)
     data_cfg = DataConfig(
         dataset=args.dataset, pad_to_max=args.pad_to_max,
         percentiles=args.percentiles, inference=args.inference,
@@ -344,6 +361,8 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
     distributed.broadcast_(lora_lib.leaves(state.trainable))  # every rank from rank 0's
     state = shard_train_state(state, optimizer)  # --tp / --fsdp: this rank's shards
     print(f"Trainable parameters: {count_params(state.trainable)}")
+    if _log_memory():
+        profiling.log_live_bytes("after train-state creation (params + opt state)", device)
     _install_sigterm_handler()
     directory_path = make_run_dir(args)
     pad_id = tokenizer.convert_tokens_to_ids(tokenizer.pad_token)
@@ -384,6 +403,9 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
         start_epoch = last_epoch + 1
         print(f"Resumed {args.resume} at epoch {start_epoch} (step {state.step})")
 
+    traced = contextlib.ExitStack()  # --profile: from here to the crash save
+    if args.profile:
+        traced.enter_context(profiling.trace(args.profile, device, rank=distributed.rank()))
     train_loss, val_loss = [], []
     steps = tokens = 0
     # a crash save falls back on the host copy of the last epoch boundary
@@ -408,6 +430,8 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
             tokens += train_dic["tokens"]
             train_loss.append(train_dic["average_loss"])
             print(f"Training - Epoch: {epoch+1}\nTrain Loss: {train_dic['average_loss']}")
+            if _log_memory() and epoch == start_epoch:
+                profiling.log_live_bytes("after first training epoch", device)
             val_dic = validater(
                 state, eval_fn, validation_loader, measure=lm_measure, epoch=epoch, dev=args.dev,
                 log_fn=log_fn, desc=f"Validating {args.model}",
@@ -434,19 +458,24 @@ def _train(args, params, config, tokenizer, vocab, merges, data_cfg, device):
         print(f"An error occurred: {e}")
         raise
     finally:
-        # a failed rank's peers may be gone: no barrier on the way out
-        source = save_crash_checkpoint(
-            directory_path, state, last_completed,
-            epoch=len(train_loss), fallback_epoch=last_completed_epoch, wait=not failed,
-        )
-        if primary and source == "snapshot":
-            print("The live state was cut mid-step; crash checkpoint saved from the "
-                  f"epoch-{last_completed_epoch} snapshot")
-        elif primary and source == "none":
-            print("WARNING: no savable state for the crash checkpoint")
-        if primary:
-            plot_train_val_loss(train_loss, val_loss, directory_path)
-        print("Training Finished")
+        try:
+            traced.close()
+            if args.profile:
+                print(f"Profiler trace written to {args.profile}")
+        finally:
+            # a failed rank's peers may be gone: no barrier on the way out
+            source = save_crash_checkpoint(
+                directory_path, state, last_completed,
+                epoch=len(train_loss), fallback_epoch=last_completed_epoch, wait=not failed,
+            )
+            if primary and source == "snapshot":
+                print("The live state was cut mid-step; crash checkpoint saved from the "
+                      f"epoch-{last_completed_epoch} snapshot")
+            elif primary and source == "none":
+                print("WARNING: no savable state for the crash checkpoint")
+            if primary:
+                plot_train_val_loss(train_loss, val_loss, directory_path)
+            print("Training Finished")
     summary = {
         "steps": steps, "seconds": time.perf_counter() - t0, "tokens": tokens,
         "train_loss": train_loss, "val_loss": val_loss, "start_epoch": start_epoch,

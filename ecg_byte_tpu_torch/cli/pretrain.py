@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ecg_byte_tpu_torch.cli import dist
-from ecg_byte_tpu_torch.cli.common import make_log_fn, refuse_unported, set_seed
+from ecg_byte_tpu_torch.cli.common import make_log_fn, set_seed
 from ecg_byte_tpu_torch.data.text_tokenizer import ByteTextTokenizer
 from ecg_byte_tpu_torch.data.two_stage import ECGCLIPPretrain, TwoStageConfig
 from ecg_byte_tpu_torch.device import resolve_device
@@ -182,7 +182,6 @@ def main(argv=None):
     """Run the CLI; returns the training summary (under ``--dis`` rank 0's,
     with every rank's in ``"ranks"``: ``cli/dist.launch``)."""
     args = get_args(argv)
-    refuse_unported(args)
     if args.dis:
         return dist.launch(run, args)
     return run(args)

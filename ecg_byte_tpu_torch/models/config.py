@@ -2,8 +2,7 @@
 
 A copy of ``ecg_byte_tpu/models/config.py``: importing that module runs
 ``ecg_byte_tpu/models/__init__.py``, which imports JAX, and the machine with
-the card has no JAX.  The fields and presets are the same, except that the
-port has no ``norm_folded`` (it does not carry ``fold_norm_scales``).
+the card has no JAX.  The fields and presets are the same.
 """
 
 from __future__ import annotations
@@ -43,6 +42,11 @@ class TransformerConfig:
     rmsnorm_unit_offset: bool = False
     hidden_act: str = "silu"  # 'silu' (swiglu), 'gelu' (gpt2), 'gelu_tanh' (gemma)
     dtype: str = "bfloat16"
+    # Set by transformer.fold_norm_scales: the per-feature RMSNorm weights
+    # are folded into the frozen projection weights, so blocks apply only
+    # the per-row rsqrt scale, after each projection (it commutes through
+    # the contraction).  RMSNorm archs only.
+    norm_folded: bool = False
 
     # LoRA defaults mirroring the reference (main.py:131-138)
     lora_rank: int = 16

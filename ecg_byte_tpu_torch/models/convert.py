@@ -14,11 +14,16 @@ carry across with ``resnet_from_jax`` (conv weights and BatchNorm keep
 their layout), ``merl_head_from_jax``, ``vit_from_jax``, ``clip_from_jax``
 (layer stacks unstacked, dense kernels transposed) and
 ``fusion_from_jax`` (each ``{"w", "b"}`` to ``{"weight", "bias"}``).
-Values are copied exactly, bf16 and int8 included.
+Values are copied exactly, bf16 and int8 included.  ``config_from_jax``
+carries a JAX ``TransformerConfig`` across, every field (``norm_folded``
+of a folded tree included).  A folded tree
+(``ecg_byte_tpu/models/transformer.fold_norm_scales``) carries across as
+any other: its ``attn_norm_w`` / ``mlp_norm_w`` are per-layer vectors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -49,6 +54,12 @@ def _proj(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     if "bias" in p:
         out["bias"] = _tensor(p["bias"], device)
     return out
+
+
+def config_from_jax(config) -> TransformerConfig:
+    """A JAX ``TransformerConfig`` (any dataclass with its fields) as the
+    port's, field for field."""
+    return TransformerConfig(**dataclasses.asdict(config))
 
 
 def params_from_jax(tree: Dict[str, Any], config: TransformerConfig, device) -> Dict[str, Any]:

@@ -22,6 +22,18 @@ LoRA (``models/lora.py`` trees) overlays the projections as in the JAX
 dropout mask per group.  Dropout masks come from a ``torch.Generator``, so
 their bits differ from JAX's ``fold_in(rng, hash(name))`` stream.
 
+``fold_norm_scales`` is a load-time transform of a frozen base (LoRA
+training, serving) for RMSNorm models: ``RMSNorm(x) W^T = s * (x (w W)^T)``
+with ``s = rsqrt(mean(x^2) + eps)`` per row, so the norm's per-feature
+weight ``w`` folds into the input columns of q/k/v and gate/up, and a block
+of a ``norm_folded`` config feeds the raw residual stream to those
+products and scales their outputs by ``s``: the normalized (B, S, D)
+tensor and its backward are never made, and the two RMSNorm kernels of a
+layer are not launched.  The adapters fold ``w`` into A at each call, so
+they see the normalized input as on the classic path.  A folded tree is
+not sharded under ``--tp`` / ``--fsdp`` (the JAX package's sharding specs
+have no entry for its ``attn_norm_w`` / ``mlp_norm_w``).
+
 The KV cache is updated in place: prefill writes slots ``[0, S)``
 (``ops/kv_quant`` for the int8 cache), and each decode step hands its row
 to the decode kernel with ``write_idx`` (the fresh-row contract of the JAX
@@ -170,6 +182,59 @@ def _norm(x, weight, bias, config: TransformerConfig):
     return rmsnorm.RMSNorm.apply(x.contiguous(), w, eps)
 
 
+def _norm_scale(x, config: TransformerConfig):
+    """The per-row RMSNorm scale ``rsqrt(mean(x^2) + eps)``, (B, S, 1) f32,
+    of the norm-folded path."""
+    return torch.rsqrt(x.float().square().mean(-1, keepdim=True) + config.norm_eps)
+
+
+def fold_norm_scales(params: Params, config: TransformerConfig):
+    """Fold the RMSNorm per-feature weights into the projection weights.
+
+    The port of ``ecg_byte_tpu/models/transformer.py:141-204`` in the
+    port's ``(out, in)`` layout: q/k/v take the attention norm's ``w`` and
+    gate/up the MLP norm's on their input columns (``weight * w[None, :]``
+    in f32, cast back; Gemma's ``w`` is ``1 + weight``); the layers keep
+    ``w`` as ``attn_norm_w`` / ``mlp_norm_w`` for the adapters, and the
+    norm entries become the identity (1, or 0 under the unit offset), so a
+    classic block computes the same function on the folded tree.  An
+    untied ``lm_head`` takes the final norm's ``w`` and ``final_norm``
+    becomes the identity; a tied model keeps its final norm.
+
+    Returns ``(params', config')`` with ``config'.norm_folded``; a GPT-2
+    config or an already folded one returns ``(params, config)``
+    themselves.  A load-time transform for a frozen base: checkpoints keep
+    the unfolded tree."""
+    if config.arch == "gpt2" or config.norm_folded:
+        return params, config
+    ident = 0.0 if config.rmsnorm_unit_offset else 1.0
+
+    def w_of(norm_w):
+        w = norm_w.float()
+        return 1.0 + w if config.rmsnorm_unit_offset else w
+
+    def fold(weight, w):  # w on the input columns, in f32, rounded once
+        return (weight.float() * w[None, :]).to(weight.dtype)
+
+    layers = []
+    for layer_p in params["layers"]:
+        layer = dict(layer_p)
+        for norm, names in (("attn_norm", ("q_proj", "k_proj", "v_proj")),
+                            ("mlp_norm", ("gate_proj", "up_proj"))):
+            w = w_of(layer_p[norm])
+            for name in names:
+                if name in layer:
+                    layer[name] = {**layer[name], "weight": fold(layer[name]["weight"], w)}
+            layer[f"{norm}_w"] = w.to(layer_p[norm].dtype)
+            layer[norm] = torch.full_like(layer_p[norm], ident)
+        layers.append(layer)
+    out = {**params, "layers": layers}
+    if "lm_head" in params and not config.tie_word_embeddings:
+        out["lm_head"] = fold(params["lm_head"], w_of(params["final_norm"]))
+        out["final_norm"] = torch.full_like(params["final_norm"], ident)
+    return out, config.replace(norm_folded=True)
+
+
 def rope_inv_freq(config: TransformerConfig, d: int) -> np.ndarray:
     """Inverse RoPE frequencies with HF rope_scaling parity (default,
     'linear', 'llama3').  The numpy code of the JAX package, so the
@@ -221,10 +286,18 @@ def _act(x, kind: str):
     return F.gelu(x, approximate="tanh")
 
 
-def _linear(x, p):
+def _linear(x, p, post_scale=None):
+    """``x`` times the entry's weight (bf16, or int8 for a serving entry)
+    plus its bias.  ``post_scale`` (the norm-folded path): the product is
+    scaled per row, in its own dtype, before the bias."""
+    bias = p.get("bias")
+    if post_scale is not None:
+        y = _linear(x, {k: v for k, v in p.items() if k != "bias"})
+        y = y * post_scale.to(y.dtype)
+        return y if bias is None else y + bias
     if "weight_q" in p:  # int8 serving entry
-        return int8_linear.int8_linear(x, p["weight_q"], p["weight_scale"], p.get("bias"))
-    return F.linear(x, p["weight"], p.get("bias"))
+        return int8_linear.int8_linear(x, p["weight_q"], p["weight_scale"], bias)
+    return F.linear(x, p["weight"], bias)
 
 
 class _Dropout:
@@ -263,12 +336,18 @@ def _lora_out(xa, b, config: TransformerConfig):
     return (xa @ b) * (config.lora_alpha / config.lora_rank)
 
 
-def _lora_in(x, a, drop: _Dropout, cols=None):
+def _lora_in(x, a, drop: _Dropout, cols=None, post_scale=None):
     """The adapter's rank-space product ``x @ a`` with its dropout: "rank"
-    masks the (B, S, r) product, "input" (HF PEFT) the adapter's input."""
+    masks the (B, S, r) product, "input" (HF PEFT) the adapter's input.
+    ``post_scale`` (the norm-folded path) scales the product per row,
+    before the "rank" mask."""
+
+    def scaled(xa):
+        return xa if post_scale is None else xa * post_scale.to(xa.dtype)
+
     if drop.style == "rank":
-        return drop(x @ a)
-    return (drop(x) if cols is None else drop(x, cols)) @ a
+        return drop(scaled(x @ a))
+    return scaled((drop(x) if cols is None else drop(x, cols)) @ a)
 
 
 def _proj(x, layer_p, name, lora_p, config: TransformerConfig, drop: _Dropout):
@@ -288,23 +367,38 @@ def _lora_rank_space(xa):
 
 
 def _proj_group(x, layer_p, names: Sequence[str], lora_p, config: TransformerConfig,
-                drop: _Dropout):
+                drop: _Dropout, post_scale=None, fold_w=None):
     """Projections sharing input ``x``; their LoRA A-products fused into one
     product against the concatenated A, one dropout mask for the group.
 
     Under ``--tp`` they are column-parallel: this rank's output columns of
     each (its heads, its MLP columns), from ``copy_to_tp(x)``.  A is whole
     and B this rank's columns, so the rank-space product passes through
-    ``copy_to_tp`` too: its gradient, and A's, sums the ranks' parts."""
+    ``copy_to_tp`` too: its gradient, and A's, sums the ranks' parts.
+
+    The norm-folded path (``post_scale``, ``fold_w``: the block's
+    :func:`_norm_scale` and ``*_norm_w``): ``x`` is the raw residual
+    stream; each base product and the rank-space product are scaled per
+    row by ``post_scale``, and the concatenated A by ``fold_w`` on its
+    rows, so the adapters see the normalized input.  In a group where only
+    some projections carry adapters, each adapted one is :func:`_proj` of
+    the raw ``x``, with neither scale, as the JAX package computes it
+    (``ecg_byte_tpu/models/transformer.py:457-458``; ROADMAP.md, limits of
+    the checks)."""
     x_in = copy_to_tp(x)
     use_lora = lora_p is not None and all(n in lora_p for n in names)
     if use_lora:
         a_cat = torch.cat([lora_p[n]["a"] for n in names], dim=-1)
-        xa = _lora_rank_space(_lora_in(x, a_cat, drop))
+        if fold_w is not None:
+            a_cat = fold_w[:, None].to(a_cat.dtype) * a_cat
+        xa = _lora_rank_space(_lora_in(x, a_cat, drop, post_scale=post_scale))
         r = config.lora_rank
     outs = []
     for i, name in enumerate(names):
-        y = _linear(x_in, layer_p[name])
+        if post_scale is not None and not use_lora and lora_p is not None and name in lora_p:
+            outs.append(_proj(x, layer_p, name, lora_p, config, drop))
+            continue
+        y = _linear(x_in, layer_p[name], post_scale)
         if use_lora:
             y = y + _lora_out(xa[..., i * r:(i + 1) * r], lora_p[name]["b"], config)
         elif lora_p is not None and name in lora_p:
@@ -341,13 +435,22 @@ def _row(x, layer_p, name, lora_p, config: TransformerConfig, drop: _Dropout):
 
 def _block(config: TransformerConfig, h, layer_p: Params, rope, attn_fn,
            lora_p: Optional[Params] = None, drop: Optional[_Dropout] = None):
-    """One transformer block; ``attn_fn(q, k, v) -> (B, S, H, D)``."""
+    """One transformer block; ``attn_fn(q, k, v) -> (B, S, H, D)``.  On a
+    tree of :func:`fold_norm_scales` under a ``norm_folded`` config the
+    projection groups read the raw ``h`` (:func:`_proj_group`)."""
     c = config
     drop = drop if drop is not None else _Dropout(c, None, None)
+    folded = c.norm_folded and "attn_norm_w" in layer_p
+    if folded and mesh.grid().sharded:
+        raise ValueError(sharding.FOLDED_UNSHARDED)
     layer_p = sharding.gather_layer(layer_p)  # --fsdp: this layer's weights, whole
     b, s, _ = h.shape
-    hn = _norm(h, layer_p["attn_norm"], layer_p.get("attn_norm_bias"), c)
-    q, k, v = _proj_group(hn, layer_p, ("q_proj", "k_proj", "v_proj"), lora_p, c, drop)
+    if folded:
+        q, k, v = _proj_group(h, layer_p, ("q_proj", "k_proj", "v_proj"), lora_p, c, drop,
+                              _norm_scale(h, c), layer_p["attn_norm_w"])
+    else:
+        hn = _norm(h, layer_p["attn_norm"], layer_p.get("attn_norm_bias"), c)
+        q, k, v = _proj_group(hn, layer_p, ("q_proj", "k_proj", "v_proj"), lora_p, c, drop)
     # this rank's heads under --tp (H / T and KH / T), every head otherwise
     q = q.view(b, s, -1, c.head_dim)
     k = k.view(b, s, -1, c.head_dim)
@@ -358,6 +461,10 @@ def _block(config: TransformerConfig, h, layer_p: Params, rope, attn_fn,
     attn = attn_fn(q, k, v).reshape(b, s, -1)
     h = h + _row(attn, layer_p, "o_proj", lora_p, c, drop)
 
+    if folded:
+        gate, up = _proj_group(h, layer_p, ("gate_proj", "up_proj"), lora_p, c, drop,
+                               _norm_scale(h, c), layer_p["mlp_norm_w"])
+        return h + _row(_act(gate, c.hidden_act) * up, layer_p, "down_proj", lora_p, c, drop)
     hn = _norm(h, layer_p["mlp_norm"], layer_p.get("mlp_norm_bias"), c)
     if "gate_proj" in layer_p:
         gate, up = _proj_group(hn, layer_p, ("gate_proj", "up_proj"), lora_p, c, drop)

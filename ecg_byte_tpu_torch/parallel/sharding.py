@@ -24,6 +24,10 @@ their gradient is 0, so Adam leaves them at 0.  Each shard carries its :class:`S
 whole tensor's shape (:func:`split_of`), which the step reads to pick the
 group its gradient sums over and the clip reads to count it once;
 :func:`gather_tree` is the whole tree again, on every rank.
+
+A norm-folded tree (``transformer.fold_norm_scales``) is refused: the JAX
+specs have no entry for its ``attn_norm_w`` / ``mlp_norm_w``, so the JAX
+package cannot shard one, and the port does not shard it some other way.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ from ecg_byte_tpu_torch.parallel import distributed, mesh
 COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 ROW = ("o_proj", "down_proj")
 _ATTR = "_ecg_byte_split"
+FOLDED_UNSHARDED = (
+    "a norm-folded tree (fold_norm_scales) cannot be sharded under --tp or --fsdp: the JAX "
+    "package's sharding specs have no entry for its attn_norm_w / mlp_norm_w "
+    "(ecg_byte_tpu/parallel/sharding.py:25-51); run it with --tp 1 --fsdp 1, or unfolded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +69,10 @@ def _proj_splits(name: str, proj) -> Any:
 
 
 def param_splits(params) -> Any:
-    """The :class:`Split` tree of a ``transformer.init_params`` tree."""
+    """The :class:`Split` tree of a ``transformer.init_params`` tree; a
+    norm-folded tree raises ``ValueError``."""
+    if any("attn_norm_w" in layer for layer in params.get("layers", ())):
+        raise ValueError(FOLDED_UNSHARDED)
     out = {}
     for k, v in params.items():
         if k == "layers":

@@ -3,12 +3,13 @@ attention forwards, of both RMSNorm kernels, of the int8 weight product, of
 the device BPE encoder's token streams and of phase 15's preprocessing (the
 chain against float64 scipy, the threshold's median, skip counts, the
 written tree, the token cache), of phases 9 and 16's teacher-forced
-logits, of phase 17's two-rank steps and per-rank counts and of phase 18's
-attention mean and translation streams, on the CPU:
-they pass the plain versions' own output and refuse outputs with the faults
-the bounds are there for.  The
-plain versions stand in for the kernels here (the kernels themselves run
-only on the card).  Phase 18 also runs whole, at tiny sizes."""
+logits, of phase 17's two-rank steps and per-rank counts, of phase 18's
+attention mean, translation streams, profiler trace and memory readings,
+and of phase 20's folded launch counts and teacher-forced streams, on the
+CPU: they pass the plain versions' own output and refuse outputs with the
+faults the bounds are there for.  The plain versions stand in for the
+kernels here (the kernels themselves run only on the card).  Phases 18, 19
+and 20 also run whole, at tiny sizes."""
 
 import importlib.util
 import os
@@ -1324,3 +1325,215 @@ def test_tp_stream_check_refuses_a_parting_at_a_wide_margin():
     assert chip_smoke.check_tp_stream([5, 6, 8], [5, 6, 7], [1.0, 1.0, 0.05], 0.1) == 2
     with pytest.raises(AssertionError, match="parts at step 1"):
         chip_smoke.check_tp_stream([5, 9, 7], [5, 6, 7], [1.0, 0.5, 1.0], 0.1)
+
+
+# ------------------------------------------------------------------ phase 20
+
+
+def test_fold_phase_rehearsal(tmp_path, monkeypatch):
+    """Phase 20 whole on the CPU at tiny sizes: the folded LoRA step held by
+    the rule of phase 7 on its own tree, and the folded tree in f32 beside
+    the classic one (in f32 each plain path is its f32 reference itself,
+    so hold_train_paths records what it is given: the folded step within
+    1e-4 of the classic one), both trees' greedy streams in bf16 and int8
+    through the stream check, every path's launch counts recorded."""
+    root = str(tmp_path)
+    vocab, merges = chip_smoke.make_data(root, n_train=2, n_val=1, n_test=1, seg_len=60,
+                                         num_merges=30)
+    held, logits = [], []
+    monkeypatch.setattr(chip_smoke, "hold_train_paths",
+                        lambda k, p, r, **kw: held.append((k, p, r)))
+
+    def hold(kern, ref, ratio, what):  # on the CPU the bf16 paths run in f32
+        logits.append((kern, ref, ratio))
+        return dict.fromkeys(("classic_vs_f32", "folded_vs_f32", "fold_in_f32",
+                              "folded_vs_classic_f32", "classic_prefill_abs"), 0.0)
+
+    monkeypatch.setattr(chip_smoke, "hold_folded_logits", hold)
+    fold = chip_smoke.Fold(model="tiny-llama", batch=2, pad_to_max=300, new_tokens=6)
+    by_path, numbers = chip_smoke.fold_phase(root, vocab, merges, fold, dev="cpu")
+    # the served logits (f32 on the CPU) held against each tree in f32 on
+    # the plain versions over the classic stream: rows of the prefill and
+    # each fed-back token, the folded tree within 1e-4 of the classic one
+    assert len(logits) == 2 and all(r == chip_smoke.FOLD_LOGITS_RATIO for _, _, r in logits)
+    for (kern, ref, _), int8 in zip(logits, (False, True)):
+        assert all(x.shape == (fold.new_tokens, kern["classic"].shape[1])
+                   for x in (*kern.values(), *ref.values()))
+        assert torch.allclose(ref["folded"], ref["classic"], rtol=1e-4, atol=1e-4)
+        # the int8 copy is held against the unquantized tree
+        assert torch.equal(kern["classic"], ref["classic"]) != int8
+    assert set(by_path) == {f"fold_{p}{c}" for p in ("train", "serve_bf16", "serve_int8")
+                            for c in ("", "_classic")}
+    assert all(not any(c.values()) for c in by_path.values())  # no kernel on the CPU
+    ((kern,), (plain,), (folded32,)), ((fold,), (classic,), (ref,)) = held
+    assert kern[0] == plain[0] == folded32[0] == fold[0] and classic[0] == ref[0]
+    assert abs(fold[0] - classic[0]) <= 1e-4 * abs(classic[0])
+    for k, g in classic[3].items():
+        assert torch.equal(kern[3][k], plain[3][k])
+        assert (torch.linalg.vector_norm(fold[3][k] - g) / torch.linalg.vector_norm(g)) < 1e-4
+    assert set(numbers["folded_vs_classic_error_ratios"]) == {"ce_labelled", "ce_valid",
+                                                              "grad_max", "grad_min"}
+    assert numbers["wall_s"] > 0 and numbers["decode_int8_folded_ms_per_token"] > 0
+
+
+def test_blame_phase_rehearsal(tmp_path, capsys):
+    """``chip_smoke.py --blame`` on the CPU at tiny sizes: both trees at
+    both norm settings, with all the train path's kernels and with each
+    alone, attention without a kernel (its q.k sums reordered, the
+    kernel's softmax arithmetic), the folded
+    plain path against the classic one, and every call of the two forward
+    kernels in item 0's step against f64 (on the CPU every wrapper is its
+    plain version, so each ratio is 0 and each call's two errors are
+    equal)."""
+    root = str(tmp_path)
+    vocab, merges = chip_smoke.make_data(root, n_train=2, n_val=1, n_test=1, seg_len=60,
+                                         num_merges=30)
+    fold = chip_smoke.Fold(model="tiny-llama", batch=2, pad_to_max=300)
+    chip_smoke.blame_phase(root, vocab, merges, fold, items=2, dev="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    rows = [ln for ln in lines if ln.startswith("shift ") and "on the card" in ln]
+    assert len(rows) == 2 * 2 * 5 and all("ce_valid 0.000" in ln for ln in rows)
+    # in f32 the classic plain path is the f32 tree itself
+    fold = [ln for ln in lines if ln.startswith("shift ") and "folded plain / " in ln]
+    assert len(fold) == 2 and all("ce_valid inf" in ln for ln in fold)
+    witness = [ln for ln in lines if ", no kernel, attention " in ln]
+    assert len(witness) == 2 * 2 * len(chip_smoke._ATTENTION_WITNESSES)
+    calls = {ln.split(", item 0's")[0]: ln for ln in lines if "item 0's classic step" in ln}
+    assert set(calls) == {"prefill_attention", "rmsnorm", *chip_smoke._ATTENTION_WITNESSES}
+    assert all("2 calls" in calls[n] for n in ("prefill_attention",
+                                               *chip_smoke._ATTENTION_WITNESSES))
+    assert "6 calls" in calls["rmsnorm"]
+
+
+def test_off_one_norms_moves_every_norm_weight():
+    from ecg_byte_tpu_torch.models import tiny_test_config
+    from ecg_byte_tpu_torch.models import transformer as T
+
+    config = tiny_test_config("llama", dtype="bfloat16")
+    params = T.init_params(config, torch.Generator().manual_seed(0), torch.device("cpu"))
+    moved = chip_smoke.off_one_norms(params, 0, 0.3)
+    norms = [moved["final_norm"]] + [layer[n] for layer in moved["layers"]
+                                     for n in ("attn_norm", "mlp_norm")]
+    assert all(t.dtype == torch.bfloat16 and (t != 1).float().mean() > 0.9 for t in norms)
+    assert 0.2 < torch.cat([t.float() - 1 for t in norms]).std() < 0.4
+    assert moved["layers"][0]["q_proj"] is params["layers"][0]["q_proj"]
+
+
+def test_folded_count_check_refuses_an_extra_norm_and_another_count():
+    """RMSNorm's folded and classic counts exact; every other kernel as
+    often on both trees."""
+    classic = {"rmsnorm": 33, "rmsnorm_bwd": 32, "prefill_attention": 16, "bpe_match": 0}
+    folded = dict(classic, rmsnorm=1, rmsnorm_bwd=1)
+    per_norm = {"rmsnorm": (1, 33), "rmsnorm_bwd": (1, 32)}
+    chip_smoke.check_folded_counts(folded, classic, per_norm, "step")
+    with pytest.raises(AssertionError, match="rmsnorm launched 2 folded"):
+        chip_smoke.check_folded_counts(dict(folded, rmsnorm=2), classic, per_norm, "step")
+    with pytest.raises(AssertionError, match="prefill_attention launched 15 folded"):
+        chip_smoke.check_folded_counts(dict(folded, prefill_attention=15), classic, per_norm,
+                                       "step")
+
+
+def _trace_file(tmp_path, names):
+    events = [{"cat": "cpu_op", "name": "aten::mm"}] + [{"cat": "kernel", "name": n}
+                                                         for n in names]
+    path = tmp_path / "rank0.1.2.pt.trace.json"
+    path.write_text(chip_smoke.json.dumps({"traceEvents": events}))
+    return str(path)
+
+
+def test_trace_counts_check_passes_the_counters_and_refuses_one_off(tmp_path):
+    """The kernel events of a trace, by wrapper: each attention forward and
+    backward (by its dQ kernel) and both RMSNorm kernels, held to the
+    counters exactly; a trace that lost one is refused, as is one without
+    the resident backward on the card."""
+    names = (["void ecg::fwd::fwd_kernel<64, false>(ecg::bwd::Args)"] * 3
+             + ["void ecg::bwd::dq_kernel<64, false>(ecg::bwd::Args)",
+                "void ecg::bwd::dkv_kernel<64, false, 3>(ecg::bwd::Args)",
+                "void ecg::fwd::fwd_kernel<64, true>(ecg::bwd::Args)",
+                "void (anonymous namespace)::rmsnorm_fwd_kernel<__nv_bfloat16, 2>(...)",
+                "void (anonymous namespace)::rmsnorm_bwd_kernel<__nv_bfloat16, 2, false>(...)",
+                "void (anonymous namespace)::rmsnorm_dw_sum_kernel<float>(...)",
+                "nvjet_tst_64x8_64x16_2x1_v_bz_TNT"])
+    traced, got = chip_smoke.trace_kernel_counts(_trace_file(tmp_path, names))
+    assert got == names
+    want = {"prefill_attention": 3, "prefill_attention_bwd": 1, "flash_attention": 1,
+            "flash_attention_bwd": 0, "rmsnorm": 1, "rmsnorm_bwd": 1}
+    assert traced == want
+    chip_smoke.check_trace_counts(traced, dict(want, bpe_match=2), "cuda")
+    with pytest.raises(AssertionError, match="3 prefill_attention kernels, the counter 4"):
+        chip_smoke.check_trace_counts(traced, dict(want, prefill_attention=4), "cuda")
+    lost = dict(want, prefill_attention_bwd=0)
+    chip_smoke.check_trace_counts(lost, lost, "cpu")
+    with pytest.raises(AssertionError, match="prefill_attention_bwd"):
+        chip_smoke.check_trace_counts(lost, lost, "cuda")
+
+
+def test_memory_lines_check_refuses_a_missing_reading_and_a_size_past_the_card():
+    lines = [f"[memory] {tag}: 1.00 GB live on cuda:0 ({10**9} bytes; peak {2 * 10**9} bytes)"
+             for tag in chip_smoke.MEMORY_TAGS]
+    text = "\n".join(["Model llama-3.2-1b: ..."] + lines)
+    assert chip_smoke.check_memory_lines(text, 80 * 10**9) == [10**9] * 3
+    with pytest.raises(AssertionError, match="memory readings"):
+        chip_smoke.check_memory_lines("\n".join(lines[:2]), 80 * 10**9)
+    with pytest.raises(AssertionError, match=r"not in \(0, "):
+        chip_smoke.check_memory_lines(text, 10**8)
+
+
+def test_hold_train_paths_holds_the_positions_asked():
+    """With ``held=("labelled",)`` the valid positions' cross entropy is
+    printed, not held; the labelled positions' and every gradient group
+    still are."""
+    gen = torch.Generator().manual_seed(0)
+    ref = (2.0, torch.rand(50, generator=gen) + 1, torch.rand(400, generator=gen) + 1,
+           {"LoRA q_proj.a": torch.randn(64, generator=gen)})
+
+    def noisy(t, scale):
+        return t + scale * torch.randn(t.shape, generator=gen)
+
+    def path(valid_noise):
+        return (ref[0] + 1e-4, noisy(ref[1], 1e-3), noisy(ref[2], valid_noise),
+                {k: noisy(g, 1e-3) for k, g in ref[3].items()})
+
+    plain, kern = path(1e-3), path(3e-3)
+    chip_smoke.hold_train_paths([kern], [plain], [ref], held=("labelled",))
+    with pytest.raises(AssertionError, match="valid positions"):
+        chip_smoke.hold_train_paths([kern], [plain], [ref])
+    far = (kern[0], kern[1] * 1.01, *kern[2:])
+    with pytest.raises(AssertionError, match="labelled positions"):
+        chip_smoke.hold_train_paths([far], [plain], [ref], held=("labelled",))
+
+
+def test_folded_logits_hold_refuses_a_folded_path_or_a_fold_past_its_bound():
+    """The folded path's distance from its f32 tree within ``ratio`` x the
+    classic path's from its, and the fold in f32 within 1.25x: a folded
+    path with a scale dropped in one row, or a fold that moved the f32
+    logits, is refused."""
+    gen = torch.Generator().manual_seed(0)
+    classic32 = torch.randn(5, 40, generator=gen)
+    ref = {"classic": classic32, "folded": classic32 + 1e-4 * torch.randn(5, 40, generator=gen)}
+
+    def noisy(t, scale):
+        return t + scale * torch.randn(t.shape, generator=gen)
+
+    kern = {"classic": noisy(ref["classic"], 1e-2), "folded": noisy(ref["folded"], 1e-2)}
+    d = chip_smoke.hold_folded_logits(kern, ref, 1.25, "ok")
+    assert d["fold_in_f32"] < d["classic_vs_f32"] and d["classic_prefill_abs"] > 0
+    dropped = kern["folded"].clone()
+    dropped[3] *= 1.2  # one decode step's output without its scale
+    with pytest.raises(AssertionError, match="folded path further"):
+        chip_smoke.hold_folded_logits({**kern, "folded": dropped}, ref, 1.25, "dropped")
+    moved = {**ref, "folded": noisy(ref["classic"], 5e-2)}
+    with pytest.raises(AssertionError, match="the fold moves"):
+        chip_smoke.hold_folded_logits({**kern, "folded": noisy(moved["folded"], 1e-2)}, moved,
+                                      1.25, "moved")
+
+
+def test_forced_argmax_check_refuses_a_flip_at_a_wide_margin():
+    """Teacher-forced logits whose argmax is the reference's token pass; a
+    step where it differs passes only where the reference's margin there
+    is within the bound."""
+    logits = torch.tensor([[0.0, 2.0, 1.0], [3.0, 0.0, 1.0], [0.0, 1.0, 1.5]])
+    assert chip_smoke.check_forced_argmax(logits, [1, 0, 2], [1.0, 2.0, 0.5], 0.1, "ok") == []
+    assert chip_smoke.check_forced_argmax(logits, [1, 0, 1], [1.0, 2.0, 0.05], 0.1, "tie") == [2]
+    with pytest.raises(AssertionError, match=r"\(step, margin\) \[\(1, 0.5\)\]"):
+        chip_smoke.check_forced_argmax(logits, [1, 2, 2], [1.0, 0.5, 0.5], 0.1, "flip")

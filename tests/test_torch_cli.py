@@ -33,11 +33,11 @@ TRAIN = DATA_ARGS + ["--device", "cpu", "--peft", "--online_encode", "--batch_si
                      "--pad_to_max", "300"]
 
 
-def _run(args, cwd, module="ecg_byte_tpu_torch.cli.main"):
+def _run(args, cwd, module="ecg_byte_tpu_torch.cli.main", **env_vars):
     # one thread: the tiny models gain nothing from more, and the test
     # workers already share the cores
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
-               MKL_NUM_THREADS="1")
+               MKL_NUM_THREADS="1", **env_vars)
     return subprocess.run(
         [sys.executable, "-m", module, *args], cwd=cwd, env=env,
         capture_output=True, text=True, timeout=300,
@@ -179,8 +179,11 @@ def jax_crash_run(workdir, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def trained(workdir, jax_crash_run):
-    r = _run(TRAIN, workdir)
+    """The training run, traced (``--profile``) and with its memory readings
+    (``ECG_BYTE_LOG_MEMORY=1``); its output is kept in ``trained.log``."""
+    r = _run(TRAIN + ["--profile", "trace"], workdir, ECG_BYTE_LOG_MEMORY="1")
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    (workdir / "trained.log").write_text(r.stdout)
     return _summary(r.stdout, "Training on cpu")
 
 
@@ -205,6 +208,27 @@ def test_train_cli_then_serve(workdir, trained):
               os.path.basename(trained["directory"])] + DATA_ARGS, workdir)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert _summary(r.stdout, "Serving on cpu")["records"] == 15
+
+
+def test_train_cli_profile_and_memory_lines(workdir, trained):
+    """--profile wrote one Chrome trace of the epoch loop (the six steps'
+    forwards and backwards among its CPU events), and ECG_BYTE_LOG_MEMORY=1
+    printed the JAX CLI's three readings, each a positive byte count."""
+    out = (workdir / "trained.log").read_text()
+    assert "Profiler trace written to trace" in out
+    (path,) = (workdir / "trace").glob("rank0.*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    assert len(events) > 1000
+    assert sum(n == "autograd::engine::evaluate_function: RMSNormBackward" for n in names) > 0
+    lines = [ln for ln in out.splitlines() if ln.startswith("[memory] ")]
+    tags = [ln.split(": ", 1)[0][len("[memory] "):] for ln in lines]
+    assert tags == ["after model build + ECG-token resize",
+                    "after train-state creation (params + opt state)",
+                    "after first training epoch"], lines
+    for ln in lines:
+        assert ln.endswith(" bytes)") and "live on cpu" in ln
+        assert int(ln.rsplit("(", 1)[1].split()[0]) > 0
 
 
 def test_crash_epoch_matches_jax(workdir, trained, jax_crash_run, tmp_path):

@@ -125,9 +125,11 @@ def test_cli_main_dis_matches_one_process(run_in):
     roles = checkpoint.written[before:]
     one_best = _tree(os.path.join(one["directory"], "best_model.pt"))["trainable"]
     shutil.rmtree("runs")
-    out = cli_main.main(MAIN + DIS)
+    out = cli_main.main(MAIN + DIS + ["--profile", "trace"])
     r0, r1 = out["ranks"]
     assert (r0["rank"], r1["rank"], r0["backend"]) == (0, 1, "gloo")
+    # --profile: one trace file a rank, the rank in its name
+    assert sorted(p.split(".")[0] for p in os.listdir("trace")) == ["rank0", "rank1"]
     for r in (r0, r1):
         got = r["training"]
         assert got["steps"] == one["steps"] == 4 and got["tokens"] == one["tokens"]

@@ -172,9 +172,7 @@ def test_loader_matches_jax_bit_for_bit(arch, strip, tmp_path):
     d = _save(MODELS[arch](tmp_path), tmp_path, strip)
     jc = jax_load(d, "float32")[1]
     pc = config_from_hf(d)
-    want = {k: v for k, v in dataclasses.asdict(jc.replace(dtype="bfloat16")).items()
-            if k != "norm_folded"}
-    assert dataclasses.asdict(pc) == want
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc.replace(dtype="bfloat16"))
     for dtype in ("bfloat16", "float32"):
         jparams, jc = jax_load(d, dtype)
         params, config = load_hf_checkpoint(d, dtype, CPU)

@@ -18,7 +18,9 @@ and the CLIP and ViT image pipelines; and this PR's modules:
 (``parallel/mesh.py``, ``parallel/sharding.py``): two gloo ranks, each
 blocking the same packages before it imports the port, take LoRA and full
 fine-tune steps at T = 2 and at F = 2, save the whole checkpoint and
-decode at T = 2.  No source line imports JAX or the
+decode at T = 2; and the norm-folded tree (``fold_norm_scales``) decodes
+the same tokens under ``utils/profiling.trace``, which writes its file, and
+``log_live_bytes`` counts the CPU's tensors.  No source line imports JAX or the
 JAX package, nor scikit-learn, pandas, pywt, wfdb, Pillow or optax."""
 
 import os
@@ -171,6 +173,15 @@ ids = torch.randint(0, config.vocab_size, (2, 16))
 batch = {"input_ids": ids, "attn_mask": torch.ones(2, 16, dtype=torch.int32), "labels": ids}
 state, loss = make_train_step(config, opt)(state, batch, torch.Generator().manual_seed(1))
 assert state.step == 1 and torch.isfinite(loss)
+from ecg_byte_tpu_torch.models import transformer as T
+from ecg_byte_tpu_torch.utils import profiling
+fp, fc = T.fold_norm_scales(params, config)
+with tempfile.TemporaryDirectory() as d:
+    with profiling.trace(d) as path:
+        folded = greedy_generate(fp, fc, torch.tensor([[tok.bos_token_id, 65, 66, 67]]),
+                                 max_new_tokens=4)
+    assert os.path.getsize(path) > 0 and torch.equal(folded, out)
+assert profiling.log_live_bytes("the folded tree", cpu) > 0
 from ecg_byte_tpu_torch.parallel.spawn import spawn
 done = spawn(exec, (RANK_CODE.replace("BLOCKED_", repr(BLOCKED)), {}), world=2, timeout_s=120)
 assert done == [None, None]
