@@ -207,9 +207,13 @@ Phases, each printing its own lines, in the order they run:
     both trees' logits teacher-forced on the classic stream held by
     :func:`hold_folded_logits` against each tree in f32.
 
-``python3 chip_smoke.py --blame`` runs phases 1 and 2 and then
-:func:`blame_phase` alone: a diagnostic that prints, holds nothing and
-prints no result line.
+``python3 chip_smoke.py --blame`` runs phases 1 and 2, makes the main and
+the long data, and then :func:`blame_phase` alone: a diagnostic that
+prints how far each train-path kernel alone, the resident forward's
+diagnostic variants and attention witnesses without a kernel move a LoRA
+step from f32 under norm weights off 1, the score product's rounding each
+way, and the flash path's reading; it holds nothing and prints no result
+line.
 
 Every check raises, so any failure exits non-zero.  The next-to-last line
 is a JSON object with each kernel's measurements, the last line
@@ -2500,8 +2504,10 @@ def train_paths_phase(root, vocab, merges, check, model=MODEL, dev="cuda"):
 def path_error_ratios(kern, plain, ref):
     """A step's distance from ``ref`` over ``plain``'s (each ``(loss, cross
     entropies at the labelled and at the valid positions, {group:
-    gradient})``, as :func:`lora_loss_and_grads` returns them): the cross
-    entropies', and the largest and the smallest of the gradient groups'."""
+    gradient}[, at the last left-pad rows])``, as :func:`lora_loss_and_grads`
+    returns them): the cross entropies', and the largest and the smallest
+    of the gradient groups'; where the last left-pad rows are given, theirs
+    alone and with the valid positions'."""
     import torch
 
     def ratio(j, g=None):
@@ -2510,8 +2516,14 @@ def path_error_ratios(kern, plain, ref):
         return dk / dp if dp else (0.0 if dk == 0 else math.inf)
 
     groups = [ratio(3, g) for g in ref[3]]
-    return {"ce_labelled": ratio(1), "ce_valid": ratio(2), "grad_max": max(groups),
-            "grad_min": min(groups)}
+    out = {"ce_labelled": ratio(1), "ce_valid": ratio(2), "grad_max": max(groups),
+           "grad_min": min(groups)}
+    if len(ref) > 4 and ref[4].numel():  # the last left-pad rows: alone, and with the valid ones
+        out["ce_last_pad"] = ratio(4)
+        k, p, r = (torch.cat([x[2], x[4]]) for x in (kern, plain, ref))
+        dp = torch.linalg.vector_norm(p - r).item()
+        out["ce_valid_and_last_pad"] = torch.linalg.vector_norm(k - r).item() / dp if dp else 0.0
+    return out
 
 
 def random_lora(config, seed, dev):
@@ -2530,11 +2542,23 @@ def random_lora(config, seed, dev):
     return lora
 
 
+def valid_predictions(attn_mask):
+    """(..., S - 1) bool: the next-token predictions made at a valid position
+    of a valid token.  The last left-pad row predicts the first valid token,
+    but its every key is masked, and the attention kernels, the plain
+    version and the TPU kernel each average V over other keys there
+    (nothing of the model reads such a row): no kernel output there is
+    held."""
+    m = attn_mask.bool()
+    return m[..., :-1] & m[..., 1:]
+
+
 def lora_loss_and_grads(params, lora, config, batch):
     """One forward and backward of the LoRA loss on ``batch``, dropout off:
-    ((loss, cross entropies at the labelled and at the valid positions,
-    {LoRA gradient group: flat f32 gradient}), the kernels that forward and
-    backward launched)."""
+    ((loss, cross entropies at the labelled and at the valid positions
+    (:func:`valid_predictions`), {LoRA gradient group: flat f32 gradient},
+    cross entropies at the last left-pad rows), the kernels that forward
+    and backward launched)."""
     import torch
 
     from ecg_byte_tpu_torch.models import transformer as T
@@ -2556,8 +2580,9 @@ def lora_loss_and_grads(params, lora, config, batch):
     names = [(name, k) for name in lora["layers"][0] for k in ("a", "b")]
     grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
                                          for layer in lora["layers"]]) for n, k in names}
-    return (loss.item(), ce_lab[labels != -100], ce_all[batch["attn_mask"][:, 1:].bool()],
-            grads), counts
+    valid = valid_predictions(batch["attn_mask"])
+    last_pad = batch["attn_mask"][:, 1:].bool() & ~valid
+    return (loss.item(), ce_lab[labels != -100], ce_all[valid], grads, ce_all[last_pad]), counts
 
 
 def hold_train_paths(kern, plain, ref, held=("labelled", "valid")):
@@ -3545,10 +3570,7 @@ def fusion_train_check(root, ts, dev):
             logits = T._unembed(params, config, hidden)[0, :-1]
             lse = torch.logsumexp(logits, -1)
             labels, nxt = adapted["labels"][0, 1:], ids[0, 1:]
-            # positions whose own row and next token are valid (a left pad's
-            # row attends no key: no kernel output there is held)
-            mask = adapted["attn_mask"][0].bool()
-            valid = mask[:-1] & mask[1:]
+            valid = valid_predictions(adapted["attn_mask"][0])
             ce_lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
             ce_all = lse - logits.gather(1, nxt[:, None])[:, 0]
         grads = {f"LoRA {n}.{k}": torch.cat([layer[n][k].grad.float().flatten()
@@ -4030,7 +4052,7 @@ def ddp_lm_run(params, config, lora, batch, rows=None):
             lab = lse - logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
             every = lse - logits.gather(1, nxt[:, None])[:, 0]
             ce_lab.append(lab[labels != -100].cpu())
-            ce_all.append(every[local["attn_mask"][i, 1:].bool()].cpu())
+            ce_all.append(every[valid_predictions(local["attn_mask"][i])].cpu())
             del logits
     return loss.item(), ce_lab, ce_all, grads
 
@@ -5038,7 +5060,7 @@ def grid_lm_run(params, config, lora, batch):
             del logits
             if i < held:
                 ces.append((rows.index[i], lab[labels != -100].cpu(),
-                            every[local["attn_mask"][i, 1:].bool()].cpu()))
+                            every[valid_predictions(local["attn_mask"][i])].cpu()))
     return loss.item(), ces, grads
 
 
@@ -5504,8 +5526,8 @@ def fold_phase(root, vocab, merges, f=FOLD, dev="cuda"):
     backward on the folded tree (2L + 1 and 2L on the classic one), every
     other kernel as often.  :func:`hold_train_paths` holds (i) the folded
     step on the kernels to its plain versions and the folded tree in f32
-    (the rule of phases 7 and 13 on the loss, the labelled positions and
-    every LoRA group), and (ii) the folded tree in f32 to the classic tree
+    (the rule of phases 7 and 13 on the loss, the labelled and the valid
+    positions and every LoRA group), and (ii) the folded tree in f32 to the classic tree
     in f32, within 1.25x of the classic kernel path's distance from it: the
     fold's bf16 weights move the function less than bf16 arithmetic does.
     (iii) The folded kernel path's distance from the classic tree in f32
@@ -5577,12 +5599,10 @@ def fold_phase(root, vocab, merges, f=FOLD, dev="cuda"):
     print(f"20a: the LoRA step at B{f.batch} x {s}, launches folded "
           f"{_nonzero(by_path['fold_train'])}, classic {_nonzero(by_path['fold_train_classic'])}")
     # the rule of phases 7 and 13 on the loss, the cross entropy pooled at
-    # the labelled positions and every LoRA group.  At the valid positions
-    # the kernel path of either tree sits ~1.5-1.6x the plain path's
-    # distance under these moved norms (PERF.md, section 6), printed.
+    # the labelled and at the valid positions and every LoRA group
     print("20a (i) the folded step on the kernels and on the plain versions, against the "
           "folded tree in f32 (the rule of phases 7 and 13 on the folded tree):")
-    hold_train_paths([folded], [folded_plain], [refs["folded"]], held=("labelled",))
+    hold_train_paths([folded], [folded_plain], [refs["folded"]])
     print("20a (ii) the fold itself: the folded tree in f32 in the kernel path's place, against "
           "the classic tree in f32, beside the classic kernel path (the fold's bf16 weights move "
           "the function less than bf16 arithmetic does):")
@@ -5701,17 +5721,22 @@ def _reordered_attention(qg, k, v, mask):
     return _plain_attention(qg.flip(-1), k.flip(-1), v, mask).contiguous()
 
 
-def _emulated_attention(qg, k, v, mask, *, online=True, tile=64):
+def _emulated_attention(qg, k, v, mask, *, online=True, tile=64, tensor_cores=False):
     """The plain attention with the resident kernel's softmax arithmetic in
     PyTorch: p = 2^((s - m) log2 e) x (1 / l), and with ``online`` the row
     sum l as the kernel's first pass forms it, over ``tile`` keys at a time
     rescaled by 2^((m_old - m_new) log2 e) as the running max m steps
-    (without, the sum of the final terms)."""
+    (without, the sum of the final terms).  With ``tensor_cores`` q.k and
+    P.V too as the kernel takes them, bf16 products with f32 accumulators on
+    the tensor cores (cuBLAS)."""
     import torch
 
     ct, log2e = torch.float32, 1.4426950408889634
     b, s, kh, g, d = qg.shape
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
+    if tensor_cores:
+        logits = _tensor_core_scores(qg, k)
+    else:
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
     ok = torch.ones((s, s), dtype=torch.bool, device=qg.device).tril()
     ok = ok & mask[:, None, None, None, :].bool()
     logits = logits.masked_fill(~ok, -1e30)
@@ -5729,6 +5754,8 @@ def _emulated_attention(qg, k, v, mask, *, online=True, tile=64):
     else:
         l = e.sum(-1, keepdim=True)
     p = (e * (1 / l)).to(qg.dtype)
+    if tensor_cores:
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v).contiguous()
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(ct), v.to(ct))
     return out.to(qg.dtype).contiguous()
 
@@ -5743,21 +5770,112 @@ def _tensor_core_pv(qg, k, v, mask):
     return torch.einsum("bkgqs,bskd->bqkgd", grouped_probs(qg, k, mask), v).contiguous()
 
 
+def _tensor_core_logits(q, k):
+    """q . k^T of bf16 batches (N, M, D) and (N, T, D) as cuBLAS's bf16
+    product with f32 output: the tensor cores with f32 accumulators, never
+    rounded to bf16."""
+    import torch
+
+    return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+
+
+def tensor_core_logits_missing(dev):
+    """None where this torch computes :func:`_tensor_core_logits` on
+    ``dev``, else why not (the CPU backend has no such product)."""
+    import torch
+
+    x = torch.zeros(1, 16, 16, dtype=torch.bfloat16, device=dev)
+    try:
+        _tensor_core_logits(x, x)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return None
+
+
+def _tensor_core_scores(qg, k):
+    """The scaled (B, KH, G, S, S) logits of attention from
+    :func:`_tensor_core_logits` over (batch row, KV head) batches."""
+    b, s, kh, g, d = qg.shape
+    q2 = qg.permute(0, 2, 3, 1, 4).reshape(b * kh, g * s, d)
+    k2 = k.permute(0, 2, 1, 3).reshape(b * kh, s, d)
+    return _tensor_core_logits(q2, k2).view(b, kh, g, s, s) * d**-0.5
+
+
+def _tensor_core_qk(qg, k, v, mask):
+    """The plain attention with its logits from :func:`_tensor_core_scores`,
+    masked and softmaxed as ``grouped_probs`` does, and P.V as the plain
+    version."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops.attention import masked_probs
+
+    probs = masked_probs(_tensor_core_scores(qg, k), mask, qg.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    return out.to(qg.dtype).contiguous()
+
+
 def _plain_rmsnorm(x, w, eps):
     from ecg_byte_tpu_torch.ops.rmsnorm import rmsnorm_plain
 
     return rmsnorm_plain(x, w, eps)
 
 
+TENSOR_CORE_QK = "q.k on the tensor cores"
+KERNEL_EMULATED = "kernel softmax, q.k and P.V on the tensor cores"
 # attention without a kernel, each as exact as the plain version per call:
 # its q.k sums reordered; the kernel's softmax arithmetic with the final
 # row sum; the kernel's softmax arithmetic with its first pass's row sum;
-# P.V accumulated on the tensor cores
+# P.V accumulated on the tensor cores; q.k on the tensor cores (cuBLAS,
+# f32 out), the rest plain; the kernel's softmax with both products on the
+# tensor cores
 _ATTENTION_WITNESSES = {
     "reordered": _reordered_attention,
     "kernel softmax, exact sum": functools.partial(_emulated_attention, online=False),
     "kernel softmax, online sum": _emulated_attention,
     "P.V on the tensor cores": _tensor_core_pv,
+    TENSOR_CORE_QK: _tensor_core_qk,
+    KERNEL_EMULATED: functools.partial(_emulated_attention, tensor_cores=True),
+}
+# the witnesses that need torch.bmm(..., out_dtype=) on the card
+_CARD_WITNESSES = (TENSOR_CORE_QK, KERNEL_EMULATED)
+
+
+def _forward_variant(variant):
+    def call(qg, k, v, mask):
+        from ecg_byte_tpu_torch.ops.attention_resident import resident_attention_dot
+
+        return resident_attention_dot(qg, k, v, mask, variant)
+    return call
+
+
+# the ways of csrc/attention_bwd_tc.cuh to sum the score product
+# (attention_resident.SCORE_DOTS), and the resident forward kernel with its
+# arithmetic changed (attention_resident.FORWARD_VARIANTS): launched by
+# --blame alone, counted by resident_attention_dot.launches
+SCORE_DOTS = ("chain", "split", "fma")
+FORWARD_VARIANTS = ("chain scores", "split scores", "fma scores", "fma scores, fma P.V, expf")
+_FORWARD_VARIANTS = {f"kernel, {v}": _forward_variant(v) for v in FORWARD_VARIANTS}
+
+
+def _pad_rows_from(valid_fn, pad_fn):
+    """Attention with ``valid_fn``'s output at the valid query rows and
+    ``pad_fn``'s at the left-pad rows (every key of such a row masked)."""
+    def call(qg, k, v, mask):
+        import torch
+
+        pad = ~mask.bool()[:, :, None, None, None]
+        return torch.where(pad, pad_fn(qg, k, v, mask), valid_fn(qg, k, v, mask)).contiguous()
+    return call
+
+
+# the kernel and plain with their left-pad rows swapped; the kernel is its
+# chain-scores variant, the main path's arithmetic bit for bit, whose wrapper
+# the step's patch of resident_attention leaves alone
+_PAD_ROW_SWAPS = {
+    "plain, its left-pad rows from the kernel": _pad_rows_from(
+        _plain_attention, _forward_variant("chain scores")),
+    "the kernel, its left-pad rows from plain": _pad_rows_from(
+        _forward_variant("chain scores"), _plain_attention),
 }
 
 
@@ -5766,20 +5884,22 @@ def per_call_errors(name, calls):
     and the plain version's distance from the same call in f64 over the
     rows of valid positions, |d|/|f64|, the kernel's from the plain
     version's, and the share of output elements where the two differ; a
-    witness of ``_ATTENTION_WITNESSES`` in the kernel's place, with the
-    share where it differs from the kernel: [(kernel, plain, kernel vs
-    plain, share, share vs the kernel)]."""
+    witness of ``_ATTENTION_WITNESSES`` or a variant of
+    ``_FORWARD_VARIANTS`` in the kernel's place, with the share where it
+    differs from the kernel: [(kernel, plain, kernel vs plain, share, share
+    vs the kernel)]."""
     import torch
 
     from ecg_byte_tpu_torch.ops import attention_resident, rmsnorm
 
+    stand_in = {**_ATTENTION_WITNESSES, **_FORWARD_VARIANTS}
     out = []
     for args in calls:
         f64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
                     for a in args)
-        if name in _ATTENTION_WITNESSES or name == "prefill_attention":
+        if name in stand_in or name == "prefill_attention":
             card = attention_resident.resident_attention(*args)
-            kern = card if name == "prefill_attention" else _ATTENTION_WITNESSES[name](*args)
+            kern = card if name == "prefill_attention" else stand_in[name](*args)
             plain, ref = _plain_attention(*args), _plain_attention(*f64)
             rows = args[3][0].bool()  # B1: the valid query positions
             kern, plain, ref, card = (x[:, rows] for x in (kern, plain, ref, card))
@@ -5794,93 +5914,214 @@ def per_call_errors(name, calls):
     return out
 
 
-def blame_phase(root, vocab, merges, f=FOLD, items=4, dev="cuda"):
+def signed_ulp_bias(got, exact, magnitude=None):
+    """The mean signed error of f32 ``got`` against ``exact`` (f64), in f32
+    ulps of |exact| (2^(e - 24) for |exact| in [2^(e - 1), 2^e)), over the
+    elements where exact > 0 and where exact < 0: (bias for s > 0, bias for
+    s < 0).  Rounding toward zero reads about -0.5 and +0.5, rounding to
+    nearest about 0.  With ``magnitude`` (the sum of the terms' absolute
+    values), only over the elements whose sum cancels by at most 4x
+    (|exact| >= magnitude / 4): where it cancels more, an error of a few
+    ulps of the terms is many ulps of |s| and outweighs the rest."""
+    import torch
+
+    exact = exact.double()
+    _, e = torch.frexp(exact)
+    err = (got.double() - exact) / torch.ldexp(torch.ones_like(exact), e - 24)
+    keep = torch.ones_like(exact, dtype=torch.bool) if magnitude is None else (
+        exact.abs() * 4 >= magnitude)
+    return err[keep & (exact > 0)].mean().item(), err[keep & (exact < 0)].mean().item()
+
+
+def score_tiles(qg, k, mask, rows=64):
+    """Tile pairs of one B1 attention call for the score product alone: for
+    each KV head, its valid positions' query rows (the G heads of a
+    position in a row) and key rows, cut into ``rows``-row tiles, query
+    tile t paired with key tile t: q, k (T, rows, D)."""
+    import torch
+
+    valid = mask[0].bool()
+    d = qg.shape[-1]
+    qs, ks = [], []
+    for h in range(k.shape[2]):
+        keys = k[0, valid, h]
+        n = keys.shape[0] // rows * rows
+        qs.append(qg[0, valid, h].reshape(-1, d)[:n])
+        ks.append(keys[:n])
+    return (torch.cat(qs).view(-1, rows, d).contiguous(),
+            torch.cat(ks).view(-1, rows, d).contiguous())
+
+
+def score_biases(calls, tensor_cores):
+    """For each recorded attention call, the signed bias
+    (:func:`signed_ulp_bias`) of the score product summed each way of
+    ``SCORE_DOTS`` (``attention_resident.attention_scores``; on the CPU the
+    plain f32 product) and, with ``tensor_cores``, of cuBLAS's bf16 product
+    with f32 output, against the f64 dot, on :func:`score_tiles` where the
+    dot cancels by at most 4x: {way: [(bias for s > 0, bias for s < 0) per
+    call]}."""
+    import torch
+
+    from ecg_byte_tpu_torch.ops.attention_resident import attention_scores
+
+    ways = {f"kernel {dot}": functools.partial(attention_scores, dot=dot) for dot in SCORE_DOTS}
+    if tensor_cores:
+        ways["cuBLAS bf16 product"] = _tensor_core_logits
+    out = {w: [] for w in ways}
+    for qg, k, _, mask in calls:
+        q, kk = score_tiles(qg, k, mask)
+        exact = torch.einsum("trd,tsd->trs", q.double(), kk.double())
+        magnitude = torch.einsum("trd,tsd->trs", q.double().abs(), kk.double().abs())
+        for w, fn in ways.items():
+            out[w].append(signed_ulp_bias(fn(q, kk), exact, magnitude))
+    return out
+
+
+def blame_phase(root, vocab, merges, f=FOLD, items=4, dev="cuda", long=None, long_items=2,
+                long_pad_to_max=int(LONG_TRAIN_ARGS[-1])):
     """``python3 chip_smoke.py --blame``: which kernel takes the LoRA step's
     kernel path away from f32 at the valid positions when the norm weights
-    are off 1 (phase 20's trees).  Phase 7's ``items`` items at B1 x 1024,
-    each with its own LoRA B: for the norms moved by ``f.norm_shift`` and
-    at 1, the classic and the folded tree on the kernels, then with one
-    kernel at a time on the card and the others plain, each step's
-    distance from the tree in f32 over the plain path's
-    (:func:`path_error_ratios`); the same ratio for attention without a
-    kernel (``_ATTENTION_WITNESSES``: the plain version with its q.k sums
-    reordered, with the kernel's softmax arithmetic, with P.V on the tensor
-    cores);
-    and the folded tree's plain path over the classic tree's, from the
-    classic tree in f32.  First every call of the two forward kernels in
-    item 0's classic step (norms moved), the kernel (and the witnesses)
-    and plain against the same call in f64
-    (:func:`per_call_errors`).  Prints;
-    holds nothing."""
+    are off 1 (phase 20's trees), and why.  Phase 7's ``items`` items at B1
+    x 1024, each with its own LoRA B: for the norms moved by
+    ``f.norm_shift`` and at 1, the classic and the folded tree on the
+    kernels, then with one kernel at a time on the card and the others
+    plain, each step's distance from the tree in f32 over the plain path's
+    (:func:`path_error_ratios`); the same ratio with the resident forward
+    summing its scores each way of ``SCORE_DOTS`` (``_FORWARD_VARIANTS``,
+    the only kernel on the card), and for attention without a kernel
+    (``_ATTENTION_WITNESSES``: the plain version with its q.k sums
+    reordered, with the kernel's softmax arithmetic, with P.V or q.k on
+    the tensor cores; the last needs ``torch.bmm(..., out_dtype=)`` on the
+    card, and prints why where it cannot run); and the folded tree's plain
+    path over the classic tree's, from the classic tree in f32.  First
+    every call of the two forward kernels in item 0's classic step (norms
+    moved), the kernel (and the variants and witnesses) and plain against
+    the same call in f64 (:func:`per_call_errors`), and the score
+    product's signed bias against the f64 dot each way
+    (:func:`score_biases`).  With ``long`` (root, vocab, merges of the long
+    data), last the flash path: ``long_items`` items at B1 x
+    ``long_pad_to_max + 4``, norms moved, the classic tree on the kernels
+    over the plain path.  Prints; holds nothing."""
     import torch
 
     from ecg_byte_tpu_torch.cli.common import build_model
     from ecg_byte_tpu_torch.models import transformer as T
-    from ecg_byte_tpu_torch.ops import attention_resident, rmsnorm
+    from ecg_byte_tpu_torch.ops import attention, attention_resident, rmsnorm
     from ecg_byte_tpu_torch.train.step import _batch_tensors
 
     phase(f"blame: the LoRA step's kernels one at a time, {items} items at B1 x "
           f"{f.pad_to_max + 4}, norm weights moved by {f.norm_shift} N(0, 1) and at 1")
     dev = torch.device(dev)
-    base, config, tok = build_model(f.model, vocab, dev)
-    data = _batch_tensors(_training_items(root, vocab, merges, tok, items, f.pad_to_max), dev)
-    batches = [{k: v[i:i + 1] for k, v in data.items()} for i in range(items)]
-    loras = [random_lora(config, 2 + i, dev) for i in range(items)]
+    cuda = dev.type == "cuda"
+    missing = tensor_core_logits_missing(dev)
+    for name in _CARD_WITNESSES if missing else ():
+        print(f"witness {name}: needs torch.bmm(..., out_dtype=torch.float32) on the card, not "
+              f"run here ({missing})", flush=True)
+    witnesses = {k: fn for k, fn in _ATTENTION_WITNESSES.items()
+                 if not (missing and k in _CARD_WITNESSES)}
     train = ("prefill_attention", "prefill_attention_bwd", "rmsnorm", "rmsnorm_bwd")
     f32 = lambda t: t.float()  # noqa: E731
 
-    def pooled(params, config, kernels=train, attention=None):
+    def items_of(root, vocab, merges, n, pad_to_max):
+        base, config, tok = build_model(f.model, vocab, dev)
+        data = _batch_tensors(_training_items(root, vocab, merges, tok, n, pad_to_max), dev)
+        return (base, config, [{k: v[i:i + 1] for k, v in data.items()} for i in range(n)],
+                [random_lora(config, 2 + i, dev) for i in range(n)])
+
+    def pooled(params, config, batches, loras, kernels=train, attention_fn=None):
         ls = loras if config.dtype != "float32" else [_map_tree(f32, lo) for lo in loras]
         # the backward kernel takes the forward's output, which the plain
         # forward leaves strided
-        plain_fwd = mock.patch.object(attention_resident, "resident_attention",
-                                      attention or (lambda *a: _plain_attention(*a).contiguous()))
+        plain_fwd = mock.patch.object(
+            attention_resident, "resident_attention",
+            attention_fn or (lambda *a: _plain_attention(*a).contiguous()))
         with plain_path([k for k in SOURCES if k not in kernels]), \
                 (contextlib.nullcontext() if "prefill_attention" in kernels else plain_fwd):
             xs = [lora_loss_and_grads(params, lo, config, b)[0] for lo, b in zip(ls, batches)]
         return (sum(x[0] for x in xs), torch.cat([x[1] for x in xs]),
                 torch.cat([x[2] for x in xs]), {g: torch.cat([x[3][g] for x in xs])
-                                                 for g in xs[0][3]})
+                                                 for g in xs[0][3]},
+                torch.cat([x[4] for x in xs]))
 
+    def show(label, r):
+        print(f"{label}: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+
+    base, config, batches, loras = items_of(root, vocab, merges, items, f.pad_to_max)
     params = off_one_norms(base, 0, f.norm_shift)
     for name, module, attr in (("prefill_attention", attention_resident, "resident_attention"),
                                ("rmsnorm", rmsnorm, "rmsnorm")):
         calls = []
         with plain_path(), mock.patch.object(module, attr, _recorded_calls(name, calls)):
             lora_loss_and_grads(params, loras[0], config, batches[0])
-        for name in (name, *_ATTENTION_WITNESSES) if module is attention_resident else (name,):
-            errs = per_call_errors(name, calls)
+        names = (name, *_FORWARD_VARIANTS, *witnesses) if module is attention_resident else (name,)
+        for n in names:
+            errs = per_call_errors(n, calls)
             mean = [sum(e[j] for e in errs) / len(errs) for j in range(5)]
-            print(f"{name}, item 0's classic step at shift {f.norm_shift}, {len(errs)} calls: "
+            print(f"{n}, item 0's classic step at shift {f.norm_shift}, {len(errs)} calls: "
                   "per call |d|/|f64| kernel / plain, kernel vs plain, share of elements unequal "
                   "to plain, to the kernel "
                   f"{[' / '.join(f'{x:.3e}' for x in e) for e in errs]}; mean "
                   f"{' / '.join(f'{x:.3e}' for x in mean)}", flush=True)
+        if module is attention_resident:
+            for way, b in score_biases(calls, not missing).items():
+                pos = sum(x[0] for x in b) / len(b)
+                neg = sum(x[1] for x in b) / len(b)
+                print(f"score product, {way}, item 0's classic step at shift {f.norm_shift}, "
+                      f"{len(b)} calls: signed error against the f64 dot in f32 ulps of |s| where "
+                      "|s| >= sum |q_d k_d| / 4, "
+                      f"s > 0 / s < 0, per call {[f'{p:+.3f} / {q:+.3f}' for p, q in b]}; mean "
+                      f"{pos:+.4f} / {neg:+.4f}", flush=True)
         del calls
+    variants_before = attention_resident.resident_attention_dot.launches
     for shift in (f.norm_shift, 0.0):
         params = off_one_norms(base, 0, shift) if shift else base
         fparams, fconfig = T.fold_norm_scales(params, config)
         runs = {}
         for tree, (p, c) in (("classic", (params, config)), ("folded", (fparams, fconfig))):
-            ref = runs[tree, "f32"] = pooled(_map_tree(f32, p), c.replace(dtype="float32"), ())
-            plain = runs[tree, "plain"] = pooled(p, c, ())
+            ref = runs[tree, "f32"] = pooled(_map_tree(f32, p), c.replace(dtype="float32"),
+                                             batches, loras, ())
+            plain = runs[tree, "plain"] = pooled(p, c, batches, loras, ())
             for on in (train,) + tuple((k,) for k in train):
-                r = path_error_ratios(pooled(p, c, on), plain, ref)
-                print(f"shift {shift}, {tree} tree, on the card {'all' if on == train else on[0]}"
-                      ": kernel / plain distance from f32: " + ", ".join(
-                          f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+                show(f"shift {shift}, {tree} tree, on the card {'all' if on == train else on[0]}"
+                     ": kernel / plain distance from f32",
+                     path_error_ratios(pooled(p, c, batches, loras, on), plain, ref))
+            for name, fn in _FORWARD_VARIANTS.items():
+                show(f"shift {shift}, {tree} tree, on the card prefill_attention as the "
+                     f"{name} alone: kernel / plain distance from f32",
+                     path_error_ratios(pooled(p, c, batches, loras, (), fn), plain, ref))
+            for name, fn in _PAD_ROW_SWAPS.items():
+                show(f"shift {shift}, {tree} tree, attention {name}: its distance from f32 over "
+                     "the plain path's",
+                     path_error_ratios(pooled(p, c, batches, loras, (), fn), plain, ref))
             # witnesses without any kernel, everything else plain
-            for name, fn in _ATTENTION_WITNESSES.items():
-                r = path_error_ratios(pooled(p, c, (), fn), plain, ref)
-                print(f"shift {shift}, {tree} tree, no kernel, attention {name}: its distance "
-                      "from f32 over the plain path's: " + ", ".join(
-                          f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+            for name, fn in witnesses.items():
+                show(f"shift {shift}, {tree} tree, no kernel, attention {name}: its distance "
+                     "from f32 over the plain path's",
+                     path_error_ratios(pooled(p, c, batches, loras, (), fn), plain, ref))
         # the fold's own arithmetic, no kernel: both trees on the plain versions
-        r = path_error_ratios(runs["folded", "plain"], runs["classic", "plain"],
-                              runs["classic", "f32"])
-        print(f"shift {shift}, folded plain / classic plain distance from the classic tree in "
-              "f32: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()), flush=True)
+        show(f"shift {shift}, folded plain / classic plain distance from the classic tree in f32",
+             path_error_ratios(runs["folded", "plain"], runs["classic", "plain"],
+                               runs["classic", "f32"]))
         del runs, fparams
+    if cuda:
+        assert attention_resident.resident_attention_dot.launches > variants_before
+    del base, params, batches, loras
+    if long is None:
+        return
+    # the flash path (S >= attention.FLASH_MIN_SEQ), norms moved, classic tree
+    base, config, batches, loras = items_of(*long, long_items, long_pad_to_max)
+    s = batches[0]["input_ids"].shape[1]
+    assert s >= attention.FLASH_MIN_SEQ, (s, attention.FLASH_MIN_SEQ)
+    params = off_one_norms(base, 0, f.norm_shift)
+    flash = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+    ref = pooled(_map_tree(f32, params), config.replace(dtype="float32"), batches, loras, ())
+    plain = pooled(params, config, batches, loras, ())
+    before = launches()
+    kern = pooled(params, config, batches, loras, flash)
+    if cuda:
+        assert all(launches()[k] > before[k] for k in flash[:2]), (before, launches())
+    show(f"flash path, {long_items} items at B1 x {s}, shift {f.norm_shift}, classic tree, on the "
+         "card all: kernel / plain distance from f32", path_error_ratios(kern, plain, ref))
 
 
 def main() -> int:
@@ -5894,7 +6135,9 @@ def main() -> int:
     build_phase()
     if sys.argv[1:] == ["--blame"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-            blame_phase(root, *make_data(root))
+            long_root = os.path.join(root, "long")
+            blame_phase(root, *make_data(root),
+                        long=(long_root, *make_data(long_root, **LONG)))
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.perf_counter()

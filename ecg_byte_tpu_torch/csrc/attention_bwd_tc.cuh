@@ -75,14 +75,29 @@
 // work: no integer division and no f32 division per score element (the row
 // statistics arrive as m and 1 / l), and exp2 for exp.
 //
-// The dQ and dK/dV kernels sum each score over the same k16 steps in the
-// same order, and share every step after it (prob, ds_value), so dQ, dK and
-// dV see one recomputed P.  The forwards (attention_fwd_tc.cuh) run the same
-// score product; the resident one also takes its m and l from row_stats and
-// its p from prob, so the resident backward's recomputed P is, before the
-// bf16 rounding, the forward's P bit for bit.  The flash forward's p is
-// exp(s - m_new) against a running max, the backward's exp(s - lse): not the
-// same values, as on the TPU.
+// The dQ and dK/dV kernels take every score from scores<D> (the dK/dV
+// kernel's K Q^T is the transpose of Q K^T bit for bit: each element is the
+// same sum of the same products in the same order) and share every step
+// after it (prob, ds_value), so dQ, dK and dV see one recomputed P.  The
+// forwards (attention_fwd_tc.cuh) run the same score product; the resident
+// one also takes its m and l from row_stats and its p from prob, so the
+// resident backward's recomputed P is, before the bf16 rounding, the
+// forward's P bit for bit.  The flash forward's p is exp(s - m_new) against
+// a running max, the backward's exp(s - lse): not the same values, as on
+// the TPU.
+//
+// The score arithmetic: wgmma, one f32 accumulator chained over the D / 16
+// k16 steps (Dot::kChain).  It does not round to nearest: measured on an
+// H100 SXM (chip_smoke.py --blame, Llama-3.2-1B's q and k with its norm
+// weights moved off 1, dots that cancel by at most 4x), its scores lean
+// toward zero by 0.586 f32 ulp of |s| on either sign against the f64 dot,
+// as cuBLAS's bf16 product with f32 output does (the truncation Fasi,
+// Higham, Mikaitis and Pranesh found in earlier tensor cores); a zeroed
+// accumulator a k16 step leans 0.133 ulp, f32 FMAs 0.001.  The chain stays:
+// a LoRA step with the resident forward summing its scores either other way
+// ends as far from f32 as with the chain (within 0.5%), and f32 FMA scores
+// would cost the tensor cores' pace.  The other two ways stay for that
+// diagnostic (Dot).
 #pragma once
 
 #include "common.cuh"
@@ -208,16 +223,91 @@ __device__ __forceinline__ void load_k_tile(unsigned char* dst, const __nv_bfloa
   }
 }
 
-// acc (64 x 64) = A . B^T over D: both tiles K-major, rows of A the
-// accumulator's rows.  Issues the products; the caller commits and waits.
+// acc (64 x 64) = A . B^T over D on wgmma, one accumulator chain over the
+// k16 steps: both tiles K-major, rows of A the accumulator's rows.  Issues
+// the products; the caller commits and waits.  dP = dO V^T (and V dO^T).
 template <int D>
-__device__ __forceinline__ void scores(float* acc, const unsigned char* A,
-                                       const unsigned char* Bt) {
+__device__ __forceinline__ void tc_product(float* acc, const unsigned char* A,
+                                           const unsigned char* Bt) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * TileT<D>::kAtom;
     wgmma_ss_n64<0>(acc, smem_desc(A + off) + 2 * (kk % 4), smem_desc(Bt + off) + 2 * (kk % 4),
                     kk > 0);
+  }
+}
+
+// How the score product S = Q K^T sums over D (the header says why every
+// kernel takes kChain):
+//   kChain  wgmma, one f32 accumulator chained over the D / 16 k16 steps;
+//   kSplit  wgmma, each k16 step into a zeroed accumulator, the partials
+//           added in f32 round-to-nearest in k order;
+//   kFma    f32 FMAs on the CUDA cores, round-to-nearest, d = 0 .. D - 1.
+// The kernels of one call all take kDot; the others exist for
+// chip_smoke.py --blame (ecg_prefill_attention_dot, ecg_attention_scores).
+enum class Dot : int { kChain = 0, kSplit = 1, kFma = 2 };
+constexpr Dot kDot = Dot::kChain;
+
+// acc (64 x 64) = A . B^T over D, as kD sums it: both tiles K-major, rows of
+// A the accumulator's rows, each accumulator element in wgmma's layout
+// (to_fragments).  The caller fences before and commits and waits after, as
+// for a wgmma product; kChain returns with the products in flight, kSplit
+// and kFma with acc complete.  Element (r, t) is the same function of row r
+// of A and row t of B whichever tile is A, so K Q^T is (Q K^T)^T bit for bit.
+template <int D, Dot kD = kDot>
+__device__ __forceinline__ void scores(float* acc, const unsigned char* A,
+                                       const unsigned char* Bt) {
+  if constexpr (kD == Dot::kChain) {
+    tc_product<D>(acc, A, Bt);
+  } else if constexpr (kD == Dot::kSplit) {
+    float part[32];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * TileT<D>::kAtom;
+      wgmma_fence();
+      const uint64_t da = smem_desc(A + off) + 2 * (kk % 4);
+      const uint64_t db = smem_desc(Bt + off) + 2 * (kk % 4);
+      if (kk == 0) {
+        wgmma_ss_n64<0>(acc, da, db, 0);
+      } else {
+        wgmma_ss_n64<0>(part, da, db, 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (kk > 0) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[j] = __fadd_rn(acc[j], part[j]);
+      }
+    }
+  } else {
+    // this thread's rows r0, r0 + 8 of A and its 16 rows 8 i + 2 c + e of B;
+    // element j = 4 i + 2 h + e.  A warp's lanes read 8 rows of A and 4 of
+    // B per 16-byte chunk, each in its own bank group under the swizzle.
+    const int lane = threadIdx.x & 31;
+    const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), c = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int ch = 0; ch < D / 8; ++ch) {
+      const int off = (ch / 8) * TileT<D>::kAtom, jj = ch % 8;
+      float q0[8], q1[8];
+      unpack8(*reinterpret_cast<const uint4*>(A + off + swizzled(r0, jj)), q0);
+      unpack8(*reinterpret_cast<const uint4*>(A + off + swizzled(r0 + 8, jj)), q1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float kv[8];
+          unpack8(*reinterpret_cast<const uint4*>(Bt + off + swizzled(8 * i + 2 * c + e, jj)),
+                  kv);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            acc[4 * i + e] = __fmaf_rn(q0[x], kv[x], acc[4 * i + e]);
+            acc[4 * i + 2 + e] = __fmaf_rn(q1[x], kv[x], acc[4 * i + 2 + e]);
+          }
+        }
+      }
+    }
   }
 }
 
@@ -283,11 +373,13 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float* acc,
 // key_ok after two tiles): load_keys(st, t0) issues the copies of the tile
 // at key t0 into stage st, score(dot, key_ok, j, t0) masks and scales
 // accumulator element j.  Ends with a barrier: the ring is free again.
-template <int D, typename LoadKeys, typename Score>
+template <int D, Dot kD = kDot, bool kIeee = false, typename LoadKeys, typename Score>
 __device__ __forceinline__ void row_stats(const unsigned char* Qs, unsigned char* ring, int stage,
                                           int n_kt, LoadKeys load_keys, Score score,
                                           float (&m)[2], float (&l)[2]) {
   constexpr int kT = TileT<D>::kBytes;
+  // kIeee: expf for a diagnostic (chip_smoke.py --blame), else exp_f
+  auto ex = [](float x) { return kIeee ? expf(x) : exp_f(x); };
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     m[h] = kNegInf;
@@ -305,7 +397,7 @@ __device__ __forceinline__ void row_stats(const unsigned char* Qs, unsigned char
     const int* key_ok = reinterpret_cast<const int*>(ks + 2 * kT);
     float s[32];
     wgmma_fence();
-    scores<D>(s, Qs, ks);
+    scores<D, kD>(s, Qs, ks);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -321,12 +413,12 @@ __device__ __forceinline__ void row_stats(const unsigned char* Qs, unsigned char
       float rs = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h], m_new)));
-        rs = __fadd_rn(rs, exp_f(__fsub_rn(s[4 * i + 2 * h + 1], m_new)));
+        rs = __fadd_rn(rs, ex(__fsub_rn(s[4 * i + 2 * h], m_new)));
+        rs = __fadd_rn(rs, ex(__fsub_rn(s[4 * i + 2 * h + 1], m_new)));
       }
       rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 1));
       rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 2));
-      l[h] = __fmaf_rn(l[h], exp_f(__fsub_rn(m[h], m_new)), rs);
+      l[h] = __fmaf_rn(l[h], ex(__fsub_rn(m[h], m_new)), rs);
       m[h] = m_new;
     }
   }
@@ -454,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
     float s[32], dp[32];
     wgmma_fence();
     scores<D>(s, Qs, ks);
-    scores<D>(dp, dOs, ks + kT);
+    tc_product<D>(dp, dOs, ks + kT);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -578,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const Args a) {
     float s[32], dp[kWantDK ? 32 : 1];
     wgmma_fence();
     scores<D>(s, Ks, qs);                           // S^T = K Q^T
-    if constexpr (kWantDK) scores<D>(dp, Vs, qs + kT);  // dP^T = V dO^T
+    if constexpr (kWantDK) tc_product<D>(dp, Vs, qs + kT);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
 

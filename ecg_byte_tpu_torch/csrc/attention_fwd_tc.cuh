@@ -51,7 +51,21 @@
 // The tile loaders, the score product, to_fragments, the N-major P.V, the
 // row store, the resident first pass and prob are the backward core's
 // (attention_bwd_tc.cuh), so the resident forward's P, before its bf16
-// rounding, is bit for bit the P its backward recomputes.
+// rounding, is bit for bit the P its backward recomputes.  The score
+// product stays on wgmma with one chained accumulator; that header gives
+// its measured lean toward zero and why it stays.
+//
+// A row whose every key is masked (a left-pad row) is the mean of V over
+// the keys it visits, up to its tile's causal edge.  The plain version
+// spreads such a row over every key that is not both padded and after it,
+// the TPU kernel over all S keys: three values where nothing reads one (a
+// valid query masks every pad key).  On the card, a diagnostic forward
+// with f32 FMA scores, f32 FMA P.V and p = expf(s - m) / l left a LoRA
+// step as far from f32 as this kernel at positions that counted the last
+// pad row's logits, and plain with this kernel's pad rows as far again:
+// checks hold only predictions made at valid positions
+// (chip_smoke.valid_predictions).  fwd_dot_kernel builds that diagnostic
+// forward (kIeee) and the others of chip_smoke.py --blame.
 #pragma once
 
 #include "attention_bwd_tc.cuh"
@@ -87,8 +101,13 @@ struct Smem {
   static constexpr int kBytes = kT + kStages * kStage + 1024;  // Q; the ring; alignment slack
 };
 
-template <int D, bool kFlash>
-__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
+// The body of one forward block, its scores summed as kD says.  kIeee, a
+// diagnostic (chip_smoke.py --blame) with kD = kFma: every step rounds to
+// nearest, p = expf(s - m) / l (else exp_f and 1 / l) and P.V as f32 FMAs
+// on the CUDA cores from P staged in pbuf, a 64 x 64 f32 tile in shared
+// memory (else wgmma, one accumulator over every key tile).
+template <int D, bool kFlash, bwd::Dot kD, bool kIeee = false>
+__device__ __forceinline__ void fwd_block(const Args& a, float* pbuf = nullptr) {
   using P = bwd::Policy<kFlash>;
   using L = Smem<D, kFlash>;
   constexpr int kT = L::kT, kSub = L::kSub, kStages = L::kStages;
@@ -139,10 +158,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
   // flash: the running max and sum; resident: each row's m and 1 / l
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   if constexpr (!kFlash) {
-    bwd::row_stats<D>(Qs, ring, L::kStage, n_st,
-                      [&](int st, int t0) { load_keys(st, t0, false); }, score, m, l);
+    bwd::row_stats<D, kD, kIeee>(Qs, ring, L::kStage, n_st,
+                                 [&](int st, int t0) { load_keys(st, t0, false); }, score, m, l);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = __frcp_rn(l[h]);
+    for (int h = 0; h < 2; ++h) l[h] = kIeee ? l[h] : __frcp_rn(l[h]);
   }
 
   float acc[D / 2];
@@ -164,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
     float s[kSub][32];
     wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < kSub; ++u) bwd::scores<D>(s[u], Qs, ks + u * kT);  // S = Q K^T
+    for (int u = 0; u < kSub; ++u) bwd::scores<D, kD>(s[u], Qs, ks + u * kT);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -218,23 +237,53 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int h = (j >> 1) & 1;
-          s[u][j] = P::prob(s[u][j], m[h], l[h]);
+          s[u][j] = kIeee ? __fdiv_rn(expf(__fsub_rn(s[u][j], m[h])), l[h])
+                          : P::prob(s[u][j], m[h], l[h]);
         }
       }
     }
 
-    uint32_t pa[kSub][4][4];
+    if constexpr (kIeee) {
+      // bf16(p) through shared memory; out element (r, col) += sum over the
+      // tile's keys t in order of p[r][t] v[t][col], one rounding an FMA
 #pragma unroll
-    for (int u = 0; u < kSub; ++u) bwd::to_fragments(s[u], pa[u]);  // bf16(p)
-    wgmma_fence();
+      for (int j = 0; j < 32; ++j) {
+        const int r = 16 * w + g + 8 * ((j >> 1) & 1), t = 8 * (j >> 2) + 2 * c + (j & 1);
+        pbuf[r * kTile + t] = round_bf16(s[0][j]);
+      }
+      __syncthreads();
+      const unsigned char* vs = ks + kSub * kT;
+      for (int t = 0; t < kTile; ++t) {
 #pragma unroll
-    for (int u = 0; u < kSub; ++u) bwd::rows_product<D>(acc, pa[u], ks + (kSub + u) * kT);  // += P V
-    wgmma_commit();
-    wgmma_wait<0>();
+        for (int i = 0; i < D / 8; ++i) {
+          const __nv_bfloat16* vrow = reinterpret_cast<const __nv_bfloat16*>(
+              vs + (i / 8) * bwd::TileT<D>::kAtom + swizzled(t, i % 8));
 #pragma unroll
-    for (int u = 0; u < kSub; ++u) {
+          for (int h = 0; h < 2; ++h) {
+            const float p = pbuf[(16 * w + g + 8 * h) * kTile + t];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) keep_alive(pa[u][kk]);
+            for (int e = 0; e < 2; ++e) {
+              acc[4 * i + 2 * h + e] =
+                  __fmaf_rn(p, __bfloat162float(vrow[2 * c + e]), acc[4 * i + 2 * h + e]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with pbuf
+    } else {
+      uint32_t pa[kSub][4][4];
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) bwd::to_fragments(s[u], pa[u]);  // bf16(p)
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) bwd::rows_product<D>(acc, pa[u], ks + (kSub + u) * kT);  // += P V
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) keep_alive(pa[u][kk]);
+      }
     }
     if (kStages == 1 && it + 1 < n_st) {
       __syncthreads();  // every thread is done with the one stage
@@ -267,11 +316,31 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
   });
 }
 
+// The forward of every caller: the scores as bwd::kDot sums them.
+template <int D, bool kFlash>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
+  fwd_block<D, kFlash, bwd::kDot>(a);
+}
+
+// The resident forward with its arithmetic changed as the template says: a
+// diagnostic that chip_smoke.py --blame alone launches
+// (ecg_prefill_attention_dot).  kIeee's P tile follows the ring.
+template <int D, bwd::Dot kD, bool kIeee>
+__global__ void __launch_bounds__(kThreads, 1) fwd_dot_kernel(const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_block<D, false, kD, kIeee>(
+      a, reinterpret_cast<float*>(bwd::align1024(smem_raw) + Smem<D, false>::kBytes - 1024));
+}
+
+// one block per (64 query rows, KV head, batch row)
+inline unsigned blocks(const Args& a) {
+  const int bq = kTile / a.G;
+  return unsigned(a.B) * a.KH * ((a.S + bq - 1) / bq);
+}
+
 template <int D, bool kFlash>
 cudaError_t launch_d(const Args& a, cudaStream_t st) {
-  const int bq = kTile / a.G;
-  const unsigned blocks = unsigned(a.B) * a.KH * ((a.S + bq - 1) / bq);
-  return bwd::launch_kernel(fwd_kernel<D, kFlash>, Smem<D, kFlash>::kBytes, blocks, st, a);
+  return bwd::launch_kernel(fwd_kernel<D, kFlash>, Smem<D, kFlash>::kBytes, blocks(a), st, a);
 }
 
 // One forward call on ``st``; D one of 64, 128, 256.

@@ -41,6 +41,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # qg, k, v, pad_mask, out, B, S, KH, G, D, stream
     "ecg_prefill_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qg, k, v, pad_mask, out, B, S, KH, G, D, dot, stream
+    "ecg_prefill_attention_dot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, out, T, D, dot, stream
+    "ecg_attention_scores": [_P, _P, _P, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, dout, dq, dk, dv, stats, B, S, KH, G, D, stream
     "ecg_prefill_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # qg, k, v, pad_mask, out, lse, B, S, KH, G, D, stream

@@ -34,13 +34,20 @@ def grouped_probs(qg, k, pad_mask: Optional[torch.Tensor]):
     masks, rounded to qg's dtype."""
     ct = torch.promote_types(qg.dtype, torch.float32)
     d = qg.shape[-1]
-    s = qg.shape[1]
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(ct), k.to(ct)) * d**-0.5
-    bias = torch.where(_causal(s, qg.device), 0.0, NEG_INF)
+    return masked_probs(logits, pad_mask, qg.dtype)
+
+
+def masked_probs(logits, pad_mask: Optional[torch.Tensor], dtype):
+    """The softmax of (B, KH, G, S, S) scaled logits under the causal and
+    pad masks, in the logits' dtype, rounded to ``dtype``: the second half
+    of :func:`grouped_probs`."""
+    s = logits.shape[-1]
+    bias = torch.where(_causal(s, logits.device), 0.0, NEG_INF)
     if pad_mask is not None:
         key_ok = pad_mask[:, None, None, None, :].bool()
         bias = bias + torch.where(key_ok, 0.0, NEG_INF)
-    return torch.softmax(logits + bias.to(ct), dim=-1).to(qg.dtype)
+    return torch.softmax(logits + bias.to(logits.dtype), dim=-1).to(dtype)
 
 
 def grouped_attention(qg, k, v, pad_mask: Optional[torch.Tensor]):

@@ -121,6 +121,68 @@ def resident_attention(qg, k, v, pad_mask):
 
 resident_attention.launches = 0
 
+# The ways ``csrc/attention_bwd_tc.cuh`` can sum the score product S = Q K^T
+# (its ``Dot``): one wgmma accumulator chained over the k16 steps, a zeroed
+# accumulator a k16 step with the partials added in f32, f32 FMAs on the
+# CUDA cores.  Every model path takes the one that file names ``kDot``; the
+# two diagnostics below take any, for ``chip_smoke.py --blame``.
+SCORE_DOTS = {"chain": 0, "split": 1, "fma": 2}
+# The diagnostic forwards of ``ecg_prefill_attention_dot``: the scores each
+# way, then f32 FMA scores with every other step rounded to nearest too
+# (P.V on f32 FMAs, p = expf(s - m) / l).
+FORWARD_VARIANTS = {"chain scores": 0, "split scores": 1, "fma scores": 2,
+                    "fma scores, fma P.V, expf": 3}
+
+
+def resident_attention_dot(qg, k, v, pad_mask, variant):
+    """:func:`resident_attention` with its arithmetic changed as
+    ``variant`` (a key of :data:`FORWARD_VARIANTS`) says, D = 64 only.  A
+    diagnostic: no model path calls it.  A CPU tensor takes
+    ``grouped_attention``."""
+    if qg.device.type == "cpu":
+        return grouped_attention(qg, k, v, pad_mask)
+    _check(qg, k, v, pad_mask)
+    b, s, kh, g, d = qg.shape
+    if d != 64:
+        raise ValueError(f"the score variants are built for D 64 only, got {d}")
+    out = torch.empty_like(qg)
+    err = _cuda.library().ecg_prefill_attention_dot(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
+        out.data_ptr(), b, s, kh, g, d, FORWARD_VARIANTS[variant], _cuda.stream(qg),
+    )
+    _cuda.check(err, f"prefill attention, {variant}")
+    resident_attention_dot.launches += 1
+    return out
+
+
+resident_attention_dot.launches = 0
+
+
+def attention_scores(q, k, dot):
+    """The attention cores' score product alone: ``q . k^T`` in f32 of T
+    tile pairs, q and k (T, 64, 64) bf16, summed as ``dot`` (a key of
+    :data:`SCORE_DOTS`) says.  A diagnostic: no model path calls it.  A
+    CPU tensor takes the plain f32 product."""
+    if q.device.type == "cpu":
+        return torch.einsum("trd,tsd->trs", q.float(), k.float())
+    if q.dim() != 3 or q.shape[1:] != (ROWS, 64) or k.shape != q.shape:
+        raise ValueError(f"q and k must be (T, {ROWS}, 64), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    for name, t in (("q", q), ("k", k)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous bf16 on q's device")
+    out = torch.empty(q.shape[0], ROWS, ROWS, dtype=torch.float32, device=q.device)
+    err = _cuda.library().ecg_attention_scores(
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), q.shape[0], 64, SCORE_DOTS[dot],
+        _cuda.stream(q),
+    )
+    _cuda.check(err, f"attention scores, {dot}")
+    attention_scores.launches += 1
+    return out
+
+
+attention_scores.launches = 0
+
 
 def resident_attention_bwd_plain(qg, k, v, pad_mask, out, grad):
     """The TPU backward kernel's math in plain PyTorch: returns (dq, dk, dv).

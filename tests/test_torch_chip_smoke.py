@@ -1376,33 +1376,96 @@ def test_fold_phase_rehearsal(tmp_path, monkeypatch):
     assert numbers["wall_s"] > 0 and numbers["decode_int8_folded_ms_per_token"] > 0
 
 
-def test_blame_phase_rehearsal(tmp_path, capsys):
+def test_blame_phase_rehearsal(tmp_path, capsys, monkeypatch):
     """``chip_smoke.py --blame`` on the CPU at tiny sizes: both trees at
     both norm settings, with all the train path's kernels and with each
+    alone, the resident forward with each way of summing its scores
     alone, attention without a kernel (its q.k sums reordered, the
-    kernel's softmax arithmetic), the folded
-    plain path against the classic one, and every call of the two forward
-    kernels in item 0's step against f64 (on the CPU every wrapper is its
-    plain version, so each ratio is 0 and each call's two errors are
-    equal)."""
+    kernel's softmax arithmetic, P.V on the tensor cores; q.k on the
+    tensor cores, alone and with the kernel's softmax and P.V there, says
+    it needs the card), the folded plain path against
+    the classic one, every call of the two forward kernels in item 0's
+    step against f64, the score product's signed bias each way, and the
+    flash path's reading (its threshold lowered between the two sizes).
+    On the CPU every wrapper is its plain version, so each ratio is 0 and
+    each call's two errors are equal."""
     root = str(tmp_path)
     vocab, merges = chip_smoke.make_data(root, n_train=2, n_val=1, n_test=1, seg_len=60,
                                          num_merges=30)
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 512)
     fold = chip_smoke.Fold(model="tiny-llama", batch=2, pad_to_max=300)
-    chip_smoke.blame_phase(root, vocab, merges, fold, items=2, dev="cpu")
+    chip_smoke.blame_phase(root, vocab, merges, fold, items=2, dev="cpu",
+                           long=(root, vocab, merges), long_pad_to_max=508)
     lines = capsys.readouterr().out.splitlines()
+    variants = chip_smoke._FORWARD_VARIANTS
+    assert list(chip_smoke.SCORE_DOTS) == list(attention_resident.SCORE_DOTS)
+    assert list(chip_smoke.FORWARD_VARIANTS) == list(attention_resident.FORWARD_VARIANTS)
     rows = [ln for ln in lines if ln.startswith("shift ") and "on the card" in ln]
-    assert len(rows) == 2 * 2 * 5 and all("ce_valid 0.000" in ln for ln in rows)
+    assert len(rows) == 2 * 2 * (5 + len(variants)) and all("ce_valid 0.000" in ln for ln in rows)
+    assert sum(" alone: " in ln for ln in rows) == 2 * 2 * len(variants)
     # in f32 the classic plain path is the f32 tree itself
     fold = [ln for ln in lines if ln.startswith("shift ") and "folded plain / " in ln]
     assert len(fold) == 2 and all("ce_valid inf" in ln for ln in fold)
+    # no bf16 product with f32 output on the CPU: each witness that needs it
+    # says so once
+    needs = [ln for ln in lines if ln.startswith("witness ") and ": needs torch.bmm" in ln]
+    assert [ln.split(":")[0] for ln in needs] == [f"witness {k}"
+                                                  for k in chip_smoke._CARD_WITNESSES]
+    witnesses = [k for k in chip_smoke._ATTENTION_WITNESSES if k not in chip_smoke._CARD_WITNESSES]
+    swaps = [ln for ln in lines if any(f"tree, attention {k}: " in ln
+                                       for k in chip_smoke._PAD_ROW_SWAPS)]
+    assert len(swaps) == 2 * 2 * len(chip_smoke._PAD_ROW_SWAPS)
     witness = [ln for ln in lines if ", no kernel, attention " in ln]
-    assert len(witness) == 2 * 2 * len(chip_smoke._ATTENTION_WITNESSES)
+    assert len(witness) == 2 * 2 * len(witnesses)
     calls = {ln.split(", item 0's")[0]: ln for ln in lines if "item 0's classic step" in ln}
-    assert set(calls) == {"prefill_attention", "rmsnorm", *chip_smoke._ATTENTION_WITNESSES}
-    assert all("2 calls" in calls[n] for n in ("prefill_attention",
-                                               *chip_smoke._ATTENTION_WITNESSES))
+    scores = {k: ln for k, ln in calls.items() if k.startswith("score product, ")}
+    assert set(scores) == {f"score product, kernel {d}" for d in chip_smoke.SCORE_DOTS}
+    assert all("2 calls" in ln for ln in scores.values())
+    assert set(calls) - set(scores) == {"prefill_attention", "rmsnorm", *variants, *witnesses}
+    assert all("2 calls" in calls[n] for n in ("prefill_attention", *variants, *witnesses))
     assert "6 calls" in calls["rmsnorm"]
+    flash = [ln for ln in lines if ln.startswith("flash path, 2 items at B1 x 512")]
+    assert len(flash) == 1 and "ce_valid 0.000" in flash[0]
+
+
+@pytest.mark.parametrize("rounding", ["toward-zero", "to-nearest"])
+def test_signed_ulp_bias_reads_the_rounding_direction(rounding):
+    """Logits rounded toward zero from their f64 values read a negative
+    bias for s > 0 and a positive one for s < 0, about half an f32 ulp of
+    |s|; rounded to nearest they read within 0.1 ulp of 0 on either
+    side."""
+    exact = torch.from_numpy(np.random.default_rng(0).normal(0, 8, 20000))
+    got = exact.float()
+    if rounding == "toward-zero":
+        past = got.double().abs() > exact.abs()
+        got = torch.where(past, torch.nextafter(got, torch.zeros_like(got)), got)
+        assert (got.double().abs() <= exact.abs()).all()
+    pos, neg = chip_smoke.signed_ulp_bias(got, exact)
+    if rounding == "toward-zero":
+        assert -0.6 < pos < -0.4 and 0.4 < neg < 0.6
+    else:
+        assert abs(pos) < 0.1 and abs(neg) < 0.1
+
+
+def test_score_tiles_pair_valid_query_and_key_rows():
+    """The score product's tiles of one call hold only valid positions: per
+    KV head the queries' rows (the G heads of a position together) and the
+    keys', cut to whole tiles, and each tile pair's product is a block of
+    the plain logits."""
+    gen = torch.Generator().manual_seed(0)
+    qg = torch.randn(1, 160, 2, 4, 16, generator=gen).to(torch.bfloat16)
+    k = torch.randn(1, 160, 2, 16, generator=gen).to(torch.bfloat16)
+    mask = torch.ones(1, 160, dtype=torch.int32)
+    mask[:, :20] = 0
+    q, kk = chip_smoke.score_tiles(qg, k, mask)
+    assert q.shape == kk.shape == (2 * 2, 64, 16)  # 140 valid keys: 2 tiles a head
+    assert torch.equal(q[2], qg[0, 20:36, 1].reshape(64, 16))
+    assert torch.equal(kk[3], k[0, 84:148, 1])
+    biases = chip_smoke.score_biases([(qg, k, None, mask)], tensor_cores=False)
+    assert set(biases) == {f"kernel {d}" for d in chip_smoke.SCORE_DOTS}
+    # the plain f32 product rounds to nearest: no lean either way
+    assert all(len(b) == 1 and abs(b[0][0]) < 0.1 and abs(b[0][1]) < 0.1
+               for b in biases.values()), biases
 
 
 def test_off_one_norms_moves_every_norm_weight():
@@ -1501,6 +1564,60 @@ def test_hold_train_paths_holds_the_positions_asked():
     far = (kern[0], kern[1] * 1.01, *kern[2:])
     with pytest.raises(AssertionError, match="labelled positions"):
         chip_smoke.hold_train_paths([far], [plain], [ref], held=("labelled",))
+
+
+def test_hold_train_paths_refuses_valid_positions_at_1_6x_by_default():
+    """A step whose cross entropy at the valid positions sits 1.6x the
+    plain path's distance from f32 (as the resident forward's tensor-core
+    scores put it with the norm weights moved off 1) is refused by the
+    default ``held``, while its loss, its labelled positions and every
+    gradient group pass."""
+    gen = torch.Generator().manual_seed(1)
+    ref = (2.0, torch.rand(50, generator=gen) + 1, torch.rand(4000, generator=gen) + 1,
+           {g: torch.randn(256, generator=gen) for g in ("LoRA q_proj.a", "LoRA q_proj.b")})
+    noise = {j: torch.randn(ref[j].shape, generator=gen) for j in (1, 2)}
+    grads = {g: torch.randn(t.shape, generator=gen) for g, t in ref[3].items()}
+
+    def path(valid_scale):
+        return (ref[0] + 1e-5, ref[1] + 1e-3 * noise[1], ref[2] + valid_scale * noise[2],
+                {g: t + 1e-3 * grads[g] for g, t in ref[3].items()})
+
+    plain, kern = path(1e-3), path(1.6e-3)
+    chip_smoke.hold_train_paths([kern], [plain], [ref], held=("labelled",))
+    with pytest.raises(AssertionError, match="cross entropy at the valid positions"):
+        chip_smoke.hold_train_paths([kern], [plain], [ref])
+    chip_smoke.hold_train_paths([path(1.1e-3)], [plain], [ref])
+
+
+def test_valid_predictions_leave_out_the_last_left_pad_row():
+    """The predictions held at the valid positions are those made at a
+    valid position of a valid token: the last left-pad row, which
+    predicts the first valid token but attends no key, is left out (as
+    phase 16 always left it out), and a row without padding keeps all
+    S - 1."""
+    mask = torch.tensor([[0, 0, 0, 1, 1, 1, 1], [1, 1, 1, 1, 1, 1, 1]], dtype=torch.int32)
+    valid = chip_smoke.valid_predictions(mask)
+    assert valid.tolist() == [[False, False, False, True, True, True],
+                              [True, True, True, True, True, True]]
+    last_pad = mask[:, 1:].bool() & ~valid
+    assert last_pad.nonzero().tolist() == [[0, 2]]
+
+
+def test_error_ratios_read_the_last_pad_rows_apart():
+    """A step that differs from plain only at the last left-pad rows reads
+    1 at the valid positions and far above it at those rows, alone and
+    pooled with the valid positions."""
+    gen = torch.Generator().manual_seed(2)
+    ref = (2.0, torch.rand(20, generator=gen) + 1, torch.rand(400, generator=gen) + 1,
+           {"LoRA q_proj.a": torch.randn(64, generator=gen)}, torch.rand(4, generator=gen) + 1)
+    plain = tuple(x + 1e-3 if torch.is_tensor(x) else x for x in ref[:3]) + (
+        {k: g + 1e-3 for k, g in ref[3].items()}, ref[4] + 1e-3)
+    kern = plain[:4] + (ref[4] + 0.5,)
+    r = chip_smoke.path_error_ratios(kern, plain, ref)
+    assert r["ce_valid"] == 1.0 and r["ce_labelled"] == 1.0
+    assert r["ce_last_pad"] > 100 and r["ce_valid_and_last_pad"] > 10
+    assert set(chip_smoke.path_error_ratios(kern[:4], plain[:4], ref[:4])) == {
+        "ce_labelled", "ce_valid", "grad_max", "grad_min"}
 
 
 def test_folded_logits_hold_refuses_a_folded_path_or_a_fold_past_its_bound():
