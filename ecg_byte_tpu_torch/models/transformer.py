@@ -74,6 +74,7 @@ from ecg_byte_tpu_torch.models.config import TransformerConfig
 from ecg_byte_tpu_torch.ops import attention, attention_decode, int8_linear, kv_quant, rmsnorm
 from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
 from ecg_byte_tpu_torch.parallel.distributed import Rows, copy_to_tp, reduce_from_tp
+from ecg_byte_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -786,14 +787,16 @@ class _DenseCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        h2, head, centered, safe, valid, held = ctx.saved_tensors
-        probs = torch.exp(centered.float())
-        probs[torch.arange(probs.shape[0], device=probs.device), safe] -= held.float()  # - onehot
-        coeff = torch.where(valid, gbar / ctx.count, 0.0)
-        dlogits = (probs * coeff[:, None]).to(h2.dtype)
-        del probs
-        dh2 = dlogits @ head
-        dhead = dlogits.T @ h2 if ctx.needs_input_grad[1] else None
+        with span("ecg.model.head.bwd"):
+            h2, head, centered, safe, valid, held = ctx.saved_tensors
+            probs = torch.exp(centered.float())
+            # minus the one-hot of each held label
+            probs[torch.arange(probs.shape[0], device=probs.device), safe] -= held.float()
+            coeff = torch.where(valid, gbar / ctx.count, 0.0)
+            dlogits = (probs * coeff[:, None]).to(h2.dtype)
+            del probs
+            dh2 = dlogits @ head
+            dhead = dlogits.T @ h2 if ctx.needs_input_grad[1] else None
         return dh2, dhead, None, None, None
 
 
@@ -811,11 +814,12 @@ def lm_loss_from_hidden(params: Params, config: TransformerConfig, hidden: torch
     loss is then this batch's sum over it.  Under ``--tp`` vocab-parallel
     (:class:`_DenseCE`)."""
     c = config
-    hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
-    head, lo = _head(params, c)
-    d = hn.shape[-1]
-    h2 = copy_to_tp(hn[:, :-1].reshape(-1, d))
-    return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1), count, _tp_arg(lo))
+    with span("ecg.model.head"):
+        hn = _norm(hidden, params["final_norm"], params.get("final_norm_bias"), c)
+        head, lo = _head(params, c)
+        d = hn.shape[-1]
+        h2 = copy_to_tp(hn[:, :-1].reshape(-1, d))
+        return _DenseCE.apply(h2, head, labels[:, 1:].reshape(-1), count, _tp_arg(lo))
 
 
 def _ce_tile(h2, head_tile, safe, lo, m_run, l_run, lab_run):

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ecg_byte_tpu_torch.utils.profiling import span
+
 NEG_INF = -1e30
 
 
@@ -114,13 +116,14 @@ def causal_attention(q, k, v, pad_mask: torch.Tensor, *, return_probs: bool = Fa
         ct = torch.promote_types(q.dtype, torch.float32)
         out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(ct), v.to(ct)).to(q.dtype)
         return out.reshape(b, s, h, d), probs.reshape(b, h, s, s)
-    k, v = k.contiguous(), v.contiguous()
-    if s >= FLASH_MIN_SEQ and d % 8 == 0 and d <= 256:
-        out = flash_attention.FlashAttention.apply(qg, k, v, pad_mask)
-    elif qg.device.type != "cpu" and s % RESIDENT_SEQ_TILE:
-        out = resident_padded(qg, k, v, pad_mask)
-    else:
-        out = attention_resident.ResidentAttention.apply(qg, k, v, pad_mask)
+    with span("ecg.attn.fwd"):
+        k, v = k.contiguous(), v.contiguous()
+        if s >= FLASH_MIN_SEQ and d % 8 == 0 and d <= 256:
+            out = flash_attention.FlashAttention.apply(qg, k, v, pad_mask)
+        elif qg.device.type != "cpu" and s % RESIDENT_SEQ_TILE:
+            out = resident_padded(qg, k, v, pad_mask)
+        else:
+            out = attention_resident.ResidentAttention.apply(qg, k, v, pad_mask)
     return out.reshape(b, s, h, d)
 
 

@@ -52,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from ecg_byte_tpu_torch.ops import _cuda, kv_quant
+from ecg_byte_tpu_torch.utils.profiling import span
 
 MAX_HEAD_DIM = 256
 KEYS = 64  # cache positions per tile
@@ -170,42 +171,44 @@ def decode_attention_fused(q, k_cache, v_cache, valid_mask, k_scale=None, v_scal
     """
     if (fresh_k is None) != (fresh_v is None) or (fresh_k is None) != (write_idx is None):
         raise ValueError("fresh_k, fresh_v and write_idx go together")
-    if q.device.type == "cpu":
-        return decode_attention_fused_plain(q, k_cache, v_cache, valid_mask, k_scale, v_scale,
-                                            fresh_k=fresh_k, fresh_v=fresh_v, write_idx=write_idx)
-    fresh = None if fresh_k is None else (fresh_k, fresh_v, int(write_idx))
-    _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale, fresh)
-    b, _, h, d = q.shape
-    s, kh = k_cache.shape[1], k_cache.shape[2]
-    if splits is None:
-        splits = num_splits(b, kh, s, _cuda.sm_count(q.device.index))
-    elif not 1 <= splits <= -(-s // KEYS):
-        raise ValueError(f"splits must be 1 to {-(-s // KEYS)} (one a tile), got {splits}")
-    out = torch.empty_like(q)
-    work = torch.empty(scratch_floats(b, s, kh, h // kh, d, splits), dtype=torch.float32,
-                       device=q.device)
-    lib = _cuda.library()
-    int8 = k_cache.dtype == torch.int8
-    stream = _cuda.stream(q)
-    fk, fv, idx = (None, None, -1) if fresh is None else (fresh[0].data_ptr(),
-                                                         fresh[1].data_ptr(), fresh[2])
-    if int8:
-        err = lib.ecg_decode_attention_int8(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), valid_mask.data_ptr(), fk, fv, out.data_ptr(), work.data_ptr(),
-            b, s, kh, h // kh, d, splits, idx, stream,
-        )
-    else:
-        err = lib.ecg_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_mask.data_ptr(), fk, fv,
-            out.data_ptr(), work.data_ptr(), b, s, kh, h // kh, d, splits, idx, stream,
-        )
-    _cuda.check(err, "decode attention")
-    if int8:
-        decode_attention_fused.int8_launches += 1
-    else:
-        decode_attention_fused.launches += 1
-    return out
+    with span("ecg.attn.decode"):
+        if q.device.type == "cpu":
+            return decode_attention_fused_plain(q, k_cache, v_cache, valid_mask, k_scale,
+                                                v_scale, fresh_k=fresh_k, fresh_v=fresh_v,
+                                                write_idx=write_idx)
+        fresh = None if fresh_k is None else (fresh_k, fresh_v, int(write_idx))
+        _check(q, k_cache, v_cache, valid_mask, k_scale, v_scale, fresh)
+        b, _, h, d = q.shape
+        s, kh = k_cache.shape[1], k_cache.shape[2]
+        if splits is None:
+            splits = num_splits(b, kh, s, _cuda.sm_count(q.device.index))
+        elif not 1 <= splits <= -(-s // KEYS):
+            raise ValueError(f"splits must be 1 to {-(-s // KEYS)} (one a tile), got {splits}")
+        out = torch.empty_like(q)
+        work = torch.empty(scratch_floats(b, s, kh, h // kh, d, splits), dtype=torch.float32,
+                           device=q.device)
+        lib = _cuda.library()
+        int8 = k_cache.dtype == torch.int8
+        stream = _cuda.stream(q)
+        fk, fv, idx = (None, None, -1) if fresh is None else (fresh[0].data_ptr(),
+                                                             fresh[1].data_ptr(), fresh[2])
+        if int8:
+            err = lib.ecg_decode_attention_int8(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), valid_mask.data_ptr(), fk, fv, out.data_ptr(), work.data_ptr(),
+                b, s, kh, h // kh, d, splits, idx, stream,
+            )
+        else:
+            err = lib.ecg_decode_attention(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_mask.data_ptr(), fk, fv,
+                out.data_ptr(), work.data_ptr(), b, s, kh, h // kh, d, splits, idx, stream,
+            )
+        _cuda.check(err, "decode attention")
+        if int8:
+            decode_attention_fused.int8_launches += 1
+        else:
+            decode_attention_fused.launches += 1
+        return out
 
 
 decode_attention_fused.launches = 0

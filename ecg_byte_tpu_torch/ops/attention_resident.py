@@ -58,6 +58,7 @@ import torch
 
 from ecg_byte_tpu_torch.ops import _cuda
 from ecg_byte_tpu_torch.ops.attention import NEG_INF, _causal, grouped_attention
+from ecg_byte_tpu_torch.utils.profiling import span
 
 ROWS = 64  # query rows per block: G heads x (ROWS / G) positions
 HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
@@ -256,6 +257,7 @@ class ResidentAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        qg, k, v, pad_mask, out = ctx.saved_tensors
-        dq, dk, dv = resident_attention_bwd(qg, k, v, pad_mask, out, grad.contiguous())
+        with span("ecg.attn.bwd"):
+            qg, k, v, pad_mask, out = ctx.saved_tensors
+            dq, dk, dv = resident_attention_bwd(qg, k, v, pad_mask, out, grad.contiguous())
         return dq, dk, dv, None

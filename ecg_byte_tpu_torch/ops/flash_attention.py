@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ecg_byte_tpu_torch.ops import _cuda
 from ecg_byte_tpu_torch.ops.attention import NEG_INF
 from ecg_byte_tpu_torch.ops.attention_resident import check_inputs
+from ecg_byte_tpu_torch.utils.profiling import span
 
 BLOCK_K = 128  # keys per max step, and query rows per block: the JAX kernel's at S >= 4096
 
@@ -238,6 +239,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        qg, k, v, pad_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(qg, k, v, pad_mask, out, lse, grad.contiguous())
+        with span("ecg.attn.bwd"):
+            qg, k, v, pad_mask, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd(qg, k, v, pad_mask, out, lse, grad.contiguous())
         return dq, dk, dv, None

@@ -38,6 +38,7 @@ from ecg_byte_tpu_torch.parallel import distributed, mesh, sharding
 from ecg_byte_tpu_torch.parallel.distributed import Rows
 from ecg_byte_tpu_torch.train.checkpoint import host_copy
 from ecg_byte_tpu_torch.train.scheduler import OptimizerSpec, clip_by_global_norm_
+from ecg_byte_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -172,14 +173,17 @@ def gradients(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional[
     global mean), detached."""
     for t in trainable:
         t.grad = None
-    loss = loss_fn()
+    with span("ecg.train.forward"):
+        loss = loss_fn()
     if loss is None:
         loss = torch.zeros((), device=trainable[0].device)
     else:
-        loss.backward()
+        with span("ecg.train.backward"):
+            loss.backward()
         loss = loss.detach()
     groups = [sharding.grad_group(t) for t in trainable] if mesh.grid().sharded else None
-    (loss,) = distributed.reduce_gradients_(trainable, loss, groups=groups)
+    with span("ecg.train.reduce"):
+        (loss,) = distributed.reduce_gradients_(trainable, loss, groups=groups)
     return loss
 
 
@@ -190,11 +194,12 @@ def apply_step(trainable: Sequence[torch.Tensor], loss_fn: Callable[[], Optional
     the global gradient), the optimizer and the schedule.  Returns the
     loss (the global mean), detached."""
     loss = gradients(trainable, loss_fn)
-    held = [t for t in trainable if t.grad is not None]
-    clip_by_global_norm_([t.grad for t in held], clip_norm,
-                         [sharding.norm_groups(t) for t in held])
-    optimizer.step()
-    scheduler.step()
+    with span("ecg.train.update"):
+        held = [t for t in trainable if t.grad is not None]
+        clip_by_global_norm_([t.grad for t in held], clip_norm,
+                             [sharding.norm_groups(t) for t in held])
+        optimizer.step()
+        scheduler.step()
     return loss
 
 
@@ -220,10 +225,11 @@ def make_train_step(config: TransformerConfig, optimizer: OptimizerSpec, *,
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                    rows: Optional[Rows] = None, n_valid: Optional[int] = None):
-        state.in_step = True
-        loss = apply_step(lora_lib.leaves(state.trainable),
-                          _step_loss(config, state, batch, generator, remat, rows, n_valid),
-                          state.optimizer, state.scheduler, optimizer.clip_norm)
+        with span("ecg.train.step"):
+            state.in_step = True
+            loss = apply_step(lora_lib.leaves(state.trainable),
+                              _step_loss(config, state, batch, generator, remat, rows, n_valid),
+                              state.optimizer, state.scheduler, optimizer.clip_norm)
         state.step += 1
         state.in_step = False
         return state, loss
@@ -232,7 +238,8 @@ def make_train_step(config: TransformerConfig, optimizer: OptimizerSpec, *,
 
 
 def _step_loss(config, state: TrainState, batch: Dict, generator, remat, rows, n_valid):
-    batch = _batch_tensors(batch, _device(state))
+    with span("ecg.train.batch"):
+        batch = _batch_tensors(batch, _device(state))
     params, lora = (state.base, state.trainable) if state.base is not None else (
         state.trainable, None)
     return lambda: _loss_from_batch(config, params, lora, batch, generator, remat, rows, n_valid)

@@ -1,33 +1,65 @@
-"""Tracing and timing utilities: the counterpart of
-``ecg_byte_tpu/utils/profiling.py`` in PyTorch's idiom.
+"""Tracing utilities: the counterpart of ``ecg_byte_tpu/utils/profiling.py``
+in PyTorch's idiom.
 
 - :func:`trace`: a context manager around ``torch.profiler.profile`` that
   writes one Chrome trace file (``*.pt.trace.json``: Perfetto,
   ``chrome://tracing`` or TensorBoard's profiler plugin open it) into a
   directory; ``cli.main --profile DIR`` traces its epoch loop with it;
-- :func:`hard_sync`: block until a result is computed by reading one
-  element back to the host;
-- :class:`StepTimer`: steady-state step times, the first step dropped;
-- :func:`log_compile_time`: the wall clock of a first call (on the card the
-  one that builds the CUDA kernels);
+- :func:`span`: the program's own named ranges (``ecg.*``), which land in
+  a trace as ``user_annotation`` events on the kernels' clock while a
+  profiler records, and cost one flag read when none does;
+- :func:`record` and :func:`records`: a bounded in-memory log of host-clock
+  readings by kind (``greedy_generate`` logs each call under ``"decode"``);
 - :func:`log_live_bytes`: the bytes live on a device, which ``cli.main``
   prints under ``ECG_BYTE_LOG_MEMORY=1``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import os
 import re
 import time
-from typing import Callable, Optional
+from typing import Dict, List
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 # a kernel's event in the Chrome trace that torch.profiler exports
 _KERNEL_EVENT = re.compile(rb'"cat"\s*:\s*"kernel"')
+
+# the calls of each kind that record() keeps, the newest last
+RECORDS_KEPT = 1024
+
+_OFF = contextlib.nullcontext()
+_RECORDS: Dict[str, collections.deque] = {}
+
+
+def span(name: str):
+    """A context manager that marks its block as ``name`` in a trace.
+
+    While a profiler records (``torch.profiler``, :func:`trace`) it is
+    ``torch.profiler.record_function(name)``, so the block shows as a
+    ``user_annotation`` on the thread that ran it, nested in the spans
+    open there, and the kernels it launched correlate to it.  Otherwise it
+    is one shared no-op object: no allocation and no call into the
+    profiler, which costs several microseconds a range even when off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def record(kind: str, values: dict) -> None:
+    """Append a copy of ``values`` to the log of ``kind``, which keeps the
+    last :data:`RECORDS_KEPT`."""
+    _RECORDS.setdefault(kind, collections.deque(maxlen=RECORDS_KEPT)).append(dict(values))
+
+
+def records(kind: str) -> List[dict]:
+    """The logged values of ``kind``, oldest first (copies of the log's)."""
+    return [dict(v) for v in _RECORDS.get(kind, ())]
 
 
 def _device(device) -> torch.device:
@@ -69,78 +101,6 @@ def trace(log_dir: str, device=None, rank: int = 0):
             if not _KERNEL_EVENT.search(f.read()):
                 raise RuntimeError(f"{path} holds no CUDA kernel: the profiler recorded no "
                                    "activity of the card")
-
-
-def _first_tensor(x) -> Optional[torch.Tensor]:
-    """The first tensor leaf of nested dicts (by sorted key, as the JAX
-    package's ``jax.tree.leaves``), lists and tuples."""
-    if isinstance(x, torch.Tensor):
-        return x
-    if isinstance(x, dict):
-        x = [x[k] for k in sorted(x)]
-    if isinstance(x, (list, tuple)):
-        for v in x:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
-
-
-def hard_sync(x) -> float:
-    """Block until ``x`` is computed by reading one element of its first
-    tensor leaf back to the host."""
-    leaf = _first_tensor(x)
-    if leaf is None:
-        raise ValueError(f"no tensor in {type(x).__name__}")
-    return float(leaf.detach().reshape(-1)[0].item())
-
-
-class StepTimer:
-    """Accumulates steady-state step timings.
-
-    Usage::
-
-        timer = StepTimer()
-        for batch in loader:
-            with timer.step():
-                out = step_fn(state, batch)
-                timer.sync(out)
-        print(timer.summary())
-    """
-
-    def __init__(self):
-        self.times = []
-
-    @contextlib.contextmanager
-    def step(self):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
-
-    def sync(self, out) -> None:
-        hard_sync(out)
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times[1:] or self.times)  # the first step builds and warms
-        return {
-            "steps": len(self.times),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-        }
-
-
-def log_compile_time(fn: Callable, *args, label: str = "fn") -> float:
-    """Time the first call of ``fn`` (on the card the one that builds the
-    CUDA kernels it launches), its result read back."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    hard_sync(out)
-    dt = time.perf_counter() - t0
-    print(f"[profiling] {label} first call: {dt:.1f}s")
-    return dt
 
 
 def _cpu_tensor_bytes() -> int:
